@@ -1,0 +1,114 @@
+# coding: utf-8
+"""Host-side graph file IO, without pandas.
+
+The artifact contract is ``ctgcn_tpu``'s, so both packages run on the same
+data tree:
+
+  <base>/<origin_folder>/<date>.csv      tab-separated edges, header row,
+                                         columns from_id, to_id[, weight]
+  <base>/nodes_set/nodes.csv             one node name per line (no header)
+  <base>/<core_folder>/<date>/<k>.npz    k-core adjacency (scipy)
+  <base>/<walk_pair_folder>/<date>.npz   walk co-occurrence matrix
+  <base>/<node_freq_folder>/<date>.json  replicated negative-sampling list
+  <base>/<embed_folder>/<date>.csv       embedding: header "\\t0\\t1...",
+                                         node name as the index column
+
+Node names follow pandas' type inference: a column whose every entry
+parses as an integer holds ints, otherwise strings, so names written back
+into embedding CSVs read the same as the JAX package's.
+"""
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import scipy.sparse as sp
+
+
+def _infer_names(tokens):
+    try:
+        return [int(t) for t in tokens]
+    except ValueError:
+        return list(tokens)
+
+
+def read_node_list(node_path):
+    with open(node_path) as fp:
+        tokens = [line.rstrip("\r\n") for line in fp]
+    return _infer_names([t for t in tokens if t != ""])
+
+
+def read_edge_csv(file_path, node2idx, sep="\t"):
+    """Read an edge list CSV (header skipped) into (src, dst, weight) arrays
+    of *directed* rows as given in the file, self-loops removed."""
+    with open(file_path) as fp:
+        lines = fp.read().splitlines()[1:]
+    rows = [line.split(sep) for line in lines if line != ""]
+    src_names = _infer_names([r[0] for r in rows])
+    dst_names = _infer_names([r[1] for r in rows])
+    src = np.fromiter((node2idx[s] for s in src_names), np.int64,
+                      count=len(rows))
+    dst = np.fromiter((node2idx[d] for d in dst_names), np.int64,
+                      count=len(rows))
+    if rows and len(rows[0]) >= 3:
+        w = np.array([float(r[2]) for r in rows], dtype=np.float64)
+    else:
+        w = np.ones(len(rows), dtype=np.float64)
+    keep = src != dst
+    return src[keep], dst[keep], w[keep]
+
+
+def build_adj_from_edges(src, dst, weight, node_num):
+    """Symmetric COO adjacency; a duplicate (u, v) takes the *last* weight
+    seen in file order (the reference's lil assignment semantics)."""
+    both_src = np.concatenate([src, dst])
+    both_dst = np.concatenate([dst, src])
+    both_w = np.concatenate([weight, weight])
+    key = both_src * np.int64(node_num) + both_dst
+    # np.unique keeps the first occurrence: on the reversed keys that is
+    # the last write
+    _, idx = np.unique(key[::-1], return_index=True)
+    sel = len(key) - 1 - idx
+    return sp.coo_matrix(
+        (both_w[sel], (both_src[sel], both_dst[sel])),
+        shape=(node_num, node_num))
+
+
+def get_sp_adj_mat(file_path, full_node_list, sep="\t"):
+    """Edge CSV -> symmetric scipy COO over the full node list."""
+    node_num = len(full_node_list)
+    node2idx = dict(zip(full_node_list, range(node_num)))
+    src, dst, w = read_edge_csv(file_path, node2idx, sep=sep)
+    return build_adj_from_edges(src, dst, w, node_num)
+
+
+def sorted_dir(path):
+    return sorted(os.listdir(path))
+
+
+def write_embedding_csv(path, arr, names, sep="\t"):
+    """[N, d] float array -> CSV with a header row of column numbers and
+    the node name as the index (what ``pandas.DataFrame.to_csv`` writes).
+    ``%.9g`` round-trips float32 exactly."""
+    arr = np.asarray(arr, dtype=np.float32)
+    lines = [sep + sep.join(str(j) for j in range(arr.shape[1]))]
+    for name, row in zip(names, arr):
+        lines.append(str(name) + sep + sep.join("%.9g" % v for v in row))
+    with open(path, "w") as fp:
+        fp.write("\n".join(lines) + "\n")
+
+
+def read_embedding_csv(path, sep="\t"):
+    """Inverse of :func:`write_embedding_csv`: (names, float32 [N, d])."""
+    with open(path) as fp:
+        lines = fp.read().splitlines()[1:]
+    rows = [line.split(sep) for line in lines if line != ""]
+    names = _infer_names([r[0] for r in rows])
+    arr = np.array([[float(v) for v in r[1:]] for r in rows], np.float32)
+    return names, arr
+
+
+def write_time_csv(path, times):
+    """Per-window training seconds under a ``time`` column."""
+    with open(path, "w") as fp:
+        fp.write("time\n" + "".join(f"{t!r}\n" for t in times))

@@ -1,0 +1,113 @@
+# coding: utf-8
+"""Window loaders (port of ``ctgcn_tpu/data/loader.py``, the parts the
+CTGCN-C / U-neg path reads): the k-core pyramid bank of a window as BSR
+plans, and the walk tables as CSR ``WalkData``.
+
+Everything here is built on the host; the driver moves the results to the
+training device.
+"""
+from __future__ import annotations
+
+import json
+import os
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+from ctgcn_torch.data.formats import sorted_dir
+from ctgcn_torch.losses import WalkData
+from ctgcn_torch.ops.pyramid import build_core_pyramid, stack_pyramids
+from ctgcn_torch.utils import pad_bucket
+
+#: ROADMAP.md item that brings each core backend the port does not have yet
+_MISSING_BACKENDS = {
+    "auto": "queue 1, item 2 (the default policy needs the dense, blocks "
+            "and ELL backends)",
+    "dense": "queue 1, item 2",
+    "blocks": "queue 1, item 2",
+    "ell": "queue 1, item 2",
+    "segment": "queue 2B (ops/spmm.py)",
+}
+
+
+class DataLoader:
+    """Per-window data loading over one dataset's artifact tree."""
+
+    def __init__(self, node_list, max_time_num):
+        self.max_time_num = max_time_num
+        self.full_node_list = node_list
+        self.node_num = len(node_list)
+
+    def _window(self, start_idx, duration):
+        return range(start_idx, min(start_idx + duration, self.max_time_num))
+
+    def get_core_scipy_list(self, core_base_path, start_idx, duration,
+                            max_core=-1):
+        """Raw scipy core matrices per snapshot, max core first (truncate to
+        ``max_core``, then reverse)."""
+        date_dirs = sorted_dir(core_base_path)
+        if start_idx >= len(date_dirs):
+            raise ValueError(f"start_idx {start_idx} >= {len(date_dirs)} "
+                             "core snapshots")
+        out = []
+        for i in self._window(start_idx, duration):
+            ddir = os.path.join(core_base_path, date_dirs[i])
+            f_list = sorted_dir(ddir)
+            mc = len(f_list) if max_core == -1 else max_core
+            f_list = f_list[:mc][::-1]
+            out.append([sp.load_npz(os.path.join(ddir, f)) for f in f_list])
+        return out
+
+    def get_core_adj_list(self, core_base_path, start_idx, duration,
+                          max_core=-1, core_backend="pallas"):
+        """The window's k-core pyramids as one stacked host ``CorePyramid``
+        with BSR plans: K = the window's largest core count, +I on slot 0,
+        delta-skip as ``valid``, each snapshot's own plans."""
+        if core_backend != "pallas":
+            item = _MISSING_BACKENDS.get(core_backend)
+            if item is None:
+                raise ValueError(f"unknown core_backend {core_backend!r}")
+            raise NotImplementedError(
+                f"core_backend {core_backend!r} is not ported yet "
+                f"(ROADMAP.md {item}); use \"pallas\"")
+        per_snap = self.get_core_scipy_list(core_base_path, start_idx,
+                                            duration, max_core=max_core)
+        num_slots = max(len(m) for m in per_snap)
+        return stack_pyramids([
+            build_core_pyramid(mats, self.node_num, num_slots=num_slots)
+            for mats in per_snap])
+
+    def get_walk_data(self, walk_pair_base_path, node_freq_base_path,
+                      start_idx, duration):
+        """Walk co-occurrence and frequency artifacts as host ``WalkData``:
+        per snapshot the partner lists in CSR (columns ascending within a
+        node), the flat width bucket-padded to a power of two >= 4096, and
+        the log of each node's count in the negative-sampling list."""
+        walk_files = sorted_dir(walk_pair_base_path)
+        freq_files = sorted_dir(node_freq_base_path)
+        flats, offsets_t, degrees_t, logits_t = [], [], [], []
+        width = 1
+        for i in self._window(start_idx, duration):
+            csr = sp.load_npz(
+                os.path.join(walk_pair_base_path, walk_files[i])).tocsr()
+            csr.sum_duplicates()
+            csr.sort_indices()
+            flats.append(csr.indices.astype(np.int32))
+            offsets_t.append(csr.indptr[:-1].astype(np.int32))
+            degrees_t.append(np.diff(csr.indptr).astype(np.int32))
+            width = max(width, pad_bucket(csr.indices.shape[0], 4096))
+            with open(os.path.join(node_freq_base_path, freq_files[i])) as fp:
+                freq_list = json.load(fp)
+            counts = np.bincount(np.asarray(freq_list, dtype=np.int64),
+                                 minlength=self.node_num).astype(np.float64)
+            with np.errstate(divide="ignore"):
+                logits_t.append(np.log(counts).astype(np.float32))
+        flat_arr = np.zeros((len(flats), width), np.int32)
+        for t, flat in enumerate(flats):
+            flat_arr[t, :flat.shape[0]] = flat
+        return WalkData(
+            nbr_flat=torch.from_numpy(flat_arr),
+            nbr_offsets=torch.from_numpy(np.stack(offsets_t)),
+            degrees=torch.from_numpy(np.stack(degrees_t)),
+            neg_logits=torch.from_numpy(np.stack(logits_t)))

@@ -1,0 +1,42 @@
+# coding: utf-8
+"""Parameters of the JAX package's models as the port's state_dicts.
+
+``params_from_numpy(tree)`` takes the parameter tree of a JAX ``CTGCN`` as
+nested dicts of numpy arrays -- what ``flax.serialization.to_state_dict``
+gives, converted leaf by leaf with ``numpy.asarray`` -- and returns the
+``state_dict`` of the port's ``ctgcn_torch.nn.core_models.CTGCN``.  The
+per-timestep ``mlps``/``cdns`` leaves carry a leading [T] axis there and
+become one module per timestep here.  Layouts match without transposes:
+``Linear.weight`` is [in, out] in both packages and the RNN cells use
+torch's gate layout in both.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _flatten(tree, prefix=""):
+    """{'a': {'0': {'b': x}}} -> {'a.0.b': x}, ``None`` leaves dropped."""
+    out = {}
+    for key, val in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(val, dict):
+            out.update(_flatten(val, name + "."))
+        elif val is not None:
+            out[name] = np.asarray(val)
+    return out
+
+
+def params_from_numpy(tree):
+    """JAX CTGCN parameter tree (nested dicts of arrays) -> state_dict."""
+    state = {}
+    for name, arr in _flatten(tree).items():
+        head, _, rest = name.partition(".")
+        if head in ("mlps", "cdns"):
+            for t in range(arr.shape[0]):
+                state[f"{head}.{t}.{rest}"] = torch.tensor(
+                    arr[t], dtype=torch.float32)
+        else:
+            state[name] = torch.tensor(arr, dtype=torch.float32)
+    return state

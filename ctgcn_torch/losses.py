@@ -1,0 +1,107 @@
+# coding: utf-8
+"""Skip-gram negative-sampling loss (port of ``ctgcn_tpu/losses.py``).
+
+The sampler and the loss arithmetic are separate functions, so a test can
+hand both packages the same indices:
+
+  * ``sample_uneg``: per timestamp, up to ``neg_num`` positive partners
+    per batch node -- all of them when the node has at most ``neg_num``,
+    else ``neg_num`` DISTINCT ones by Robert Floyd's algorithm (exact
+    uniform subsets) -- and ``neg_num`` shared negatives drawn from the
+    unigram^0.75 table;
+  * ``uneg_loss``: BCEWithLogits(x, 1) = softplus(-x) on positive scores,
+    and the negatives' scores collapse to one dot with the SUM of the
+    negative embeddings, BCEWithLogits(x, 0) = softplus(x), weighted by the
+    node's positive count.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch.nn import functional as F
+
+
+@dataclasses.dataclass(frozen=True)
+class WalkData:
+    """Per-window walk tables (CSR).
+
+    nbr_flat:    int32[T, P] concatenated partner ids, node-major (pad 0).
+    nbr_offsets: int32[T, N] start of each node's run in nbr_flat.
+    degrees:     int32[T, N] partner count per node.
+    neg_logits:  float32[T, N] log of each node's negative-sampling weight
+                 (-inf for weight 0).
+    """
+
+    nbr_flat: torch.Tensor
+    nbr_offsets: torch.Tensor
+    degrees: torch.Tensor
+    neg_logits: torch.Tensor
+
+    def to(self, device) -> "WalkData":
+        return WalkData(*(getattr(self, f.name).to(device)
+                          for f in dataclasses.fields(self)))
+
+
+def sample_uneg(walk: WalkData, batch_idx, neg_num, generator):
+    """Draw the loss's indices for every timestamp of the window.
+
+    Returns (j int64[T, B, S]: partner slots within each batch node's run;
+    neg_idx int64[T, S]: negative node ids), S = ``neg_num``.  All draws
+    come from ``generator`` (on the tensors' device)."""
+    dev = batch_idx.device
+    S = neg_num
+    deg = walk.degrees[:, batch_idx].long()                    # [T, B]
+    chosen = torch.full((S,) + deg.shape, -1, dtype=torch.long, device=dev)
+    for s in range(S):
+        hi = torch.clamp(deg - S + s, min=0)
+        u = torch.rand(deg.shape, generator=generator, device=dev)
+        r = torch.minimum((u * (hi + 1)).long(), hi)            # U{0..hi}
+        dup = (chosen[:s] == r).any(dim=0)
+        chosen[s] = torch.where(dup, hi, r)
+    slot = torch.arange(S, device=dev)
+    j = torch.where(deg[..., None] <= S, slot, chosen.permute(1, 2, 0))
+    probs = torch.exp(walk.neg_logits.float())
+    neg_idx = torch.multinomial(probs, S, replacement=True,
+                                generator=generator)
+    return j, neg_idx
+
+
+def uneg_loss(embs, batch_idx, batch_mask, walk: WalkData, j, neg_idx,
+              Q=10.0):
+    """Negative-sampling loss summed over timestamps, from given indices.
+
+    embs [T, N, d]; batch_idx int[B] (padding entries arbitrary);
+    batch_mask bool[B]; j, neg_idx from :func:`sample_uneg`."""
+    T, S = j.shape[0], j.shape[2]
+    tt = torch.arange(T, device=embs.device)
+    deg = walk.degrees[:, batch_idx].long()                    # [T, B]
+    slot = torch.arange(S, device=embs.device)
+    slot_valid = ((slot < torch.clamp(deg, max=S)[..., None])
+                  & batch_mask[None, :, None])                 # [T, B, S]
+    # out-of-run slots of nodes with fewer than S partners are masked out
+    # below; the clamp only keeps their reads inside the table
+    flat_pos = torch.clamp(
+        walk.nbr_offsets[:, batch_idx].long()[..., None] + j,
+        max=walk.nbr_flat.shape[1] - 1)
+    pos_idx = torch.gather(walk.nbr_flat.long(), 1,
+                           flat_pos.reshape(T, -1)).reshape(j.shape)
+    e_node = embs[:, batch_idx]                                # [T, B, d]
+    e_pos = embs[tt[:, None, None], pos_idx]                   # [T, B, S, d]
+    pos_score = (e_node[:, :, None, :] * e_pos).sum(-1)
+    valid_f = slot_valid.float()
+    sample_num = valid_f.sum(dim=(1, 2))
+    denom = torch.clamp(sample_num, min=1)
+    pos_loss = (F.softplus(-pos_score) * valid_f).sum(dim=(1, 2)) / denom
+    s_neg = embs[tt[:, None], neg_idx].sum(dim=1)              # [T, d]
+    neg_score = torch.einsum("tbd,td->tb", e_node, s_neg)
+    neg_loss = (F.softplus(neg_score) * valid_f.sum(-1)).sum(-1) / denom
+    loss_t = pos_loss + Q * neg_loss
+    return torch.where(sample_num > 0, loss_t, 0.0).sum()
+
+
+def negative_sampling_loss(embs, batch_idx, batch_mask, walk: WalkData,
+                           generator, neg_num=20, Q=10.0):
+    """Sample with ``generator`` and compute the loss."""
+    j, neg_idx = sample_uneg(walk, batch_idx, neg_num, generator)
+    return uneg_loss(embs, batch_idx, batch_mask, walk, j, neg_idx, Q=Q)

@@ -1,0 +1,322 @@
+# coding: utf-8
+"""GRU/LSTM cells, the masked ``rnn_scan``, and ``core_rnn_sum``: the
+core-axis RNN sum with a hand-written backward (port of
+``ctgcn_tpu/ops/rnn.py``).
+
+Parameter layout and gate math follow ``torch.nn.GRU`` / ``nn.LSTM``
+(w_ih [G*H, in], w_hh [G*H, H], b_ih, b_hh; GRU gates r, z, n; LSTM gates
+i, f, g, o).  A masked step passes the carry through unchanged and emits
+zeros, which equals removing the step when outputs are summed.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+
+class _Cell(nn.Module):
+    GATES = 0
+
+    def __init__(self, input_dim, hidden_dim, bias=True, generator=None):
+        super().__init__()
+        G = self.GATES * hidden_dim
+        bound = 1.0 / math.sqrt(hidden_dim)
+
+        def uniform(*shape):
+            return nn.Parameter(
+                (torch.rand(*shape, generator=generator) * 2 - 1) * bound)
+
+        self.w_ih = uniform(G, input_dim)
+        self.w_hh = uniform(G, hidden_dim)
+        self.b_ih = uniform(G) if bias else nn.Parameter(torch.zeros(G))
+        self.b_hh = uniform(G) if bias else nn.Parameter(torch.zeros(G))
+
+    @property
+    def hidden_dim(self):
+        return self.w_hh.shape[1]
+
+    @property
+    def is_lstm(self):
+        return self.GATES == 4
+
+    def input_proj(self, x):
+        """Input-to-hidden projection, hoistable out of the scan."""
+        return x @ self.w_ih.T + self.b_ih
+
+    def forward(self, carry, x):
+        return self.step_from_proj(carry, self.input_proj(x))
+
+
+class GRUCell(_Cell):
+    """GRU parameters, torch layout (gate order: reset, update, new)."""
+
+    GATES = 3
+
+    def step_from_proj(self, h, gi):
+        return _gru_step(gi, h @ self.w_hh.T + self.b_hh, h, self.hidden_dim)
+
+
+class LSTMCell(_Cell):
+    """LSTM parameters, torch layout (gate order: input, forget, cell,
+    output)."""
+
+    GATES = 4
+
+    def step_from_proj(self, carry, gi):
+        h, c = carry
+        return _lstm_gates_step(gi + h @ self.w_hh.T + self.b_hh, c,
+                                self.hidden_dim)
+
+
+def rnn_scan(cell, xs, mask=None):
+    """Run a GRU/LSTM over the leading axis of ``xs`` ([T, B, in]) from a
+    zero carry.
+
+    mask: optional bool[T]; invalid steps pass the carry through and emit
+    zeros.  Returns (outs [T, B, H], final carry)."""
+    T, B = xs.shape[0], xs.shape[1]
+    H = cell.hidden_dim
+    h = xs.new_zeros(B, H)
+    carry = (h, xs.new_zeros(B, H)) if cell.is_lstm else h
+    gi_all = cell.input_proj(xs)
+    outs = []
+    for t in range(T):
+        new = cell.step_from_proj(carry, gi_all[t])
+        if mask is not None:
+            v = mask[t].bool()
+            if cell.is_lstm:
+                new = tuple(torch.where(v, nw, old)
+                            for nw, old in zip(new, carry))
+            else:
+                new = torch.where(v, new, carry)
+        carry = new
+        out = carry[0] if cell.is_lstm else carry
+        outs.append(out if mask is None
+                    else torch.where(mask[t].bool(), out, 0.0))
+    return torch.stack(outs), carry
+
+
+#: default byte gate of core_rnn_sum's K-batched mode (CVJP batch budget)
+CVJP_BATCH_BUDGET = 512 << 20
+
+
+def _batched(is_lstm, acc, H, batch_budget):
+    """The K-batched mode when the [K, N, G*H] f32 gate stacks fit the
+    budget; the lean per-step recompute above it."""
+    return 4 * acc.shape[0] * acc.shape[1] * (4 if is_lstm else 3) * H \
+        <= batch_budget
+
+
+class _CoreRnnSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, acc, valid, w_ih, w_hh, b_ih, b_hh, is_lstm,
+                batch_budget):
+        K, n = acc.shape[0], acc.shape[1]
+        H = w_hh.shape[1]
+        batched = _batched(is_lstm, acc, H, batch_budget)
+        h = acc.new_zeros(n, H, dtype=torch.float32)
+        c = torch.zeros_like(h)
+        s = torch.zeros_like(h)
+        saved_h = acc.new_empty(K, n, H)
+        saved_c = acc.new_empty(K, n, H) if is_lstm else None
+        if batched:
+            # one [K, N, d] GEMM hoisted out of the sequential loop
+            gi_all = (F.relu(acc.float()) * valid[:, None, None]) @ w_ih.T \
+                + b_ih
+        for k in range(K):
+            v = valid[k]
+            vb = v > 0
+            gi = (gi_all[k] if batched
+                  else (F.relu(acc[k].float()) * v) @ w_ih.T + b_ih)
+            saved_h[k] = h
+            gh = h @ w_hh.T + b_hh
+            if is_lstm:
+                saved_c[k] = c
+                h_new, c_new = _lstm_gates_step(gi + gh, c, H)
+                c = torch.where(vb, c_new, c)
+            else:
+                h_new = _gru_step(gi, gh, h, H)
+            h = torch.where(vb, h_new, h)
+            s = s + torch.where(vb, h, 0.0)
+        ctx.save_for_backward(acc, valid, w_ih, w_hh, b_ih, b_hh, saved_h,
+                              *(() if saved_c is None else (saved_c,)))
+        ctx.is_lstm = is_lstm
+        ctx.batched = batched
+        return s
+
+    @staticmethod
+    def backward(ctx, g_out):
+        acc, valid, w_ih, w_hh, b_ih, b_hh, saved_h, *rest = \
+            ctx.saved_tensors
+        p = (w_ih, w_hh, b_ih, b_hh)
+        g_out = g_out.float()
+        if ctx.batched:
+            grads = _bwd_batched(p, acc, valid, saved_h,
+                                 rest[0] if ctx.is_lstm else None, g_out)
+        else:
+            grads = _bwd_lean(p, acc, valid, saved_h,
+                              rest[0] if ctx.is_lstm else None, g_out)
+        d_acc, gw_ih, gw_hh, gb_ih, gb_hh = grads
+        return d_acc, None, gw_ih, gw_hh, gb_ih, gb_hh, None, None
+
+
+def _gru_step(gi, gh, h, H):
+    r = torch.sigmoid(gi[..., :H] + gh[..., :H])
+    z = torch.sigmoid(gi[..., H:2 * H] + gh[..., H:2 * H])
+    n = torch.tanh(gi[..., 2 * H:] + r * gh[..., 2 * H:])
+    return (1.0 - z) * n + z * h
+
+
+def _lstm_gates_step(gates, c, H):
+    i = torch.sigmoid(gates[..., :H])
+    f = torch.sigmoid(gates[..., H:2 * H])
+    g = torch.tanh(gates[..., 2 * H:3 * H])
+    o = torch.sigmoid(gates[..., 3 * H:])
+    c_new = f * c + i * g
+    return o * torch.tanh(c_new), c_new
+
+
+def _bwd_batched(p, acc, valid, saved_h, saved_c, g_out):
+    """K-batched backward: gates for all slots as batched GEMMs; the
+    reverse loop's sequential chain is one d_gates @ w_hh GEMM per step."""
+    w_ih, w_hh, b_ih, b_hh = p
+    K, n = acc.shape[0], acc.shape[1]
+    H = w_hh.shape[1]
+    vmask = valid[:, None, None]
+    acc_f = acc.float()
+    hx_all = F.relu(acc_f) * vmask
+    gi_all = hx_all @ w_ih.T + b_ih
+    h_prevs = saved_h.float()
+    dh = g_out.new_zeros(n, H)
+    if saved_c is not None:
+        c_prevs = saved_c.float()
+        gates = gi_all + h_prevs @ w_hh.T + b_hh
+        i = torch.sigmoid(gates[..., :H])
+        f = torch.sigmoid(gates[..., H:2 * H])
+        g = torch.tanh(gates[..., 2 * H:3 * H])
+        o = torch.sigmoid(gates[..., 3 * H:])
+        tc = torch.tanh(f * c_prevs + i * g)
+        dc = torch.zeros_like(dh)
+        d_gates = g_out.new_empty(K, n, 4 * H)
+        for k in reversed(range(K)):
+            vb = valid[k] > 0
+            dh_in = dh + torch.where(vb, g_out, 0.0)
+            do = dh_in * tc[k]
+            dc_tot = dc + dh_in * o[k] * (1.0 - tc[k] * tc[k])
+            dg_k = torch.cat([
+                dc_tot * g[k] * i[k] * (1.0 - i[k]),
+                dc_tot * c_prevs[k] * f[k] * (1.0 - f[k]),
+                dc_tot * i[k] * (1.0 - g[k] * g[k]),
+                do * o[k] * (1.0 - o[k])], dim=-1)
+            dg_k = torch.where(vb, dg_k, 0.0)
+            dh = torch.where(vb, dg_k @ w_hh, dh_in)
+            dc = torch.where(vb, dc_tot * f[k], dc)
+            d_gates[k] = dg_k
+        d_gi = d_gh = d_gates
+    else:
+        gh_all = h_prevs @ w_hh.T + b_hh
+        r = torch.sigmoid(gi_all[..., :H] + gh_all[..., :H])
+        z = torch.sigmoid(gi_all[..., H:2 * H] + gh_all[..., H:2 * H])
+        hn = gh_all[..., 2 * H:]
+        nn_ = torch.tanh(gi_all[..., 2 * H:] + r * hn)
+        d_gi = g_out.new_empty(K, n, 3 * H)
+        d_gh = g_out.new_empty(K, n, 3 * H)
+        for k in reversed(range(K)):
+            vb = valid[k] > 0
+            dh_in = dh + torch.where(vb, g_out, 0.0)
+            dn = dh_in * (1.0 - z[k])
+            dz = dh_in * (h_prevs[k] - nn_[k])
+            da_n = dn * (1.0 - nn_[k] * nn_[k])
+            da_r = da_n * hn[k] * r[k] * (1.0 - r[k])
+            da_z = dz * z[k] * (1.0 - z[k])
+            d_gi_k = torch.where(vb, torch.cat([da_r, da_z, da_n], -1), 0.0)
+            d_gh_k = torch.where(
+                vb, torch.cat([da_r, da_z, da_n * r[k]], -1), 0.0)
+            dh = torch.where(vb, dh_in * z[k] + d_gh_k @ w_hh, dh_in)
+            d_gi[k] = d_gi_k
+            d_gh[k] = d_gh_k
+    d_acc = (((d_gi @ w_ih) * vmask) * (acc_f > 0)).to(acc.dtype)
+    return (d_acc,
+            torch.einsum("kng,knd->gd", d_gi, hx_all),
+            torch.einsum("kng,knh->gh", d_gh, h_prevs),
+            d_gi.sum(dim=(0, 1)), d_gh.sum(dim=(0, 1)))
+
+
+def _bwd_lean(p, acc, valid, saved_h, saved_c, g_out):
+    """Lean backward: each reverse step recomputes its gates from the saved
+    pre-step carry; nothing of size [K, N, G*H] is materialized."""
+    w_ih, w_hh, b_ih, b_hh = p
+    K, n = acc.shape[0], acc.shape[1]
+    H = w_hh.shape[1]
+    dh = g_out.new_zeros(n, H)
+    dc = torch.zeros_like(dh)
+    gw_ih, gw_hh = torch.zeros_like(w_ih), torch.zeros_like(w_hh)
+    gb_ih, gb_hh = torch.zeros_like(b_ih), torch.zeros_like(b_hh)
+    d_acc = torch.empty_like(acc)
+    for k in reversed(range(K)):
+        v = valid[k]
+        vb = v > 0
+        dh_in = dh + torch.where(vb, g_out, 0.0)
+        acc_f = acc[k].float()
+        hx = F.relu(acc_f) * v
+        gi = hx @ w_ih.T + b_ih
+        h_prev = saved_h[k].float()
+        if saved_c is not None:
+            c_prev = saved_c[k].float()
+            gates = gi + h_prev @ w_hh.T + b_hh
+            i = torch.sigmoid(gates[..., :H])
+            f = torch.sigmoid(gates[..., H:2 * H])
+            g = torch.tanh(gates[..., 2 * H:3 * H])
+            o = torch.sigmoid(gates[..., 3 * H:])
+            tc = torch.tanh(f * c_prev + i * g)
+            do = dh_in * tc
+            dc_tot = dc + dh_in * o * (1.0 - tc * tc)
+            d_gates = torch.where(vb, torch.cat([
+                dc_tot * g * i * (1.0 - i), dc_tot * c_prev * f * (1.0 - f),
+                dc_tot * i * (1.0 - g * g), do * o * (1.0 - o)], -1), 0.0)
+            dh = torch.where(vb, d_gates @ w_hh, dh_in)
+            dc = torch.where(vb, dc_tot * f, dc)
+            d_gi = d_gh = d_gates
+        else:
+            gh = h_prev @ w_hh.T + b_hh
+            r = torch.sigmoid(gi[..., :H] + gh[..., :H])
+            z = torch.sigmoid(gi[..., H:2 * H] + gh[..., H:2 * H])
+            h_n = gh[..., 2 * H:]
+            nn_ = torch.tanh(gi[..., 2 * H:] + r * h_n)
+            dn = dh_in * (1.0 - z)
+            dz = dh_in * (h_prev - nn_)
+            da_n = dn * (1.0 - nn_ * nn_)
+            da_r = da_n * h_n * r * (1.0 - r)
+            da_z = dz * z * (1.0 - z)
+            d_gi = torch.where(vb, torch.cat([da_r, da_z, da_n], -1), 0.0)
+            d_gh = torch.where(vb, torch.cat([da_r, da_z, da_n * r], -1),
+                               0.0)
+            dh = torch.where(vb, dh_in * z + d_gh @ w_hh, dh_in)
+        d_acc[k] = ((d_gi @ w_ih) * v) * (acc_f > 0)
+        gw_ih += d_gi.T @ hx
+        gw_hh += d_gh.T @ h_prev
+        gb_ih += d_gi.sum(dim=0)
+        gb_hh += d_gh.sum(dim=0)
+    return d_acc, gw_ih, gw_hh, gb_ih, gb_hh
+
+
+def core_rnn_sum(cell, acc, valid, batch_budget=CVJP_BATCH_BUDGET):
+    """Masked core-axis RNN returning the SUM of the per-step hidden states:
+    ``rnn_scan(cell, relu(acc) * valid, mask=valid)[0].sum(0)`` as one op
+    whose backward saves only ``acc`` and the [K, N, H] pre-step carries
+    (stored in ``acc.dtype``) and runs one reverse pass.
+
+    Args:
+      cell: GRUCell or LSTMCell.
+      acc: [K, N, d] prefix accumulation.
+      valid: float32[K] mask (1.0 = valid slot).
+      batch_budget: byte gate of the K-batched mode (gate stacks of
+        [K, N, G*H] f32 at most this size); above it the lean mode.
+    Returns float32 [N, H].
+    """
+    return _CoreRnnSum.apply(acc, valid.float(), cell.w_ih, cell.w_hh,
+                             cell.b_ih, cell.b_hh, cell.is_lstm,
+                             int(batch_budget))

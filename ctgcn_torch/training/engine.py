@@ -1,0 +1,149 @@
+# coding: utf-8
+"""Unsupervised training engine (port of ``ctgcn_tpu/training/engine.py``,
+the U-neg trainer).
+
+Every epoch splits the nodes into batches; each batch re-runs the whole
+window forward and adds its loss gradient to the parameters' ``.grad``,
+and one optimizer step follows the epoch (gradient accumulation, as the
+JAX engine's batch scan does).
+
+The optimizer is ``torch.optim.Adam(lr, weight_decay=wd)``: L2 added to
+the gradient before the moment updates, eps 1e-8 -- the same update as
+the JAX package's ``optax.chain(add_decayed_weights, scale_by_adam,
+scale(-lr))``.  Parameters are saved with ``torch.save(state_dict)``.
+"""
+from __future__ import annotations
+
+import os
+import time
+
+import numpy as np
+import torch
+
+from ctgcn_torch.data.formats import write_embedding_csv
+from ctgcn_torch.utils import check_and_make_path
+
+
+def batch_matrix(node_num, batch_size, rng=None, shuffle=True):
+    """Split node ids into a padded [batch_num, batch_size] matrix + mask.
+
+    ``rng``: numpy ``Generator`` for the permutation (``shuffle``)."""
+    order = np.arange(node_num)
+    if shuffle:
+        order = (rng if rng is not None else np.random).permutation(node_num)
+    batch_num = -(-node_num // batch_size)
+    padded = np.zeros(batch_num * batch_size, np.int64)
+    mask = np.zeros(batch_num * batch_size, bool)
+    padded[:node_num] = order
+    mask[:node_num] = True
+    return (padded.reshape(batch_num, batch_size),
+            mask.reshape(batch_num, batch_size))
+
+
+def make_optimizer(params, lr, weight_decay=0.0):
+    return torch.optim.Adam(params, lr=lr, weight_decay=weight_decay,
+                            eps=1e-8)
+
+
+class UnsupervisedEmbedding:
+    """U-neg trainer with embedding CSV export.
+
+    Args:
+      model: ``nn.Module`` on ``device``.
+      loss_fn: (model, data, batch_idx[B], batch_mask[B], generator) ->
+        scalar tensor.
+      embed_fn: (model, data) -> [T, N, d] embeddings for export.
+      data: the window's inputs on ``device``.
+    """
+
+    def __init__(self, base_path, origin_folder, embedding_folder, node_list,
+                 model, loss_fn, embed_fn, data, device,
+                 model_folder="model", file_sep="\t"):
+        self.origin_base_path = os.path.abspath(
+            os.path.join(base_path, origin_folder))
+        self.embedding_base_path = os.path.abspath(
+            os.path.join(base_path, embedding_folder))
+        self.model_base_path = os.path.abspath(
+            os.path.join(base_path, model_folder))
+        self.model = model
+        self.loss_fn = loss_fn
+        self.embed_fn = embed_fn
+        self.data = data
+        self.device = torch.device(device)
+        self.file_sep = file_sep
+        self.full_node_list = node_list
+        self.node_num = len(node_list)
+        self.timestamp_list = sorted(os.listdir(self.origin_base_path))
+        check_and_make_path(self.embedding_base_path)
+        check_and_make_path(self.model_base_path)
+
+    def save_embedding(self, output, start_idx):
+        """output [T, N, d] (or [N, d]) -> one CSV per timestamp, named
+        after the snapshot file, node names as the index."""
+        arr = output.detach().float().cpu().numpy()
+        if arr.ndim == 2:
+            arr = arr[None]
+        for i in range(arr.shape[0]):
+            timestamp = self.timestamp_list[start_idx + i].split(".")[0]
+            write_embedding_csv(
+                os.path.join(self.embedding_base_path, timestamp + ".csv"),
+                arr[i], self.full_node_list, sep=self.file_sep)
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def learn_embedding(self, epoch=50, batch_size=1024, lr=1e-3,
+                        start_idx=0, weight_decay=0.0, model_file="ctgcn",
+                        load_model=False, shuffle=True, export=True, seed=0,
+                        verbose=True):
+        """Train, export, save.  Returns a dict: ``cost_time`` (seconds of
+        training), per epoch ``losses`` and ``epoch_seconds``, and
+        ``export_seconds`` (embedding export and model save)."""
+        model = self.model
+        model_path = os.path.join(self.model_base_path, model_file or "")
+        if load_model and model_file and os.path.exists(model_path):
+            model.load_state_dict(torch.load(model_path,
+                                             map_location=self.device))
+        # the training time includes the optimizer's construction (the
+        # first one in a process imports much of torch lazily)
+        st = time.time()
+        params = [p for p in model.parameters() if p.requires_grad]
+        optimizer = make_optimizer(params, lr, weight_decay)
+        perm_rng = np.random.default_rng(seed)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        losses, epoch_seconds = [], []
+        for e in range(epoch):
+            t_e = time.time()
+            batches, masks = batch_matrix(self.node_num, batch_size,
+                                          rng=perm_rng, shuffle=shuffle)
+            optimizer.zero_grad(set_to_none=False)
+            total = torch.zeros((), device=self.device)
+            for b_idx, b_mask in zip(batches, masks):
+                loss = self.loss_fn(
+                    model, self.data,
+                    torch.from_numpy(b_idx).to(self.device),
+                    torch.from_numpy(b_mask).to(self.device), gen)
+                loss.backward()
+                total += loss.detach()
+            optimizer.step()
+            loss_val = float(total)         # waits for the epoch to finish
+            self._sync()
+            epoch_seconds.append(time.time() - t_e)
+            losses.append(loss_val)
+            if verbose:
+                print(f"epoch {e + 1}, loss: {loss_val:.6f}, "
+                      f"cost time: {time.time() - st:.3f}s", flush=True)
+        cost_time = time.time() - st
+        t_export = time.time()
+        if export:
+            with torch.no_grad():
+                output = self.embed_fn(model, self.data)
+            self.save_embedding(output, start_idx)
+        if model_file:
+            torch.save(model.state_dict(), model_path)
+        self.model = model
+        return {"cost_time": cost_time, "losses": losses,
+                "epoch_seconds": epoch_seconds,
+                "export_seconds": time.time() - t_export}

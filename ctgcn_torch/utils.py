@@ -1,0 +1,57 @@
+# coding: utf-8
+"""Shared helpers: device selection, path helpers, method registries,
+padding buckets (the port's own copy of ``ctgcn_tpu/utils.py``)."""
+import os
+
+import torch
+
+
+def resolve_device(device="cuda"):
+    """``torch.device`` for ``device``; raises when CUDA is asked for and
+    there is no GPU (the port never falls back to the CPU by itself)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device 'cuda' requested but torch.cuda.is_available() is False;"
+            " pass device='cpu' (CLI: --device cpu) to run on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r}")
+    return dev
+
+
+def check_and_make_path(to_make):
+    """Create a directory (and parents) if it does not exist."""
+    if to_make == "" or to_make is None:
+        return
+    os.makedirs(to_make, exist_ok=True)
+
+
+def get_format_str(cnt):
+    """Zero-padded format string sized to ``cnt`` (file ordering is
+    load-bearing: core files sort lexicographically)."""
+    max_bit = 0
+    while cnt > 0:
+        cnt //= 10
+        max_bit += 1
+    return "{:0>" + str(max_bit) + "d}"
+
+
+STATIC_GNN_METHODS = (
+    "GCN", "TgGCN", "GAT", "TgGAT", "SAGE", "TgSAGE", "GIN", "TgGIN",
+    "PGNN", "CGCN-C", "CGCN-S",
+)
+DYNAMIC_GNN_METHODS = ("GCRN", "EvolveGCN", "VGRNN", "CTGCN-C", "CTGCN-S")
+NON_GNN_METHODS = ("DynGEM", "DynAE", "DynRNN", "DynAERNN", "TIMERS")
+
+
+def get_supported_methods():
+    """Every method name the JAX package's CLI accepts (the port raises
+    ``NotImplementedError`` for those it does not run yet)."""
+    return dict.fromkeys(
+        NON_GNN_METHODS + STATIC_GNN_METHODS + DYNAMIC_GNN_METHODS, 1)
+
+
+def pad_bucket(n, minimum=256):
+    """Bucketed padding size: next power of two >= max(n, minimum)."""
+    n = max(int(n), int(minimum))
+    return 1 << (n - 1).bit_length()

@@ -1,0 +1,140 @@
+# coding: utf-8
+"""``python -m ctgcn_torch.main`` end to end on the CPU: the preprocessing
+and embedding tasks of CTGCN-C (U-neg, BSR backend) on a small generated
+dataset, one epoch.  The embedding and time CSVs must read the way the
+JAX package's evaluators read them (pandas, tab-separated, node name as
+the index)."""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pandas as pd
+import pytest
+import torch
+
+from ctgcn_torch import main as cli
+
+ROOT = Path(__file__).resolve().parent.parent
+N, SNAPS = 120, 4
+
+
+@pytest.fixture(scope="module")
+def dataset(tmp_path_factory):
+    """Four snapshots of a small weighted graph and a config taken from
+    configs/uci.json (CTGCN-C), narrowed to test size."""
+    base = tmp_path_factory.mktemp("cli")
+    rng = np.random.default_rng(0)
+    names = [f"u{i}" for i in range(N)]
+    (base / "nodes_set").mkdir()
+    (base / "nodes_set" / "nodes.csv").write_text("\n".join(names) + "\n")
+    (base / "1.format").mkdir()
+    for t in range(SNAPS):
+        src = rng.integers(0, N, 500)
+        dst = rng.integers(0, N // (t + 1) + 8, 500) % N
+        (base / "1.format" / f"2010-0{t + 1}.csv").write_text(
+            "from_id\tto_id\tweight\n" + "".join(
+                f"u{a}\tu{b}\t{rng.integers(1, 5)}\n"
+                for a, b in zip(src, dst)))
+    with open(ROOT / "configs" / "uci.json") as fp:
+        uci = json.load(fp)
+    pre = dict(uci["preprocessing"]["CTGCN-C"], base_path=str(base),
+               walk_time=3)
+    emb = dict(uci["embedding"]["CTGCN-C"], base_path=str(base),
+               core_backend="pallas", epoch=1, duration=3, hid_dim=12,
+               embed_dim=6, batch_size=50, neg_num=4)
+    cfg = base / "cfg.json"
+    cfg.write_text(json.dumps({"preprocessing": {"CTGCN-C": pre},
+                               "embedding": {"CTGCN-C": emb}}))
+    return base, cfg, names, emb
+
+
+@pytest.fixture(scope="module")
+def trained(dataset):
+    base, cfg, names, emb = dataset
+    proc = subprocess.run(
+        [sys.executable, "-m", "ctgcn_torch.main", f"--config={cfg}",
+         "--task=preprocessing", "--method=CTGCN-C", "--device", "cpu"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    results = cli.main([f"--config={cfg}", "--task=embedding",
+                        "--method=CTGCN-C", "--device=cpu"])
+    return results
+
+
+def test_preprocessing_writes_the_artifact_tree(dataset, trained):
+    base, _, _, emb = dataset
+    for folder in (emb["core_folder"], emb["walk_pair_folder"],
+                   emb["node_freq_folder"]):
+        assert len(os.listdir(base / folder)) == SNAPS
+
+
+def test_embedding_windows_and_losses(trained):
+    # duration 3 over 4 snapshots: windows at 0 and 3
+    assert [r["idx"] for r in trained] == [0, 3]
+    for r in trained:
+        assert len(r["losses"]) == 1 and np.isfinite(r["losses"]).all()
+
+
+def test_embedding_csvs_read_like_the_jax_evaluators(dataset, trained):
+    base, _, names, emb = dataset
+    out = base / emb["embed_folder"]
+    files = sorted(os.listdir(out))
+    assert files == [f"2010-0{t + 1}.csv" for t in range(SNAPS)]
+    for f in files:
+        df = pd.read_csv(out / f, sep="\t", index_col=0)
+        assert list(df.columns) == [str(j) for j in range(emb["embed_dim"])]
+        arr = df.loc[names, :].values
+        assert arr.shape == (N, emb["embed_dim"])
+        assert np.isfinite(arr).all()
+
+
+def test_time_csv_and_model_file(dataset, trained):
+    base, _, _, emb = dataset
+    times = pd.read_csv(base / "CTGCN-C_time.csv")
+    assert list(times.columns) == ["time"] and len(times) == 2
+    state = torch.load(base / emb["model_folder"] / emb["model_file"])
+    assert state["norm.scale"].shape == (emb["embed_dim"],)
+
+
+def test_default_device_without_gpu_raises(dataset):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present; the default device is usable")
+    _, cfg, _, _ = dataset
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        cli.main([f"--config={cfg}", "--task=embedding",
+                  "--method=CTGCN-C"])
+
+
+@pytest.mark.parametrize("change, error", [
+    ({"core_backend": "auto"}, NotImplementedError),
+    ({"learning_type": "U-own"}, NotImplementedError),
+    ({"remat_policy": "save_spmm"}, NotImplementedError),
+])
+def test_unported_options_raise(dataset, tmp_path, change, error):
+    _, cfg, _, _ = dataset
+    config = json.loads(Path(cfg).read_text())
+    config["embedding"]["CTGCN-C"].update(change)
+    path = tmp_path / "cfg.json"
+    path.write_text(json.dumps(config))
+    with pytest.raises(error, match="not ported"):
+        cli.main([f"--config={path}", "--task=embedding",
+                  "--method=CTGCN-C", "--device=cpu"])
+
+
+@pytest.mark.parametrize("task, method", [("link_pred", None),
+                                          ("embedding", "GCN")])
+def test_unported_tasks_and_methods_raise(dataset, tmp_path, task, method):
+    _, cfg, _, _ = dataset
+    config = json.loads(Path(cfg).read_text())
+    config["link_pred"] = {}
+    config["embedding"]["GCN"] = dict(config["embedding"]["CTGCN-C"])
+    path = tmp_path / "cfg.json"
+    path.write_text(json.dumps(config))
+    argv = [f"--config={path}", f"--task={task}", "--device=cpu"]
+    if method:
+        argv.append(f"--method={method}")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        cli.main(argv)
