@@ -12,19 +12,23 @@ kernel against its plain PyTorch version.  Phases, one line each:
   1. build      the CUDA kernels from ``ctgcn_torch/csrc`` (nvcc, sm_90a);
   2. preprocess k-core pyramids and walk tables through ``ctgcn_torch.main``;
   3. kernels    each kernel at the main path's shapes (snapshot 2004-05 of
-                the window) against its plain version, the autograd
-                gradient of ``block_spmm``, times of kernel, plain version
-                and one library call, and each kernel's bound;
+                the window, both plans, d = 512 and 128) against both plain
+                versions (CSR gather + index_add_, dense blocks), the
+                autograd gradient of ``block_spmm``, times of kernel,
+                plain version and one library call on both plans at both
+                widths, and each kernel's bound;
      parity     a small CTGCN-C forward and gradient, kernels on the GPU
                 against the plain versions on the CPU;
   4. main path  the embedding task with the launch counters reset just
                 before and read just after;
+     profile    an epoch's device time by kernel class (``torch.profiler``);
   5. the ``kernels`` JSON line, the card's name and power limit, and the
      final ``{"ok": true, "device": ...}`` line.
 
 Any failure exits non-zero.  Without a GPU, or outside a checkout of the
 repository, the script stops before any result.
 """
+import dataclasses
 import json
 import os
 import shutil
@@ -45,6 +49,8 @@ PARITY_TOL = 1e-4
 #: outside the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
+#: device cycles queued ahead of a timed run (about 10 ms on an H100)
+SLEEP_CYCLES = 20_000_000
 
 
 def _fail(msg):
@@ -57,6 +63,11 @@ def _phase(tag, **fields):
 
 
 def _time_ms(fn, iters=20, warmup=3):
+    """Mean device ms of ``fn`` over back-to-back calls: what a call's
+    inputs left in L2 stays there for the next.  A device sleep queued
+    before the timed calls lets the host enqueue them all before the first
+    runs, so the host's own cost per call (Python, a wrapper's checks) is
+    not timed, unless ``fn`` waits for the device itself."""
     import torch
 
     for _ in range(warmup):
@@ -64,6 +75,7 @@ def _time_ms(fn, iters=20, warmup=3):
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -72,43 +84,49 @@ def _time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def _plan_csr(plan):
-    """The plan's matrix as a torch sparse CSR tensor on its device (the
-    library yardstick's input)."""
+def _time_ms_cold(fn, dev, iters=10):
+    """Mean device ms of ``fn`` with L2 flushed before each call (a 128 MB
+    buffer, over twice the 50 MB L2, is rewritten in between)."""
     import torch
 
-    from ctgcn_torch.ops.bsr_spmm import BLOCK
+    flush = torch.empty(32 * 1024 * 1024, device=dev)
+    fn()
+    total = 0.0
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
 
-    b, r, c = plan.blocks.nonzero(as_tuple=True)
-    rows = plan.block_row[b].long() * BLOCK + r
-    cols = plan.block_col[b].long() * BLOCK + c
-    coo = torch.sparse_coo_tensor(torch.stack([rows, cols]),
-                                  plan.blocks[b, r, c],
-                                  (plan.n_rows, plan.n_cols),
-                                  check_invariants=False)
-    return coo.coalesce().to_sparse_csr()
+
+def _plan_csr(plan):
+    """The plan's matrix as a torch sparse CSR tensor on its device (the
+    library yardstick's input), from the plan's own CSR arrays."""
+    import torch
+
+    return torch.sparse_csr_tensor(plan.csr_ptr.long(), plan.csr_col.long(),
+                                   plan.csr_val, (plan.n_rows, plan.n_cols),
+                                   check_invariants=False)
 
 
-def _bound(nnz, n_blocks, d, n_rows, n_cols):
-    """Least time for ``out = A @ x`` at these inputs, from what the
-    product needs: the larger of the bytes moved (A's nnz values and
-    column indices and its row pointers, x and out, each once) over the
-    HBM rate and its 2 * nnz * d FLOPs over the FP32 peak.  The time of
-    the dense-block work the kernel is given (``n_blocks`` 128 x 128
-    blocks, FP32) is returned beside it as ``block_work_ms``."""
+def _bound(nnz, d, n_rows, n_cols):
+    """Least time for ``out = A @ x`` at these inputs: the larger of the
+    bytes moved (A's nnz values and column indices and its row pointers,
+    x and out, each once) over the HBM rate and its 2 * nnz * d FLOPs
+    over the FP32 peak."""
     flops = 2.0 * nnz * d
     bytes_ = nnz * 8 + (n_rows + 1) * 4 + (n_cols + n_rows) * d * 4
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, bytes_ / PEAK_HBM_BYTES
-    block_flops = 2.0 * n_blocks * 128 * 128 * d
-    block_bytes = (n_blocks * (128 * 128 * 4 + 8)
-                   + (n_cols + n_rows) * d * 4)
     return {
         "bound_ms": max(t_ops, t_bytes) * 1e3,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "nnz": int(nnz), "flops": flops, "bytes": bytes_,
-        "block_flops": block_flops, "block_bytes": block_bytes,
-        "block_work_ms": max(block_flops / PEAK_FP32_FLOPS,
-                             block_bytes / PEAK_HBM_BYTES) * 1e3,
     }
 
 
@@ -124,8 +142,16 @@ def _check_close(name, got, ref, rtol=RTOL, atol_rel=ATOL_REL):
     return float(err.max())
 
 
+KERNELS = {"bsr_spmm_blockpar": "ctgcn_tpu/ops/pallas_spmm.py:146",
+           "bsr_spmm_rowwalk": "ctgcn_tpu/ops/pallas_spmm.py:97"}
+WIDTHS = (512, 128)   # hid 500 and embed 128, padded to 128: the SpMM widths
+
+
 def phase_kernels(cfg, dev):
-    """Each kernel at the main path's shapes against its plain version."""
+    """Each kernel at the main path's shapes (snapshot 2004-05) against
+    both plain versions, on both plans and padded plans, at both widths;
+    then each kernel's time on both plans at both widths beside the
+    library call and the bound."""
     import torch
 
     from ctgcn_torch.data.formats import sorted_dir
@@ -140,70 +166,106 @@ def phase_kernels(cfg, dev):
                                    args["duration"], core_backend="pallas")
     _phase("kernels", window_plans_built_seconds=time.time() - t0,
            blocks_fwd=[p.num_blocks for p in pyr.plan_fwd],
-           blocks_t=[p.num_blocks for p in pyr.plan_t])
-    fwd_host, tr_host = pyr.plan_fwd[t], pyr.plan_t[t]
-    fwd, tr = fwd_host.to(dev), tr_host.to(dev)
-    d = 512           # hid 500 padded to 128, layer 1's SpMM width
+           blocks_t=[p.num_blocks for p in pyr.plan_t],
+           nnz=[p.nnz for p in pyr.plan_fwd],
+           max_row_nnz_fwd=[p.max_row_nnz for p in pyr.plan_fwd],
+           max_row_nnz_t=[p.max_row_nnz for p in pyr.plan_t])
+    hosts = {"forward": pyr.plan_fwd[t], "transpose": pyr.plan_t[t]}
+    plans = {k: h.to(dev) for k, h in hosts.items()}
     gen = torch.Generator(device=dev).manual_seed(0)
-    x = torch.randn(fwd.n_cols, d, device=dev, generator=gen)
-    g = torch.randn(tr.n_cols, d, device=dev, generator=gen)
-    plain = B.bsr_spmm_plain
-    results = {}
-    for name, plan, inp, replaces in (
-            ("bsr_spmm_blockpar", fwd, x,
-             "ctgcn_tpu/ops/pallas_spmm.py:146"),
-            ("bsr_spmm_rowwalk", tr, g,
-             "ctgcn_tpu/ops/pallas_spmm.py:97")):
+    inputs = {k: torch.randn(p.n_cols, max(WIDTHS), device=dev,
+                             generator=gen) for k, p in plans.items()}
+    # the plan each kernel gets on the main path
+    main_plan = {B.dispatch(p).__name__: k for k, p in plans.items()}
+    errs = {}
+    for name in KERNELS:
         kern = getattr(B, name)
-        # the plan the main path hands this kernel comes first; then the
-        # other direction's plan, plans padded by pad_block_plan (which
-        # the kernels must tolerate), and layer 2's width
-        got, ref = kern(plan, inp), plain(plan, inp)
-        err = _check_close(name, got, ref)
-        rel_err = err / float(ref.abs().max())
-        del got, ref
-        other_plan, other_inp = (tr, g) if plan is fwd else (fwd, x)
-        _check_close(name + " (other plan)", kern(other_plan, other_inp),
-                     plain(other_plan, other_inp))
-        for host, inp2 in ((fwd_host, x), (tr_host, g)):
+        for pk, host in hosts.items():
+            # the dense oracle needs the blocks, which device plans leave
+            # behind; padded plans must give the same product
+            with_blocks = host.to(dev, blocks=True)
             padded = B.pad_block_plan(host, host.num_blocks + 37).to(dev)
-            _check_close(name + " (padded plan)", kern(padded, inp2),
-                         plain(padded, inp2))
-            del padded
-        for dd in (128,):
-            _check_close(f"{name} d={dd}", kern(plan, inp[:, :dd].clone()),
-                         plain(plan, inp[:, :dd].clone()))
-        csr = _plan_csr(plan)
-        bound = _bound(csr.values().numel(), plan.num_blocks, d,
-                       plan.n_rows, plan.n_cols)
-        ms = _time_ms(lambda: kern(plan, inp))
-        plain_ms = _time_ms(lambda: plain(plan, inp), iters=5, warmup=1)
-        library_ms = _time_ms(lambda: torch.sparse.mm(csr, inp))
-        _check_close(name + " vs torch.sparse.mm", kern(plan, inp),
-                     torch.sparse.mm(csr, inp))
-        results[name] = {
-            "name": name, "route": "cuda",
-            "source": "ctgcn_torch/csrc/bsr_spmm.cu", "replaces": replaces,
-            "status": "matches its plain version", "launches": None,
-            "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
-            "bound_by": bound["bound_by"], "library_ms": library_ms,
-            "block_work_ms": bound["block_work_ms"]}
-        _phase("kernels", kernel=name, shape=[plan.n_rows, plan.n_cols, d],
-               blocks=plan.num_blocks, max_abs_err=err, max_rel_err=rel_err,
-               tolerance=f"rtol {RTOL} + atol {ATOL_REL} * max|plain|",
-               ms=ms, plain_ms=plain_ms,
-               library_ms=library_ms, library="torch.sparse.mm (CSR)",
-               **bound)
+            for dd in WIDTHS:
+                inp = inputs[pk][:, :dd].contiguous()
+                got = kern(plans[pk], inp)
+                ref = B.bsr_spmm_csr_plain(plans[pk], inp)
+                err = _check_close(f"{name} {pk} d={dd}", got, ref)
+                errs[name, pk, dd] = (err, err / float(ref.abs().max()))
+                _check_close(f"{name} {pk} d={dd} vs dense blocks", got,
+                             B.bsr_spmm_plain(with_blocks, inp))
+                _check_close(f"{name} {pk} d={dd} padded plan",
+                             kern(padded, inp), ref)
+                del got, ref
+            del with_blocks, padded
+    torch.cuda.synchronize()
 
-    # autograd through block_spmm: forward = block-parallel kernel,
-    # backward = row-walk kernel on the transpose plan
+    results = {}
+    times = {name: [] for name in KERNELS}
+    for pk, plan in plans.items():
+        csr = _plan_csr(plan)
+        for dd in WIDTHS:
+            inp = inputs[pk][:, :dd].contiguous()
+            bound = _bound(plan.nnz, dd, plan.n_rows, plan.n_cols)
+            library_ms = _time_ms(lambda: torch.sparse.mm(csr, inp))
+            _check_close(f"torch.sparse.mm {pk} d={dd}",
+                         torch.sparse.mm(csr, inp),
+                         B.bsr_spmm_csr_plain(plan, inp))
+            for name in KERNELS:
+                kern = getattr(B, name)
+                ms = _time_ms(lambda: kern(plan, inp))
+                row = {"plan": pk, "d": dd, "ms": ms,
+                       "library_ms": library_ms,
+                       "bound_ms": bound["bound_ms"],
+                       "bound_by": bound["bound_by"]}
+                times[name].append(row)
+                if main_plan[name] != pk or dd != max(WIDTHS):
+                    continue
+                err, rel_err = errs[name, pk, dd]
+                plain_ms = _time_ms(
+                    lambda: B.bsr_spmm_csr_plain(plan, inp), iters=5,
+                    warmup=1)
+                if name == "bsr_spmm_rowwalk":
+                    # the walk order's worth: the same walk in row order
+                    natural = dataclasses.replace(
+                        plan, row_order=torch.arange(
+                            plan.n_rows, dtype=torch.int32, device=dev))
+                    extra = {"ms_natural_row_order": _time_ms(
+                        lambda: kern(natural, inp))}
+                else:
+                    extra = {}
+                results[name] = {
+                    "name": name, "route": "cuda",
+                    "source": "ctgcn_torch/csrc/bsr_spmm.cu",
+                    "replaces": KERNELS[name],
+                    "status": "matches its plain versions",
+                    "launches": None, "max_abs_err": err, "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
+                    "bound_by": bound["bound_by"],
+                    "library_ms": library_ms, "plan": pk,
+                    "ms_cold_l2": _time_ms_cold(lambda: kern(plan, inp),
+                                                dev), **extra}
+                _phase("kernels", kernel=name, plan=pk,
+                       shape=[plan.n_rows, plan.n_cols, dd],
+                       max_abs_err=err, max_rel_err=rel_err,
+                       tolerance=f"rtol {RTOL} + atol {ATOL_REL} * "
+                                 "max|plain|",
+                       ms=ms, ms_cold_l2=results[name]["ms_cold_l2"],
+                       **extra,
+                       plain_ms=plain_ms, library_ms=library_ms,
+                       library="torch.sparse.mm (CSR)", **bound)
+        del csr
+    for name in KERNELS:
+        results[name]["times"] = times[name]
+        _phase("kernels", kernel=name, times=times[name])
+
+    # autograd through block_spmm: layer 1's forward and backward kernels
+    fwd, tr = plans["forward"], plans["transpose"]
     n, dm = pyr.n_nodes, 500
     xs = torch.randn(n, dm, device=dev, generator=gen, requires_grad=True)
     w = torch.randn(fwd.n_rows, dm, device=dev, generator=gen)
     (B.block_spmm(fwd, tr, xs) * w).sum().backward()
     g_pad = torch.nn.functional.pad(w, (0, 512 - dm)).contiguous()
-    ref = plain(tr, g_pad)[:n, :dm]
+    ref = B.bsr_spmm_csr_plain(tr, g_pad)[:n, :dm]
     gerr = _check_close("block_spmm grad", xs.grad, ref)
     _phase("kernels", check="block_spmm autograd grad", max_abs_err=gerr)
     return results
@@ -211,14 +273,16 @@ def phase_kernels(cfg, dev):
 
 def phase_parity(dev):
     """A small CTGCN-C: forward and all parameter gradients with the
-    kernels on the GPU against the plain versions on the CPU.  Sized so
-    that layer 1's backward g (K * Np * 512 * 4 bytes) passes the 10 MB
-    dispatch line and both kernels run."""
+    kernels on the GPU against the plain versions on the CPU.  Node 0 is a
+    hub of degree 150, so the transpose plan's longest row (the hub's
+    degree in each of the K = 3 slots) passes ``ROWWALK_MAX_ROW`` and both
+    kernels run."""
     import numpy as np
     import scipy.sparse as sp
     import torch
 
     from ctgcn_torch.nn.core_models import CTGCN
+    from ctgcn_torch.ops import bsr_spmm as B
     from ctgcn_torch.ops.pyramid import build_core_pyramid, stack_pyramids
 
     rng = np.random.default_rng(0)
@@ -226,12 +290,16 @@ def phase_parity(dev):
     pyrs = []
     for _ in range(T):
         dense = (rng.random((n, n)) < 0.002) * rng.random((n, n))
+        dense[0, rng.choice(np.arange(1, n), 150, replace=False)] = 1.0
         a = sp.csr_matrix(np.triu(dense, 1) + np.triu(dense, 1).T)
         deg = np.asarray((a != 0).sum(1)).ravel()
         mats = [sp.csr_matrix(a.multiply(np.outer(deg >= k, deg >= k)))
                 for k in (4, 2, 1)]
         pyrs.append(build_core_pyramid(mats, n, num_slots=3))
     pyr = stack_pyramids(pyrs)
+    if {B.dispatch(q).__name__ for q in pyr.plan_fwd + pyr.plan_t} != {
+            "bsr_spmm_rowwalk", "bsr_spmm_blockpar"}:
+        raise AssertionError("the parity model does not reach both kernels")
     model = CTGCN(n, hid, 64, 1, 2, T,
                   generator=torch.Generator().manual_seed(0))
     out = []

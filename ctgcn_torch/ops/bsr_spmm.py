@@ -1,16 +1,20 @@
 # coding: utf-8
 """Block-sparse (BSR) SpMM with 128x128 blocks: plans, the two CUDA
-kernels' wrappers, their plain PyTorch version, and the differentiable
+kernels' wrappers, their plain PyTorch versions, and the differentiable
 ``block_spmm`` / ``pyramid_spmm`` (port of ``ctgcn_tpu/ops/pallas_spmm.py``).
 
-The adjacency is tiled into 128x128 blocks, empty blocks are dropped, and
-each surviving block is multiplied against the matching 128-row tile of x.
-``block_spmm``'s backward runs ``dx = A^T g`` through a precomputed
-transpose plan; block values are graph data and get no gradient.
+The adjacency is tiled into 128x128 blocks and empty blocks are dropped,
+as in the JAX package.  Beside the blocks a plan keeps the same matrix in
+CSR (its nonzeros only); the CUDA kernels read only that, since the blocks
+of a graph are nearly empty (0.38 % fill at UCI).  ``block_spmm``'s
+backward runs ``dx = A^T g`` through a precomputed transpose plan; the
+matrix values are graph data and get no gradient.
 
-Wrappers: on a CPU tensor a kernel wrapper runs the plain version; on a
-CUDA tensor it launches the kernel (built from ``csrc/bsr_spmm.cu`` at
-first use) or raises.  Each wrapper counts its launches in ``.launches``.
+Wrappers: on a CPU tensor a kernel wrapper runs the plain version over the
+plan's CSR; on a CUDA tensor it launches the kernel (built from
+``csrc/bsr_spmm.cu`` at first use) or raises.  Each wrapper counts its
+launches in ``.launches``.  ``bsr_spmm_plain`` multiplies the dense blocks
+and is a second, independent oracle.
 """
 from __future__ import annotations
 
@@ -21,78 +25,93 @@ import scipy.sparse as sp
 import torch
 
 BLOCK = 128
-#: output columns per CUDA block in csrc/bsr_spmm.cu (BN); d must divide
-D_TILE = 64
-#: most blocks one CUDA block of bsr_spmm_blockpar multiplies (one chunk)
-CHUNK = 8
+#: d must be a multiple of this: the kernels move x and out rows as float4
+D_ALIGN = 4
+#: nonzeros per chunk of bsr_spmm_blockpar's first pass
+CHUNK = 128
+#: longest row ``dispatch`` gives the row walk: one warp walks a row on one
+#: SM, so a plan with longer rows goes to bsr_spmm_blockpar, whose chunks
+#: spread a row over many SMs
+ROWWALK_MAX_ROW = 256
+
+_CSR_FIELDS = ("csr_ptr", "csr_col", "csr_row", "csr_val", "row_order")
 
 
 @dataclasses.dataclass(frozen=True)
 class BlockPlan:
-    """BSR plan of one matrix (one direction).
+    """BSR plan of one matrix (one direction), with its CSR beside it.
 
-    blocks:        f32[NB, 128, 128] dense blocks, sorted by row tile.
-    block_col:     int32[NB] column-tile index per block.
-    block_row:     int32[NB] row-tile index per block (non-decreasing).
-    row_ptr:       int32[R+1] block range per row tile (padding blocks from
-                   :func:`pad_block_plan` sit past ``row_ptr[-1]``).
-    chunk_ptr:     int32[NC+1] block range per chunk: each row tile's run
-                   of blocks (padding included) cut into pieces of at most
-                   ``CHUNK`` blocks, in block order.
-    row_chunk_ptr: int32[R+1] chunk range per row tile.
+    blocks:      f32[NB, 128, 128] dense blocks, sorted by row tile (host
+                 plans; ``to`` leaves them behind unless asked).
+    block_col:   int32[NB] column-tile index per block.
+    block_row:   int32[NB] row-tile index per block (non-decreasing).
+    row_ptr:     int32[R+1] block range per row tile (padding blocks from
+                 :func:`pad_block_plan` sit past ``row_ptr[-1]``).
+    csr_ptr:     int32[n_rows+1] nonzero range per row.
+    csr_col:     int32[nnz] column per nonzero, ascending within a row.
+    csr_row:     int32[nnz] row per nonzero (non-decreasing): how
+                 bsr_spmm_blockpar's chunks of the nonzero stream find
+                 their rows.
+    csr_val:     f32[nnz] the values the blocks hold, zeros left out.
+    row_order:   int32[n_rows] the order in which bsr_spmm_rowwalk's warps
+                 take rows: rows of one group (rows that share columns,
+                 e.g. one node's slot rows in a pyramid) side by side,
+                 groups with the most nonzeros first.
+    max_row_nnz: the longest row's nonzero count.
     n_rows / n_cols: padded (multiple of 128) output / input sizes.
     """
 
-    blocks: torch.Tensor
+    blocks: torch.Tensor | None
     block_col: torch.Tensor
     block_row: torch.Tensor
     row_ptr: torch.Tensor
-    chunk_ptr: torch.Tensor
-    row_chunk_ptr: torch.Tensor
+    csr_ptr: torch.Tensor
+    csr_col: torch.Tensor
+    csr_row: torch.Tensor
+    csr_val: torch.Tensor
+    row_order: torch.Tensor
+    max_row_nnz: int
     n_rows: int
     n_cols: int
 
     @property
     def num_blocks(self) -> int:
-        return int(self.blocks.shape[0])
+        return int(self.block_col.shape[0])
 
-    def to(self, device) -> "BlockPlan":
-        return dataclasses.replace(self, **{
-            f.name: getattr(self, f.name).to(device)
-            for f in dataclasses.fields(self)
-            if isinstance(getattr(self, f.name), torch.Tensor)})
+    @property
+    def nnz(self) -> int:
+        return int(self.csr_val.shape[0])
 
-
-def _chunks(block_row, r_tiles):
-    """(chunk_ptr, row_chunk_ptr) for a non-decreasing ``block_row``."""
-    counts = np.bincount(block_row, minlength=r_tiles).astype(np.int64)
-    run_start = np.concatenate([[0], np.cumsum(counts)[:-1]])
-    per_row = -(-counts // CHUNK)
-    row_chunk_ptr = np.concatenate([[0], np.cumsum(per_row)])
-    starts = np.repeat(run_start, per_row) + CHUNK * (
-        np.arange(int(row_chunk_ptr[-1])) - np.repeat(row_chunk_ptr[:-1],
-                                                      per_row))
-    chunk_ptr = np.concatenate([starts, [len(block_row)]])
-    return (torch.from_numpy(chunk_ptr.astype(np.int32)),
-            torch.from_numpy(row_chunk_ptr.astype(np.int32)))
+    def to(self, device, blocks: bool = False) -> "BlockPlan":
+        """The plan on ``device``.  The dense blocks come along only with
+        ``blocks=True``: no kernel reads them, only ``bsr_spmm_plain``."""
+        moved = {f.name: getattr(self, f.name).to(device)
+                 for f in dataclasses.fields(self)
+                 if isinstance(getattr(self, f.name), torch.Tensor)}
+        if not blocks:
+            moved["blocks"] = None
+        return dataclasses.replace(self, **moved)
 
 
-def _plan(blocks, block_col, block_row, row_ptr, n_rows, n_cols):
-    chunk_ptr, row_chunk_ptr = _chunks(block_row, n_rows // BLOCK)
-    return BlockPlan(blocks=torch.from_numpy(blocks),
-                     block_col=torch.from_numpy(block_col),
-                     block_row=torch.from_numpy(block_row),
-                     row_ptr=torch.from_numpy(row_ptr),
-                     chunk_ptr=chunk_ptr, row_chunk_ptr=row_chunk_ptr,
-                     n_rows=int(n_rows), n_cols=int(n_cols))
+def _walk_order(counts, group):
+    """Rows grouped by ``group``, the groups with the most nonzeros first
+    (so the longest work starts first), rows ascending within a group."""
+    totals = np.bincount(group, weights=counts)[group]
+    return np.lexsort((np.arange(len(counts)), group, -totals))
 
 
-def build_block_plan(mat, block=BLOCK) -> BlockPlan:
+def build_block_plan(mat, block=BLOCK, row_group=None) -> BlockPlan:
     """scipy sparse matrix -> BlockPlan (host tensors).
 
     Every row tile gets at least one block (a zero filler in column tile 0
-    for a tile with no data), so the block-parallel kernel writes every
-    output tile."""
+    for a tile with no data), as in the JAX package.  The CSR holds every
+    distinct (row, col) of ``mat`` with the value its block holds
+    (duplicates summed), zeros left out, so fillers add nothing to it.
+
+    Args:
+      row_group: int[n_rows] (padded) group of each row for the row walk's
+        order; rows of a group should share columns.  Default: each row
+        its own group."""
     coo = mat.tocoo()
     n_rows = -(-mat.shape[0] // block) * block
     n_cols = -(-mat.shape[1] // block) * block
@@ -114,7 +133,28 @@ def build_block_plan(mat, block=BLOCK) -> BlockPlan:
     row_ptr = np.zeros(r_tiles + 1, np.int32)
     np.add.at(row_ptr[1:], u_rt, 1)
     row_ptr = np.cumsum(row_ptr).astype(np.int32)
-    return _plan(blocks, u_ct, u_rt, row_ptr, n_rows, n_cols)
+
+    # the nonzero view, read back from the blocks
+    lin = np.unique(coo.row.astype(np.int64) * n_cols + coo.col)
+    r, c = lin // n_cols, lin % n_cols
+    val = blocks[np.searchsorted(all_keys, (r // block) * c_tiles
+                                 + c // block), r % block, c % block]
+    keep = val != 0
+    r, c, val = r[keep], c[keep], val[keep]
+    counts = np.bincount(r, minlength=n_rows)
+    csr_ptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    return BlockPlan(
+        blocks=torch.from_numpy(blocks), block_col=torch.from_numpy(u_ct),
+        block_row=torch.from_numpy(u_rt), row_ptr=torch.from_numpy(row_ptr),
+        csr_ptr=torch.from_numpy(csr_ptr),
+        csr_col=torch.from_numpy(c.astype(np.int32)),
+        csr_row=torch.from_numpy(r.astype(np.int32)),
+        csr_val=torch.from_numpy(val),
+        row_order=torch.from_numpy(_walk_order(
+            counts, np.arange(n_rows) if row_group is None
+            else np.asarray(row_group)).astype(np.int32)),
+        max_row_nnz=int(counts.max(initial=0)),
+        n_rows=int(n_rows), n_cols=int(n_cols))
 
 
 def build_block_plans(mat, block=BLOCK):
@@ -126,23 +166,22 @@ def pad_block_plan(plan: BlockPlan, nb: int) -> BlockPlan:
     """Pad the block bank of a host plan to ``nb`` blocks (the JAX
     package's way to give a window's plans one size; the port's windows
     keep each snapshot's own plan).  Padding blocks are zero, lie past
-    ``row_ptr[-1]`` (the row-walk kernel never visits them) and repeat the
-    last row tile (the block-parallel kernel adds zeros to that tile)."""
+    ``row_ptr[-1]`` and repeat the last row tile; they hold no nonzero, so
+    the CSR, which is all the kernels read, stays as it was."""
     cur = plan.num_blocks
     if cur > nb:
         raise ValueError(f"plan has {cur} blocks > pad target {nb}")
     if cur == nb:
         return plan
     pad = nb - cur
-    blocks = np.concatenate(
-        [plan.blocks.numpy(), np.zeros((pad, BLOCK, BLOCK), np.float32)])
-    block_col = np.concatenate([plan.block_col.numpy(),
-                                np.zeros(pad, np.int32)])
-    block_row = np.concatenate([
-        plan.block_row.numpy(),
-        np.full(pad, int(plan.block_row[cur - 1]), np.int32)])
-    return _plan(blocks, block_col, block_row, plan.row_ptr.numpy(),
-                 plan.n_rows, plan.n_cols)
+    return dataclasses.replace(
+        plan,
+        blocks=torch.cat([plan.blocks, plan.blocks.new_zeros(pad, BLOCK,
+                                                             BLOCK)]),
+        block_col=torch.cat([plan.block_col,
+                             plan.block_col.new_zeros(pad)]),
+        block_row=torch.cat([plan.block_row,
+                             plan.block_row[cur - 1:].expand(pad)]))
 
 
 def build_pyramid_plans(slot_mats, n_nodes, num_slots, block=BLOCK):
@@ -168,7 +207,11 @@ def build_pyramid_plans(slot_mats, n_nodes, num_slots, block=BLOCK):
     stacked = sp.coo_matrix(
         (np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))),
         shape=(num_slots * np_pad, np_pad))
-    return build_block_plan(stacked, block), build_block_plan(stacked.T, block)
+    # a node's slot rows share most of their columns (nested cores): the
+    # row walk takes them side by side
+    node_of_row = np.arange(num_slots * np_pad) % np_pad
+    return (build_block_plan(stacked, block, row_group=node_of_row),
+            build_block_plan(stacked.T, block))
 
 
 # ---------------------------------------------------------------------------
@@ -178,29 +221,41 @@ def build_pyramid_plans(slot_mats, n_nodes, num_slots, block=BLOCK):
 def _check(plan: BlockPlan, x: torch.Tensor):
     if x.dtype != torch.float32 or x.dim() != 2 or not x.is_contiguous():
         raise ValueError("x must be a contiguous float32 [n_cols, d] tensor")
-    if x.shape[0] != plan.n_cols or x.shape[1] % D_TILE:
+    if x.shape[0] != plan.n_cols or x.shape[1] % D_ALIGN:
         raise ValueError(f"x is {tuple(x.shape)}; the plan takes "
-                         f"[{plan.n_cols}, multiple of {D_TILE}]")
+                         f"[{plan.n_cols}, multiple of {D_ALIGN}]")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
-    for f in dataclasses.fields(plan):
-        t = getattr(plan, f.name)
-        if not isinstance(t, torch.Tensor):
-            continue
-        want = torch.float32 if f.name == "blocks" else torch.int32
+    for name in _CSR_FIELDS:
+        t = getattr(plan, name)
+        want = torch.float32 if name == "csr_val" else torch.int32
         if t.device != x.device or t.dtype != want or not t.is_contiguous():
-            raise ValueError(f"plan.{f.name} must be a contiguous {want} "
+            raise ValueError(f"plan.{name} must be a contiguous {want} "
                              f"tensor on {x.device}")
     # the kernels move x and out as float4
     if x.device.type == "cuda" and x.data_ptr() % 16:
         raise ValueError("x must be 16-byte aligned")
 
 
+def bsr_spmm_csr_plain(plan: BlockPlan, x):
+    """Plain version of both kernels over the arrays they read, ``A @ x``:
+    gather ``x[col] * val`` per nonzero and add it into its row (rows from
+    ``csr_ptr``)."""
+    rows = torch.repeat_interleave(
+        torch.arange(plan.n_rows, device=x.device), plan.csr_ptr.diff())
+    out = x.new_zeros(plan.n_rows, x.shape[1])
+    out.index_add_(0, rows, x[plan.csr_col.long()] * plan.csr_val[:, None])
+    return out
+
+
 def bsr_spmm_plain(plan: BlockPlan, x):
-    """Plain version of both kernels, ``A @ x``: every row tile sums the
-    products of the blocks in ``row_ptr[r] .. row_ptr[r+1]`` (padding
-    blocks past ``row_ptr[-1]`` are zero and left out; the chunk plan is
-    not used)."""
+    """``A @ x`` from the dense blocks, the second oracle: every row tile
+    sums the products of the blocks in ``row_ptr[r] .. row_ptr[r+1]``
+    (padding blocks past ``row_ptr[-1]`` are zero and left out).  Needs a
+    plan that carries its blocks."""
+    if plan.blocks is None:
+        raise ValueError("the plan carries no dense blocks; move it with "
+                         "BlockPlan.to(device, blocks=True)")
     nb = int(plan.row_ptr[-1])
     d = x.shape[1]
     tiles = x.view(-1, BLOCK, d)[plan.block_col[:nb].long()]
@@ -223,27 +278,30 @@ def bsr_spmm_rowwalk(plan: BlockPlan, x: torch.Tensor) -> torch.Tensor:
     """``A @ x`` by the row-walk kernel (counterpart of ``_spmm_kernel``,
     ``ctgcn_tpu/ops/pallas_spmm.py:97``).
 
-    One CUDA block per (128-row output tile, 64-column d tile) walks its
-    row's blocks, staging each block and x row tile through shared memory
-    and accumulating in registers: deterministic, no scratch.  FP32 FFMA
-    bound on the card (dense 128x128 blocks, 2*128*128*d FLOPs each).  A
-    row tile's blocks run one after another on one SM, so a plan with few
-    row tiles (the pyramid's transpose: Np/128 of them) fills few SMs.
+    A warp walks an output row's nonzeros in column order: (col, val) 32 at
+    a time, x rows gathered as float4, FP32 FFMA in registers, the row
+    stored once (zeros for an empty row): deterministic, no scratch.
+    Bound by bytes on the card, mostly the gathers of x rows from L2, so
+    warps take rows in ``plan.row_order``, which puts rows that share
+    columns (a node's core slots) in one CUDA block, where the repeats hit
+    L1.  A row stays on one SM, so plans with long rows are slow here
+    (``dispatch`` sends them to ``bsr_spmm_blockpar``).
 
-    x: contiguous f32 [n_cols, d], d a multiple of 64 -> f32 [n_rows, d].
+    x: contiguous f32 [n_cols, d], d a multiple of 4 -> f32 [n_rows, d].
     """
     _check(plan, x)
     if x.device.type == "cpu":
-        return bsr_spmm_plain(plan, x)
+        return bsr_spmm_csr_plain(plan, x)
     from ctgcn_torch.ops.cuda_build import load_kernels
 
     lib = load_kernels()
     out = torch.empty(plan.n_rows, x.shape[1], device=x.device)
     with torch.cuda.device(x.device):
         rc = lib.bsr_spmm_rowwalk(
-            plan.blocks.data_ptr(), plan.block_col.data_ptr(),
-            plan.row_ptr.data_ptr(), x.data_ptr(), out.data_ptr(),
-            plan.n_rows // BLOCK, x.shape[1], _stream(x))
+            plan.csr_ptr.data_ptr(), plan.csr_col.data_ptr(),
+            plan.csr_val.data_ptr(), plan.row_order.data_ptr(),
+            x.data_ptr(), out.data_ptr(), plan.n_rows, x.shape[1],
+            _stream(x))
     _raise_on(rc, "bsr_spmm_rowwalk")
     bsr_spmm_rowwalk.launches += 1
     return out
@@ -256,32 +314,34 @@ def bsr_spmm_blockpar(plan: BlockPlan, x: torch.Tensor) -> torch.Tensor:
     """``A @ x`` by the block-parallel kernel (counterpart of
     ``_spmm_v2_kernel``, ``ctgcn_tpu/ops/pallas_spmm.py:146``).
 
-    The TPU kernel carries the output tile across sequential grid steps;
-    on Hopper nothing carries between CUDA blocks, so pass 1 gives each
-    (chunk of at most ``CHUNK`` blocks of one row run, d tile) its own CUDA
-    block writing a partial tile to scratch, and pass 2 sums each row
-    tile's chunks in chunk order (deterministic, no atomics).  Row tiles
-    with many blocks spread over many SMs.  FP32 FFMA bound like the
-    row-walk kernel, plus scratch traffic of 2 * NC * 128 * d * 4 bytes.
+    The TPU kernel's grid runs over blocks and carries each output tile
+    across its row run; on Hopper nothing carries between CUDA blocks, and
+    the blocks are nearly empty.  So the grid runs over equal chunks of
+    ``CHUNK`` nonzeros, and long rows spread over many SMs.  Pass 1 writes
+    every row that lies inside one chunk straight to out and leaves the
+    pieces of rows that cross a chunk edge in scratch (two rows of d per
+    chunk); pass 2 adds each such row's pieces in chunk order and writes
+    empty rows as zeros (deterministic, no atomics).  Pass 2 is a
+    programmatic dependent launch that starts in pass 1's last wave.
+    Bound by bytes, like the row walk.
 
-    x: contiguous f32 [n_cols, d], d a multiple of 64 -> f32 [n_rows, d].
+    x: contiguous f32 [n_cols, d], d a multiple of 4 -> f32 [n_rows, d].
     """
     _check(plan, x)
     if x.device.type == "cpu":
-        return bsr_spmm_plain(plan, x)
+        return bsr_spmm_csr_plain(plan, x)
     from ctgcn_torch.ops.cuda_build import load_kernels
 
     lib = load_kernels()
     d = x.shape[1]
-    n_chunks = plan.chunk_ptr.shape[0] - 1
     out = torch.empty(plan.n_rows, d, device=x.device)
-    scratch = torch.empty(n_chunks * BLOCK, d, device=x.device)
+    scratch = torch.empty(2 * -(-plan.nnz // CHUNK), d, device=x.device)
     with torch.cuda.device(x.device):
         rc = lib.bsr_spmm_blockpar(
-            plan.blocks.data_ptr(), plan.block_col.data_ptr(),
-            plan.chunk_ptr.data_ptr(), plan.row_chunk_ptr.data_ptr(),
-            x.data_ptr(), scratch.data_ptr(), out.data_ptr(), n_chunks,
-            plan.n_rows // BLOCK, d, _stream(x))
+            plan.csr_ptr.data_ptr(), plan.csr_row.data_ptr(),
+            plan.csr_col.data_ptr(), plan.csr_val.data_ptr(), x.data_ptr(),
+            scratch.data_ptr(), out.data_ptr(), plan.n_rows, plan.nnz,
+            CHUNK, d, _stream(x))
     _raise_on(rc, "bsr_spmm_blockpar")
     bsr_spmm_blockpar.launches += 1
     return out
@@ -289,19 +349,25 @@ def bsr_spmm_blockpar(plan: BlockPlan, x: torch.Tensor) -> torch.Tensor:
 
 bsr_spmm_blockpar.launches = 0
 
-# Dispatch rule inherited from the TPU package (_V2_X_VMEM_BUDGET,
-# pallas_spmm.py:173), where it sized x to stay resident in VMEM: x of at
-# most 10 MB takes the block-parallel kernel, larger x the row walk.  Kept
-# so each kernel runs where its TPU counterpart runs; to be re-derived from
-# H100 timings.
-BLOCKPAR_X_BYTES = 10 * 1024 * 1024
+
+def dispatch(plan: BlockPlan):
+    """The kernel wrapper that runs ``plan``.  The TPU package chose by the
+    size of x (10 MB, what stays resident in VMEM); on the H100 the
+    longest row decides.  A row walk keeps a row on one SM, which a hub row
+    holds up (the pyramid's transpose: up to 16x a node's degree); the
+    block-parallel kernel's equal chunks spread it over many SMs and pay a
+    second pass for it.  At UCI (snapshot 2004-05, d = 512, NVIDIA H100
+    80GB HBM3, 700 W) the row walk is the faster on the forward plan
+    (longest row 198) and the block-parallel kernel on the transpose
+    (longest row 1977); ``chip_smoke.py`` times both on both."""
+    if plan.max_row_nnz <= ROWWALK_MAX_ROW:
+        return bsr_spmm_rowwalk
+    return bsr_spmm_blockpar
 
 
 def block_spmm_raw(plan: BlockPlan, x: torch.Tensor) -> torch.Tensor:
-    """x: [n_cols, d] (d a multiple of 64) -> [n_rows, d]."""
-    if plan.n_cols * x.shape[1] * 4 <= BLOCKPAR_X_BYTES:
-        return bsr_spmm_blockpar(plan, x)
-    return bsr_spmm_rowwalk(plan, x)
+    """x: [n_cols, d] (d a multiple of 4) -> [n_rows, d]."""
+    return dispatch(plan)(plan, x)
 
 
 class _BlockSpmm(torch.autograd.Function):

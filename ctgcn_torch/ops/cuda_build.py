@@ -30,8 +30,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: name -> argtypes (restype is int = cudaGetLastError())
 _SIGNATURES = {
-    "bsr_spmm_rowwalk": (_P, _P, _P, _P, _P, _I, _I, _P),
-    "bsr_spmm_blockpar": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # (csr_ptr, csr_col, csr_val, row_order, x, out, n_rows, d, stream)
+    "bsr_spmm_rowwalk": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
+    # (csr_ptr, csr_row, csr_col, csr_val, x, scratch, out, n_rows, nnz,
+    #  chunk, d, stream)
+    "bsr_spmm_blockpar": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 
