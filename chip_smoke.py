@@ -3,25 +3,43 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path -- CTGCN-C, U-neg, on a temporary copy of the
-bundled UCI data at the full width of ``configs/uci.json`` (hid 500,
-embed 128, T = 7, batch 2048, neg_num 20, Q 20) with the BSR kernel backend
-(``core_backend: "pallas"``) for 3 epochs -- and holds each hand-written
-kernel against its plain PyTorch version.  Phases, one line each:
+Drives three paths of the port through its CLI, CTGCN-C with U-neg at the
+full width of the repository's configs, and holds each hand-written kernel
+against its plain PyTorch version:
+
+  * main path   ``configs/uci.json`` as written (hid 500, embed 128,
+                T = 7, batch 2048, neg_num 20, Q 20; no ``core_backend``,
+                so ``"auto"``, which picks the principal blocks at UCI),
+                3 epochs on a temporary copy of the bundled UCI data;
+  * pallas path the same with ``core_backend: "pallas"`` (the BSR plans on
+                both CUDA kernels), 1 epoch;
+  * ELL path    ``configs/as.json`` (hid 500, embed 128, T = 5, batch 8192,
+                neg_num 20, Q 20) on the first 5 AS snapshots, one window,
+                under ``"auto"``, which picks delta-encoded ELL plans there
+                (the CSR row walk forward, the block-parallel kernel on the
+                transpose's hub rows), 3 epochs.
+
+Phases, one line each:
 
   1. build      the CUDA kernels from ``ctgcn_torch/csrc`` (nvcc, sm_90a);
-  2. preprocess k-core pyramids and walk tables through ``ctgcn_torch.main``;
-  3. kernels    each kernel at the main path's shapes (snapshot 2004-05 of
-                the window, both plans, d = 512 and 128) against both plain
-                versions (CSR gather + index_add_, dense blocks), the
-                autograd gradient of ``block_spmm``, times of kernel,
-                plain version and one library call on both plans at both
-                widths, and each kernel's bound;
-     parity     a small CTGCN-C forward and gradient, kernels on the GPU
-                against the plain versions on the CPU;
-  4. main path  the embedding task with the launch counters reset just
-                before and read just after;
-     profile    an epoch's device time by kernel class (``torch.profiler``);
+  2. preprocess k-core pyramids and walk tables through ``ctgcn_torch.main``
+                (UCI, then the AS snapshots);
+  3. kernels    each kernel on the UCI pallas plans (snapshot 2004-05,
+                both directions, d = 512 and 128: ``block_spmm`` pads hid
+                500 and embed 128 to multiples of 128) against both plain
+                versions (CSR gather + index_add_, dense blocks), and on the
+                AS delta-ELL plans (the largest snapshot, d = 500 and 128:
+                ``ell_spmm`` pads only to a multiple of 4) against the CSR
+                one; the autograd gradients of ``block_spmm`` and
+                ``ell_spmm``; times of kernel, plain version and one library
+                call on every plan at both widths, and each kernel's bound;
+     parity     small CTGCN-C models on BSR and on delta-ELL plans, forward
+                and gradients, kernels on the GPU against the plain versions
+                on the CPU;
+  4. paths      each path with the launch counters set to 0 just before it
+                and read just after;
+     profile    an epoch's device time by kernel class (``torch.profiler``)
+                on each path;
   5. the ``kernels`` JSON line, the card's name and power limit, and the
      final ``{"ok": true, "device": ...}`` line.
 
@@ -40,6 +58,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SNAPSHOT = "2004-05"
 EPOCHS = 3
+#: the AS snapshots of the ELL path (one window of configs/as.json)
+AS_SNAPSHOTS = tuple(f"{i:03d}.csv" for i in range(5))
 #: kernel vs plain version: |k - p| <= RTOL * |p| + ATOL_REL * max|p|
 #: (f32 sums taken in another order; no TF32 on either side)
 RTOL, ATOL_REL = 1e-5, 1e-5
@@ -115,18 +135,24 @@ def _plan_csr(plan):
                                    check_invariants=False)
 
 
-def _bound(nnz, d, n_rows, n_cols):
-    """Least time for ``out = A @ x`` at these inputs: the larger of the
-    bytes moved (A's nnz values and column indices and its row pointers,
-    x and out, each once) over the HBM rate and its 2 * nnz * d FLOPs
-    over the FP32 peak."""
-    flops = 2.0 * nnz * d
-    bytes_ = nnz * 8 + (n_rows + 1) * 4 + (n_cols + n_rows) * d * 4
+def _bound(plan, d):
+    """Least time for ``out = A @ x`` with ``plan`` at width d: the larger
+    of the bytes the product must move (A's values, column indices and row
+    pointers, the rows of x that A's columns name, and out, each once)
+    over the HBM rate and its 2 * nnz * d FLOPs over the FP32 peak.  Rows
+    of x that no nonzero names need not be read: in a pyramid transpose
+    that is most of g, whose rows for empty slot rows are never used."""
+    import torch
+
+    x_rows = int(torch.unique(plan.csr_col).numel())
+    flops = 2.0 * plan.nnz * d
+    bytes_ = (plan.nnz * 8 + (plan.n_rows + 1) * 4
+              + (x_rows + plan.n_rows) * d * 4)
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, bytes_ / PEAK_HBM_BYTES
     return {
         "bound_ms": max(t_ops, t_bytes) * 1e3,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "nnz": int(nnz), "flops": flops, "bytes": bytes_,
+        "x_rows_read": x_rows, "flops": flops, "bytes": bytes_,
     }
 
 
@@ -144,14 +170,110 @@ def _check_close(name, got, ref, rtol=RTOL, atol_rel=ATOL_REL):
 
 KERNELS = {"bsr_spmm_blockpar": "ctgcn_tpu/ops/pallas_spmm.py:146",
            "bsr_spmm_rowwalk": "ctgcn_tpu/ops/pallas_spmm.py:97"}
-WIDTHS = (512, 128)   # hid 500 and embed 128, padded to 128: the SpMM widths
+
+
+def _spmm_widths(cfg, align):
+    """The widths of the two CoreDiffusion layers' SpMMs (hid, then
+    embed), each padded to a multiple of ``align`` as the path pads it."""
+    return tuple(-(-cfg[k] // align) * align
+                 for k in ("hid_dim", "embed_dim"))
+
+
+def _kernel_rows(tag, plans, dev, widths, extra_check=None):
+    """Each kernel on each of ``plans`` (name -> device plan) at each of
+    ``widths`` against the CSR plain version (and ``extra_check``), then
+    each kernel's time on every plan at every width beside the library
+    call and the bound.  Returns the row of each kernel on the plan
+    ``dispatch`` gives it, at the first width."""
+    import torch
+
+    from ctgcn_torch.ops import bsr_spmm as B
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    inputs = {k: torch.randn(p.n_cols, max(widths), device=dev,
+                             generator=gen) for k, p in plans.items()}
+    # the plan each kernel gets on the path
+    main_plan = {B.dispatch(p).__name__: k for k, p in plans.items()}
+    if set(main_plan) != set(KERNELS):
+        raise AssertionError(f"{tag}: the plans do not reach both kernels "
+                             f"({main_plan})")
+    errs = {}
+    for name in KERNELS:
+        kern = getattr(B, name)
+        for pk, plan in plans.items():
+            for dd in widths:
+                inp = inputs[pk][:, :dd].contiguous()
+                got = kern(plan, inp)
+                ref = B.bsr_spmm_csr_plain(plan, inp)
+                err = _check_close(f"{tag} {name} {pk} d={dd}", got, ref)
+                errs[name, pk, dd] = (err, err / float(ref.abs().max()))
+                if extra_check is not None:
+                    extra_check(f"{tag} {name} {pk} d={dd}", kern, pk, inp,
+                                got, ref)
+                del got, ref
+    torch.cuda.synchronize()
+
+    results = {}
+    times = {name: [] for name in KERNELS}
+    for pk, plan in plans.items():
+        csr = _plan_csr(plan)
+        for dd in widths:
+            inp = inputs[pk][:, :dd].contiguous()
+            bound = _bound(plan, dd)
+            library_ms = _time_ms(lambda: torch.sparse.mm(csr, inp))
+            _check_close(f"{tag} torch.sparse.mm {pk} d={dd}",
+                         torch.sparse.mm(csr, inp),
+                         B.bsr_spmm_csr_plain(plan, inp))
+            for name in KERNELS:
+                kern = getattr(B, name)
+                ms = _time_ms(lambda: kern(plan, inp))
+                row = {"plan": pk, "d": dd, "ms": ms,
+                       "library_ms": library_ms,
+                       "bound_ms": bound["bound_ms"],
+                       "bound_by": bound["bound_by"]}
+                times[name].append(row)
+                if main_plan[name] != pk or dd != widths[0]:
+                    continue
+                err, rel_err = errs[name, pk, dd]
+                plain_ms = _time_ms(
+                    lambda: B.bsr_spmm_csr_plain(plan, inp), iters=5,
+                    warmup=1)
+                if name == "bsr_spmm_rowwalk":
+                    # the walk order's worth: the same walk in row order
+                    natural = dataclasses.replace(
+                        plan, row_order=torch.arange(
+                            plan.n_rows, dtype=torch.int32, device=dev))
+                    extra = {"ms_natural_row_order": _time_ms(
+                        lambda: kern(natural, inp))}
+                else:
+                    extra = {}
+                results[name] = {
+                    "plan": pk, "shape": [plan.n_rows, plan.n_cols, dd],
+                    "nnz": plan.nnz, "max_row_nnz": plan.max_row_nnz,
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound["bound_ms"],
+                    "bound_by": bound["bound_by"],
+                    "library_ms": library_ms,
+                    "ms_cold_l2": _time_ms_cold(lambda: kern(plan, inp),
+                                                dev), **extra}
+                _phase(tag, kernel=name, **results[name],
+                       max_rel_err=rel_err,
+                       tolerance=f"rtol {RTOL} + atol {ATOL_REL} * "
+                                 "max|plain|",
+                       library="torch.sparse.mm (CSR)",
+                       x_rows_read=bound["x_rows_read"],
+                       flops=bound["flops"], bytes=bound["bytes"])
+        del csr
+    for name in KERNELS:
+        results[name]["times"] = times[name]
+        _phase(tag, kernel=name, times=times[name])
+    return results
 
 
 def phase_kernels(cfg, dev):
-    """Each kernel at the main path's shapes (snapshot 2004-05) against
-    both plain versions, on both plans and padded plans, at both widths;
-    then each kernel's time on both plans at both widths beside the
-    library call and the bound."""
+    """Both kernels on the UCI pallas plans of snapshot 2004-05 (the
+    pallas path's shapes), also against the dense-block oracle and on
+    padded plans, and the autograd gradient of ``block_spmm``."""
     import torch
 
     from ctgcn_torch.data.formats import sorted_dir
@@ -172,161 +294,160 @@ def phase_kernels(cfg, dev):
            max_row_nnz_t=[p.max_row_nnz for p in pyr.plan_t])
     hosts = {"forward": pyr.plan_fwd[t], "transpose": pyr.plan_t[t]}
     plans = {k: h.to(dev) for k, h in hosts.items()}
-    gen = torch.Generator(device=dev).manual_seed(0)
-    inputs = {k: torch.randn(p.n_cols, max(WIDTHS), device=dev,
-                             generator=gen) for k, p in plans.items()}
-    # the plan each kernel gets on the main path
-    main_plan = {B.dispatch(p).__name__: k for k, p in plans.items()}
-    errs = {}
-    for name in KERNELS:
-        kern = getattr(B, name)
-        for pk, host in hosts.items():
-            # the dense oracle needs the blocks, which device plans leave
-            # behind; padded plans must give the same product
-            with_blocks = host.to(dev, blocks=True)
-            padded = B.pad_block_plan(host, host.num_blocks + 37).to(dev)
-            for dd in WIDTHS:
-                inp = inputs[pk][:, :dd].contiguous()
-                got = kern(plans[pk], inp)
-                ref = B.bsr_spmm_csr_plain(plans[pk], inp)
-                err = _check_close(f"{name} {pk} d={dd}", got, ref)
-                errs[name, pk, dd] = (err, err / float(ref.abs().max()))
-                _check_close(f"{name} {pk} d={dd} vs dense blocks", got,
-                             B.bsr_spmm_plain(with_blocks, inp))
-                _check_close(f"{name} {pk} d={dd} padded plan",
-                             kern(padded, inp), ref)
-                del got, ref
-            del with_blocks, padded
-    torch.cuda.synchronize()
+    # the dense oracle needs the blocks, which device plans leave behind;
+    # padded plans must give the same product
+    with_blocks = {k: h.to(dev, blocks=True) for k, h in hosts.items()}
+    padded = {k: B.pad_block_plan(h, h.num_blocks + 37).to(dev)
+              for k, h in hosts.items()}
 
-    results = {}
-    times = {name: [] for name in KERNELS}
-    for pk, plan in plans.items():
-        csr = _plan_csr(plan)
-        for dd in WIDTHS:
-            inp = inputs[pk][:, :dd].contiguous()
-            bound = _bound(plan.nnz, dd, plan.n_rows, plan.n_cols)
-            library_ms = _time_ms(lambda: torch.sparse.mm(csr, inp))
-            _check_close(f"torch.sparse.mm {pk} d={dd}",
-                         torch.sparse.mm(csr, inp),
-                         B.bsr_spmm_csr_plain(plan, inp))
-            for name in KERNELS:
-                kern = getattr(B, name)
-                ms = _time_ms(lambda: kern(plan, inp))
-                row = {"plan": pk, "d": dd, "ms": ms,
-                       "library_ms": library_ms,
-                       "bound_ms": bound["bound_ms"],
-                       "bound_by": bound["bound_by"]}
-                times[name].append(row)
-                if main_plan[name] != pk or dd != max(WIDTHS):
-                    continue
-                err, rel_err = errs[name, pk, dd]
-                plain_ms = _time_ms(
-                    lambda: B.bsr_spmm_csr_plain(plan, inp), iters=5,
-                    warmup=1)
-                if name == "bsr_spmm_rowwalk":
-                    # the walk order's worth: the same walk in row order
-                    natural = dataclasses.replace(
-                        plan, row_order=torch.arange(
-                            plan.n_rows, dtype=torch.int32, device=dev))
-                    extra = {"ms_natural_row_order": _time_ms(
-                        lambda: kern(natural, inp))}
-                else:
-                    extra = {}
-                results[name] = {
-                    "name": name, "route": "cuda",
-                    "source": "ctgcn_torch/csrc/bsr_spmm.cu",
-                    "replaces": KERNELS[name],
-                    "status": "matches its plain versions",
-                    "launches": None, "max_abs_err": err, "ms": ms,
-                    "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
-                    "bound_by": bound["bound_by"],
-                    "library_ms": library_ms, "plan": pk,
-                    "ms_cold_l2": _time_ms_cold(lambda: kern(plan, inp),
-                                                dev), **extra}
-                _phase("kernels", kernel=name, plan=pk,
-                       shape=[plan.n_rows, plan.n_cols, dd],
-                       max_abs_err=err, max_rel_err=rel_err,
-                       tolerance=f"rtol {RTOL} + atol {ATOL_REL} * "
-                                 "max|plain|",
-                       ms=ms, ms_cold_l2=results[name]["ms_cold_l2"],
-                       **extra,
-                       plain_ms=plain_ms, library_ms=library_ms,
-                       library="torch.sparse.mm (CSR)", **bound)
-        del csr
-    for name in KERNELS:
-        results[name]["times"] = times[name]
-        _phase("kernels", kernel=name, times=times[name])
+    def block_checks(what, kern, pk, inp, got, ref):
+        _check_close(f"{what} vs dense blocks", got,
+                     B.bsr_spmm_plain(with_blocks[pk], inp))
+        _check_close(f"{what} padded plan", kern(padded[pk], inp), ref)
+
+    widths = _spmm_widths(args, B.BLOCK)
+    results = _kernel_rows("kernels", plans, dev, widths, block_checks)
+    del with_blocks, padded
 
     # autograd through block_spmm: layer 1's forward and backward kernels
     fwd, tr = plans["forward"], plans["transpose"]
-    n, dm = pyr.n_nodes, 500
+    gen = torch.Generator(device=dev).manual_seed(1)
+    n, dm = pyr.n_nodes, args["hid_dim"]
     xs = torch.randn(n, dm, device=dev, generator=gen, requires_grad=True)
     w = torch.randn(fwd.n_rows, dm, device=dev, generator=gen)
     (B.block_spmm(fwd, tr, xs) * w).sum().backward()
-    g_pad = torch.nn.functional.pad(w, (0, 512 - dm)).contiguous()
+    g_pad = torch.nn.functional.pad(w, (0, widths[0] - dm)).contiguous()
     ref = B.bsr_spmm_csr_plain(tr, g_pad)[:n, :dm]
     gerr = _check_close("block_spmm grad", xs.grad, ref)
     _phase("kernels", check="block_spmm autograd grad", max_abs_err=gerr)
     return results
 
 
-def phase_parity(dev):
-    """A small CTGCN-C: forward and all parameter gradients with the
-    kernels on the GPU against the plain versions on the CPU.  Node 0 is a
-    hub of degree 150, so the transpose plan's longest row (the hub's
-    degree in each of the K = 3 slots) passes ``ROWWALK_MAX_ROW`` and both
-    kernels run."""
+def phase_kernels_ell(cfg, dev):
+    """Both kernels on the AS window's delta-ELL plans (the ELL path's
+    shapes) of its largest snapshot, and the autograd gradient of
+    ``ell_spmm``."""
+    import torch
+
+    from ctgcn_torch.ops import bsr_spmm as B
+    from ctgcn_torch.ops.ell import ell_spmm
+    from ctgcn_torch.training.driver import get_data_loader
+
+    args = dict(cfg)
+    loader = get_data_loader(args)
+    t0 = time.time()
+    pyr = loader.get_core_adj_list(args["core_base_path"], 0,
+                                   args["duration"])
+    built_s = time.time() - t0
+    if pyr.backend != "ell" or not pyr.ell_delta:
+        raise AssertionError(f"auto chose {pyr.backend} at AS, not ell")
+    nnz = [p.nnz for p in pyr.ell_fwd]
+    _phase("kernels_ell", window_plans_built_seconds=built_s,
+           n_nodes=pyr.n_nodes, num_slots=pyr.num_slots,
+           kept_slots=pyr.valid.sum(1).tolist(), nnz=nnz,
+           max_row_nnz_fwd=[p.max_row_nnz for p in pyr.ell_fwd],
+           max_row_nnz_t=[p.max_row_nnz for p in pyr.ell_t])
+    t = max(range(len(nnz)), key=nnz.__getitem__)
+    plans = {"forward": pyr.ell_fwd[t].to(dev),
+             "transpose": pyr.ell_t[t].to(dev)}
+    widths = _spmm_widths(args, B.D_ALIGN)
+    results = _kernel_rows("kernels_ell", plans, dev, widths)
+
+    # autograd through ell_spmm: layer 1's forward and backward kernels
+    fwd, tr = plans["forward"], plans["transpose"]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    dm = args["hid_dim"]
+    xs = torch.randn(fwd.n_cols, dm, device=dev, generator=gen,
+                     requires_grad=True)
+    w = torch.randn(fwd.n_rows, dm, device=dev, generator=gen)
+    (ell_spmm(fwd, tr, xs) * w).sum().backward()
+    g_pad = torch.nn.functional.pad(w, (0, widths[0] - dm)).contiguous()
+    gerr = _check_close("ell_spmm grad", xs.grad,
+                        B.bsr_spmm_csr_plain(tr, g_pad)[:, :dm])
+    _phase("kernels_ell", check="ell_spmm autograd grad", snapshot=t,
+           d=dm, max_abs_err=gerr)
+    return results
+
+
+def _parity_window(n, T, hub, seed=0):
+    """T snapshots of a sparse random graph on n nodes whose node 0 has
+    ``hub`` extra neighbours, as three nested cores (degree >= 4, 2, 1)."""
     import numpy as np
     import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    per_snap = []
+    for _ in range(T):
+        dense = (rng.random((n, n)) < 0.002) * rng.random((n, n))
+        dense[0, rng.choice(np.arange(1, n), hub, replace=False)] = 1.0
+        a = sp.csr_matrix(np.triu(dense, 1) + np.triu(dense, 1).T)
+        deg = np.asarray((a != 0).sum(1)).ravel()
+        per_snap.append([sp.csr_matrix(a.multiply(np.outer(deg >= k,
+                                                           deg >= k)))
+                         for k in (4, 2, 1)])
+    return per_snap
+
+
+def phase_parity(dev):
+    """A small CTGCN-C (N = 1800, T = 2, K = 3, hid 500), forward and all
+    parameter gradients with the kernels on the GPU against the plain
+    versions on the CPU, on BSR plans and on delta-ELL plans.  Node 0 is a
+    hub, so that some plan's longest row passes ``ROWWALK_MAX_ROW`` and
+    both kernels run: degree 150 for the BSR plans (the transpose holds it
+    once per slot), 300 for the delta plans (once in all)."""
     import torch
 
     from ctgcn_torch.nn.core_models import CTGCN
     from ctgcn_torch.ops import bsr_spmm as B
-    from ctgcn_torch.ops.pyramid import build_core_pyramid, stack_pyramids
+    from ctgcn_torch.ops.pyramid import (attach_ell_plans, build_core_pyramid,
+                                          stack_pyramids)
 
-    rng = np.random.default_rng(0)
     n, T, hid = 1800, 2, 500
-    pyrs = []
-    for _ in range(T):
-        dense = (rng.random((n, n)) < 0.002) * rng.random((n, n))
-        dense[0, rng.choice(np.arange(1, n), 150, replace=False)] = 1.0
-        a = sp.csr_matrix(np.triu(dense, 1) + np.triu(dense, 1).T)
-        deg = np.asarray((a != 0).sum(1)).ravel()
-        mats = [sp.csr_matrix(a.multiply(np.outer(deg >= k, deg >= k)))
-                for k in (4, 2, 1)]
-        pyrs.append(build_core_pyramid(mats, n, num_slots=3))
-    pyr = stack_pyramids(pyrs)
-    if {B.dispatch(q).__name__ for q in pyr.plan_fwd + pyr.plan_t} != {
-            "bsr_spmm_rowwalk", "bsr_spmm_blockpar"}:
-        raise AssertionError("the parity model does not reach both kernels")
-    model = CTGCN(n, hid, 64, 1, 2, T,
-                  generator=torch.Generator().manual_seed(0))
-    out = []
-    for d in (torch.device("cpu"), dev):
-        m = model.to(d)
-        m.zero_grad(set_to_none=True)
-        y = m(None, pyr.to(d))
-        torch.tanh(y).square().sum().backward()
-        out.append((y.detach().cpu(),
-                    {k: p.grad.detach().cpu()
-                     for k, p in m.named_parameters()}))
-    (yc, gc), (yg, gg) = out
-    # two GEMM libraries and a deep chain (MLP, 2 x (SpMM, K-step GRU,
-    # LayerNorm), time GRU, LayerNorm): f32, but a looser bound than one op
-    tol = {"rtol": PARITY_TOL, "atol_rel": PARITY_TOL}
-    errs = {"forward": _check_close("parity forward", yg, yc, **tol)}
-    for k in gc:
-        errs[k] = _check_close(f"parity grad {k}", gg[k], gc[k], **tol)
-    _phase("parity", tolerance=PARITY_TOL, n=n, T=T, hid=hid,
-           max_abs_err_forward=errs["forward"],
-           max_abs_err_grads=max(v for k, v in errs.items()
-                                 if k != "forward"))
+    windows = {
+        "pallas": stack_pyramids([
+            build_core_pyramid(m, n, num_slots=3, build_plans=True)
+            for m in _parity_window(n, T, hub=150)]),
+        "ell": attach_ell_plans(stack_pyramids([
+            build_core_pyramid(m, n, num_slots=3)
+            for m in _parity_window(n, T, hub=300)]), delta=True),
+    }
+    for backend, pyr in windows.items():
+        plans = (pyr.plan_fwd + pyr.plan_t if backend == "pallas"
+                 else pyr.ell_fwd + pyr.ell_t)
+        if pyr.backend != backend or {B.dispatch(q).__name__
+                                      for q in plans} != set(KERNELS):
+            raise AssertionError(f"the {backend} parity model does not "
+                                 "reach both kernels")
+        model = CTGCN(n, hid, 64, 1, 2, T,
+                      generator=torch.Generator().manual_seed(0))
+        out = []
+        for d in (torch.device("cpu"), dev):
+            m = model.to(d)
+            m.zero_grad(set_to_none=True)
+            y = m(None, pyr.to(d))
+            torch.tanh(y).square().sum().backward()
+            out.append((y.detach().cpu(),
+                        {k: p.grad.detach().cpu()
+                         for k, p in m.named_parameters()}))
+        (yc, gc), (yg, gg) = out
+        # two GEMM libraries and a deep chain (MLP, 2 x (SpMM, K-step GRU,
+        # LayerNorm), time GRU, LayerNorm): f32, but a looser bound than
+        # one op
+        tol = {"rtol": PARITY_TOL, "atol_rel": PARITY_TOL}
+        errs = {"forward": _check_close(f"parity {backend} forward", yg, yc,
+                                        **tol)}
+        for k in gc:
+            errs[k] = _check_close(f"parity {backend} grad {k}", gg[k],
+                                   gc[k], **tol)
+        _phase("parity", backend=backend, tolerance=PARITY_TOL, n=n, T=T,
+               hid=hid, max_abs_err_forward=errs["forward"],
+               max_abs_err_grads=max(v for k, v in errs.items()
+                                     if k != "forward"))
 
 
 def _kernel_class(name):
     if "rowwalk" in name or "blockpar" in name:
-        return "bsr_spmm kernels"
+        return "CSR SpMM kernels (ours)"
     if "gemm" in name.lower() or "xmma" in name or "cutlass" in name:
         return "GEMM (cuBLAS)"
     if "Memcpy" in name or "Memset" in name:
@@ -334,28 +455,36 @@ def _kernel_class(name):
     return "other (elementwise, reductions, indexing)"
 
 
-def phase_profile(cfg, dev, epochs=2):
-    """Where a training epoch's time goes on the card: the window's setup
-    (plans, walk tables, model, all moved to the card), then the main
-    path's trainer after one warm-up epoch, ``epochs`` epochs timed on the host
-    clock, then ``epochs`` more under ``torch.profiler`` for the device
-    time by kernel class.  The idle share is 1 - device busy time / the
-    unprofiled epoch time."""
+def _trainer(cfg, dev):
+    """The trainer of window 0 of ``cfg`` on ``dev`` (setup synchronised)
+    and the ``learn_embedding`` arguments of an unexported epoch."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from ctgcn_torch.training.driver import build_trainer, get_data_loader
 
     args = dict(cfg)
-    t0 = time.time()
     loader = get_data_loader(args)
     trainer = build_trainer("CTGCN-C", args, loader, 0, args["duration"], dev,
                             torch.Generator().manual_seed(0))
     torch.cuda.synchronize()
+    return trainer, dict(batch_size=args["batch_size"], lr=args["lr"],
+                         weight_decay=args["weight_decay"], model_file=None,
+                         export=False, verbose=False)
+
+
+def phase_profile(path, cfg, dev, epochs=2):
+    """Where a training epoch's time goes on the card on ``path``: the
+    window's setup (plans, walk tables, model, all moved to the card), then
+    the trainer after one warm-up epoch, ``epochs`` epochs timed on the
+    host clock, then ``epochs`` more under ``torch.profiler`` for the
+    device time by kernel class.  The idle share is 1 - device busy time /
+    the unprofiled epoch time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.time()
+    trainer, kw = _trainer(cfg, dev)
     setup_s = time.time() - t0
-    kw = dict(batch_size=args["batch_size"], lr=args["lr"],
-              weight_decay=args["weight_decay"], model_file=None,
-              export=False, verbose=False)
     trainer.learn_embedding(epoch=1, **kw)
     # the epoch's wall time without the profiler's host overhead
     epoch_ms = 1e3 * sum(
@@ -385,7 +514,8 @@ def phase_profile(cfg, dev, epochs=2):
     if not per_kernel:
         raise AssertionError("the profiler recorded no device time")
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:10]
-    _phase("profile", window_setup_seconds=setup_s, epochs=epochs,
+    _phase("profile", path=path, window_setup_seconds=setup_s,
+           epochs=epochs,
            epoch_ms=epoch_ms,
            epoch_ms_profiled=profiled_ms, device_busy_ms=busy,
            device_idle_share=max(0.0, 1 - busy / epoch_ms),
@@ -397,9 +527,79 @@ def phase_profile(cfg, dev, epochs=2):
                         for k, v in top])
 
 
+#: path -> (config, the core backend "auto" or the config must give)
+PATHS = {"uci_auto": ("uci", "blocks"), "uci_pallas": ("uci_pallas", "pallas"),
+         "as_auto": ("as", "ell")}
+
+
+def _write_config(path, pre, emb):
+    """A CTGCN-C config file; returns (path, preprocessing, embedding)."""
+    with open(path, "w") as fp:
+        json.dump({"preprocessing": {"CTGCN-C": pre},
+                   "embedding": {"CTGCN-C": emb}}, fp, indent=1)
+    return path, pre, emb
+
+
+def run_path(path, cfg, backend, dev):
+    """The embedding task of ``cfg`` through the CLI, with the launch
+    counters set to 0 just before and read just after.  Checks that
+    ``backend`` ran, the losses are finite and every embedding CSV holds
+    every node; on a path of the CUDA kernels, that both were launched.
+    Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from ctgcn_torch import main as cli
+    from ctgcn_torch.data.formats import read_embedding_csv, read_node_list
+    from ctgcn_torch.ops import bsr_spmm as B
+
+    cfg_path, _, emb = cfg
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for name in KERNELS:
+        getattr(B, name).launches = 0
+    t0 = time.time()
+    results = cli.main([f"--config={cfg_path}", "--task=embedding",
+                        "--method=CTGCN-C"])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {name: getattr(B, name).launches for name in KERNELS}
+    peak = torch.cuda.max_memory_allocated(dev)
+    backends = [r["core_backend"] for r in results]
+    if backends != [backend]:
+        raise AssertionError(f"{path}: backends {backends}, want "
+                             f"[{backend!r}] (one window)")
+    losses = [l for r in results for l in r["losses"]]
+    if len(losses) != emb["epoch"] or not all(np.isfinite(losses)):
+        raise AssertionError(f"{path}: losses {losses}")
+    for name, n_launch in launches.items():
+        if (n_launch > 0) != (backend in ("pallas", "ell")):
+            raise AssertionError(f"{path}: {name} launched {n_launch} "
+                                 f"times on the {backend} backend")
+    base = Path(emb["base_path"])
+    nodes = read_node_list(base / emb["node_file"])
+    emb_dir = base / emb["embed_folder"]
+    shapes = []
+    for f in sorted(os.listdir(emb_dir)):
+        names, arr = read_embedding_csv(emb_dir / f)
+        if (names != nodes or arr.shape != (len(nodes), emb["embed_dim"])
+                or not np.isfinite(arr).all()):
+            raise AssertionError(f"{path}: embedding {f}: {arr.shape}")
+        shapes.append(list(arr.shape))
+    if len(shapes) != emb["duration"]:
+        raise AssertionError(f"{path}: {len(shapes)} embedding CSVs")
+    _phase("path", path=path, core_backend=backend, seconds=wall,
+           setup_seconds=results[0]["setup_seconds"],
+           train_seconds=results[0]["cost_time"],
+           epoch_seconds=results[0]["epoch_seconds"],
+           export_seconds=results[0]["export_seconds"], losses=losses,
+           launches=launches, max_memory_allocated=peak,
+           embedding_csvs=shapes)
+    return launches
+
+
 def main():
     try:
-        import numpy as np
         import torch
     except ImportError as exc:
         return _fail(f"missing package: {exc}")
@@ -407,7 +607,9 @@ def main():
         return _fail("no CUDA device (torch.cuda.is_available() is False)")
     if not ((ROOT / "ctgcn_torch" / "csrc").is_dir()
             and (ROOT / "configs" / "uci.json").is_file()
-            and (ROOT / "data" / "uci" / "1.format").is_dir()):
+            and (ROOT / "data" / "uci" / "1.format").is_dir()
+            and all((ROOT / "data" / "as" / "1.format" / f).is_file()
+                    for f in AS_SNAPSHOTS)):
         return _fail(f"{ROOT} is not a checkout of the repository")
     sys.path.insert(0, str(ROOT))
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -432,82 +634,63 @@ def main():
 
     work = ROOT / "tmp_run" / f"chip_smoke_{os.getpid()}"
     try:
-        # 2. preprocessing on a temporary copy of data/uci
-        base = work / "uci"
-        for sub in ("1.format", "nodes_set"):
-            shutil.copytree(ROOT / "data" / "uci" / sub, base / sub)
-        with open(ROOT / "configs" / "uci.json") as fp:
-            uci = json.load(fp)
-        pre = dict(uci["preprocessing"]["CTGCN-C"], base_path=str(base))
-        emb = dict(uci["embedding"]["CTGCN-C"], base_path=str(base),
-                   core_backend="pallas", epoch=EPOCHS)
-        cfg_path = work / "uci_pallas.json"
-        with open(cfg_path, "w") as fp:
-            json.dump({"preprocessing": {"CTGCN-C": pre},
-                       "embedding": {"CTGCN-C": emb}}, fp, indent=1)
         from ctgcn_torch import main as cli
 
-        t0 = time.time()
-        cli.main([f"--config={cfg_path}", "--task=preprocessing",
-                  "--method=CTGCN-C"])
-        _phase("preprocess", seconds=time.time() - t0)
+        # 2. preprocessing on temporary copies of data/uci and of the first
+        # AS snapshots
+        cfgs = {}
+        for name, files in (("uci", None), ("as", AS_SNAPSHOTS)):
+            base = work / name
+            src = ROOT / "data" / name
+            shutil.copytree(src / "nodes_set", base / "nodes_set")
+            if files is None:
+                shutil.copytree(src / "1.format", base / "1.format")
+            else:
+                (base / "1.format").mkdir(parents=True)
+                for f in files:
+                    shutil.copy(src / "1.format" / f, base / "1.format" / f)
+            with open(ROOT / "configs" / f"{name}.json") as fp:
+                conf = json.load(fp)
+            pre = dict(conf["preprocessing"]["CTGCN-C"], base_path=str(base))
+            emb = dict(conf["embedding"]["CTGCN-C"], base_path=str(base),
+                       epoch=EPOCHS)
+            cfgs[name] = _write_config(work / f"{name}.json", pre, emb)
+            t0 = time.time()
+            cli.main([f"--config={cfgs[name][0]}", "--task=preprocessing",
+                      "--method=CTGCN-C"])
+            _phase("preprocess", data=name, seconds=time.time() - t0)
+        pre, emb = cfgs["uci"][1:]
+        cfgs["uci_pallas"] = _write_config(
+            work / "uci_pallas.json", pre,
+            dict(emb, core_backend="pallas", epoch=1,
+                 embed_folder=emb["embed_folder"] + "-pallas"))
 
-        # 3. kernels at the main path's shapes, and small-model parity
-        kernels = phase_kernels(emb, dev)
+        # 3. kernels at the paths' shapes, and small-model parity
+        kernels = phase_kernels(cfgs["uci_pallas"][2], dev)
+        kernels_ell = phase_kernels_ell(cfgs["as"][2], dev)
         phase_parity(dev)
 
-        # 4. the main path, counters reset just before and read just after
-        from ctgcn_torch.data.formats import (read_embedding_csv,
-                                              read_node_list)
-        from ctgcn_torch.ops import bsr_spmm as B
-
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        B.bsr_spmm_blockpar.launches = 0
-        B.bsr_spmm_rowwalk.launches = 0
-        t0 = time.time()
-        results = cli.main([f"--config={cfg_path}", "--task=embedding",
-                            "--method=CTGCN-C"])
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-        launches = {"bsr_spmm_blockpar": B.bsr_spmm_blockpar.launches,
-                    "bsr_spmm_rowwalk": B.bsr_spmm_rowwalk.launches}
-        peak = torch.cuda.max_memory_allocated(dev)
-        losses = [l for r in results for l in r["losses"]]
-        if len(losses) != EPOCHS or not all(np.isfinite(losses)):
-            raise AssertionError(f"losses {losses}")
-        for name, n_launch in launches.items():
-            if n_launch == 0:
-                raise AssertionError(f"{name} never launched on the main "
-                                     "path")
-            kernels[name]["launches"] = n_launch
-            kernels[name]["status"] += ", launched on the main path"
-        nodes = read_node_list(base / "nodes_set" / "nodes.csv")
-        emb_dir = base / emb["embed_folder"]
-        shapes = []
-        for f in sorted(os.listdir(emb_dir)):
-            names, arr = read_embedding_csv(emb_dir / f)
-            if (names != nodes or arr.shape != (len(nodes), emb["embed_dim"])
-                    or not np.isfinite(arr).all()):
-                raise AssertionError(f"embedding {f}: {arr.shape}")
-            shapes.append(list(arr.shape))
-        if len(shapes) != emb["duration"]:
-            raise AssertionError(f"{len(shapes)} embedding CSVs")
-        _phase("main", seconds=wall,
-               setup_seconds=results[0]["setup_seconds"],
-               train_seconds=results[0]["cost_time"],
-               epoch_seconds=results[0]["epoch_seconds"],
-               export_seconds=results[0]["export_seconds"], losses=losses,
-               launches=launches, max_memory_allocated=peak,
-               embedding_csvs=shapes)
-
-        # 5. where an epoch's time goes (after the counted run)
-        phase_profile(emb, dev)
+        # 4. the paths, counters set to 0 just before and read just after
+        launches = {path: run_path(path, cfgs[cfg], backend, dev)
+                    for path, (cfg, backend) in PATHS.items()}
+        # where an epoch's time goes (after the counted runs)
+        for path, (cfg, _) in PATHS.items():
+            phase_profile(path, cfgs[cfg][2], dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    print(json.dumps({"kernels": [kernels["bsr_spmm_blockpar"],
-                                  kernels["bsr_spmm_rowwalk"]]}))
+    entries = []
+    for name in KERNELS:
+        by_path = {p: n[name] for p, n in launches.items()}
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "ctgcn_torch/csrc/bsr_spmm.cu",
+            "replaces": KERNELS[name],
+            "status": "matches its plain versions, launched on the pallas "
+                      "and ELL paths",
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            **kernels[name], "ell_as": kernels_ell[name]})
+    print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

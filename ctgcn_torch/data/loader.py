@@ -1,13 +1,14 @@
 # coding: utf-8
 """Window loaders (port of ``ctgcn_tpu/data/loader.py``, the parts the
-CTGCN-C / U-neg path reads): the k-core pyramid bank of a window as BSR
-plans, and the walk tables as CSR ``WalkData``.
+CTGCN-C / U-neg path reads): the k-core pyramid bank of a window on its
+core backend, and the walk tables as CSR ``WalkData``.
 
 Everything here is built on the host; the driver moves the results to the
 training device.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 
@@ -17,18 +18,11 @@ import torch
 
 from ctgcn_torch.data.formats import sorted_dir
 from ctgcn_torch.losses import WalkData
-from ctgcn_torch.ops.pyramid import build_core_pyramid, stack_pyramids
+from ctgcn_torch.ops.pyramid import (attach_ell_plans, build_core_pyramid,
+                                      stack_pyramids)
 from ctgcn_torch.utils import pad_bucket
 
-#: ROADMAP.md item that brings each core backend the port does not have yet
-_MISSING_BACKENDS = {
-    "auto": "queue 1, item 2 (the default policy needs the dense, blocks "
-            "and ELL backends)",
-    "dense": "queue 1, item 2",
-    "blocks": "queue 1, item 2",
-    "ell": "queue 1, item 2",
-    "segment": "queue 2B (ops/spmm.py)",
-}
+CORE_BACKENDS = ("auto", "dense", "blocks", "ell", "pallas", "segment")
 
 
 class DataLoader:
@@ -60,23 +54,52 @@ class DataLoader:
         return out
 
     def get_core_adj_list(self, core_base_path, start_idx, duration,
-                          max_core=-1, core_backend="pallas"):
-        """The window's k-core pyramids as one stacked host ``CorePyramid``
-        with BSR plans: K = the window's largest core count, +I on slot 0,
-        delta-skip as ``valid``, each snapshot's own plans."""
-        if core_backend != "pallas":
-            item = _MISSING_BACKENDS.get(core_backend)
-            if item is None:
-                raise ValueError(f"unknown core_backend {core_backend!r}")
-            raise NotImplementedError(
-                f"core_backend {core_backend!r} is not ported yet "
-                f"(ROADMAP.md {item}); use \"pallas\"")
+                          max_core=-1, core_backend="auto",
+                          dense_budget_bytes=4 << 30, allow_blocks=True):
+        """The window's k-core pyramids as one stacked host ``CorePyramid``:
+        K = the window's largest core count, +I on slot 0, delta-skip as
+        ``valid``, the slot products on ``core_backend``.
+
+        ``"auto"`` is the JAX package's policy: when the dense bank
+        (T * K * N^2 * 4 bytes) fits ``dense_budget_bytes``, core-sorted
+        principal blocks (the dense bank with ``allow_blocks=False``, or
+        where the slot supports do not nest); otherwise delta-encoded ELL
+        plans, since a large graph's 128x128 blocks are nearly empty.
+        ``"dense"``, ``"blocks"``, ``"ell"`` (delta-encoded), ``"pallas"``
+        (BSR plans) and ``"segment"`` (padded COO) force one backend.  The
+        COO is kept only for ``"segment"``: no other backend reads it."""
+        if core_backend not in CORE_BACKENDS:
+            raise ValueError(f"unknown core_backend {core_backend!r}")
         per_snap = self.get_core_scipy_list(core_base_path, start_idx,
                                             duration, max_core=max_core)
         num_slots = max(len(m) for m in per_snap)
-        return stack_pyramids([
-            build_core_pyramid(mats, self.node_num, num_slots=num_slots)
-            for mats in per_snap])
+        if core_backend == "auto":
+            dense_bytes = (len(per_snap) * num_slots * self.node_num
+                           * self.node_num * 4)
+            fits = (dense_budget_bytes is not None
+                    and dense_bytes <= dense_budget_bytes)
+            core_backend = (("blocks" if allow_blocks else "dense") if fits
+                            else "ell")
+        pyramids = [
+            build_core_pyramid(mats, self.node_num, num_slots=num_slots,
+                               densify=core_backend == "dense",
+                               build_blocks=core_backend == "blocks",
+                               build_plans=core_backend == "pallas")
+            for mats in per_snap]
+        if core_backend == "blocks" and any(p.blocks is None
+                                            for p in pyramids):
+            # the supports do not nest somewhere: the whole window takes
+            # the dense bank (cannot happen for true k-core pyramids)
+            pyramids = [
+                build_core_pyramid(mats, self.node_num, num_slots=num_slots,
+                                   densify=True)
+                for mats in per_snap]
+        out = stack_pyramids(pyramids)
+        if core_backend == "ell":
+            out = attach_ell_plans(out, delta=True)
+        if core_backend != "segment":
+            out = dataclasses.replace(out, rows=None, cols=None, vals=None)
+        return out
 
     def get_walk_data(self, walk_pair_base_path, node_freq_base_path,
                       start_idx, duration):

@@ -1,12 +1,15 @@
 # coding: utf-8
 """CTGCN with the k-core diffusion layers (port of
-``ctgcn_tpu/nn/core_models.py``, BSR-plan backend).
+``ctgcn_tpu/nn/core_models.py``).
 
-  * CoreDiffusion: the K slot products ``A_k @ x`` of a core pyramid run as
-    one block-sparse product (``ops.bsr_spmm.pyramid_spmm``; +I is already
-    in slot 0's plan), masked by ``valid``; their prefix sum over the core
-    axis goes through ReLU and a masked GRU/LSTM whose outputs are summed
-    (``ops.rnn.core_rnn_sum``), then LayerNorm.
+  * CoreDiffusion: the K slot products ``A_k @ x`` of a core pyramid on
+    its backend (``slot_products``: principal blocks, dense bank, ELL/CSR
+    plans, BSR plans or COO; see ``ops/pyramid.py``), masked by ``valid``;
+    their prefix sum over the core axis goes through ReLU and a masked
+    GRU/LSTM whose outputs are summed (``ops.rnn.core_rnn_sum``), then
+    LayerNorm.  Delta-encoded ELL slots take a second prefix sum and the
+    +I back as "+ x"; the blocks backend runs in core-sorted node order
+    and un-permutes after the LayerNorm.
   * CTGCN keeps per-timestep distinct MLP + CDN parameters, then runs one
     RNN over the time axis and a LayerNorm.
   * Identity node features (x = I, input_dim = N) are never materialized:
@@ -17,15 +20,19 @@ Memory knobs are constructor arguments with ``ctgcn_tpu``'s defaults:
 forward is recomputed in the backward, ``torch.utils.checkpoint``),
 ``layer_remat`` (checkpoint each CoreDiffusion layer) and
 ``cvjp_batch_budget`` (the K-batched mode gate of ``core_rnn_sum``).
+The T-batched window tail of the JAX package's ragged blocks path
+(``_ragged_blocks_cdn_window``, off by default there) is not ported.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ctgcn_torch.nn.layers import MLP, LayerNorm
 from ctgcn_torch.ops.bsr_spmm import pyramid_spmm
+from ctgcn_torch.ops.ell import ell_spmm
 from ctgcn_torch.ops.pyramid import CorePyramid, pyramid_at
 from ctgcn_torch.ops.rnn import (
     CVJP_BATCH_BUDGET, GRUCell, LSTMCell, core_rnn_sum, rnn_scan)
@@ -41,6 +48,50 @@ def _make_rnn(rnn_type, input_dim, hidden_dim, bias, generator):
     return cls(input_dim, hidden_dim, bias=bias, generator=generator)
 
 
+def slot_products(x, pyramid: CorePyramid):
+    """The K per-slot SpMM products [K, N, d] (f32, +I folded in unless the
+    slots are delta-encoded, valid-masked) and ``xp``, the input in the
+    backend's node order (the counterpart of ``CoreDiffusion._contribs``).
+
+    GEMMs run in full f32 (no TF32), the JAX package's
+    ``Precision.HIGHEST``."""
+    n, K = pyramid.n_nodes, pyramid.num_slots
+    backend = pyramid.backend
+    xp = x
+    if backend == "blocks":
+        # core-sorted principal blocks: slot k's adjacency is the leading
+        # nb_k x nb_k block; the node-wise stages after the products are
+        # permutation-equivariant, so the layer runs in that order
+        xp = x[pyramid.perm]
+        parts = []
+        for k in range(K):
+            if k < len(pyramid.blocks):
+                blk = pyramid.blocks[k]
+                nb = blk.shape[0]
+                r = F.pad(blk @ xp[:nb], (0, 0, 0, n - nb))
+            else:
+                r = xp.new_zeros(n, x.shape[1])
+            # the +I on the max-core slot, as "+ x"
+            parts.append(r + xp if k == 0 else r)
+        contribs = torch.stack(parts)
+    elif backend == "dense":
+        contribs = torch.matmul(pyramid.dense, x)
+    elif backend == "ell":
+        contribs = ell_spmm(pyramid.ell_fwd, pyramid.ell_t, x).reshape(
+            K, n, -1)
+    elif backend == "pallas":
+        contribs = pyramid_spmm(pyramid.plan_fwd, pyramid.plan_t, x, K, n)
+    else:
+        # one flattened gather and index_add over all K slots
+        offsets = (torch.arange(K, device=x.device) * n)[:, None]
+        gathered = (x[pyramid.cols.reshape(-1)]
+                    * pyramid.vals.reshape(-1)[:, None])
+        contribs = x.new_zeros(K * n, x.shape[1]).index_add(
+            0, (pyramid.rows + offsets).reshape(-1), gathered).reshape(
+                K, n, -1)
+    return contribs * pyramid.valid.float()[:, None, None], xp
+
+
 class CoreDiffusion(nn.Module):
     """K-core diffusion layer: h_k = h_{k-1} + A_k @ x over the valid core
     slots (max core first), ReLU, a core-axis RNN whose outputs are summed,
@@ -54,15 +105,18 @@ class CoreDiffusion(nn.Module):
         self.cvjp_batch_budget = cvjp_batch_budget
 
     def forward(self, x, pyramid: CorePyramid):
-        valid = pyramid.valid.float()
-        contribs = pyramid_spmm(pyramid.plan_fwd, pyramid.plan_t, x.float(),
-                                pyramid.num_slots, pyramid.n_nodes)
-        contribs = contribs * valid[:, None, None]
+        contribs, xp = slot_products(x.float(), pyramid)
         # the k-core prefix (the JAX package's _prefix_acc, a lower-
-        # triangular matmul there)
+        # triangular matmul there); delta slots hold A_k - A_{k-1}, so the
+        # slot products are themselves a prefix: (L L) @ contribs + x
         acc = torch.cumsum(contribs, dim=0)
-        out = core_rnn_sum(self.rnn, acc, valid, self.cvjp_batch_budget)
-        return self.norm(out)
+        if pyramid.backend == "ell" and pyramid.ell_delta:
+            acc = torch.cumsum(acc, dim=0) + xp
+        out = self.norm(core_rnn_sum(self.rnn, acc, pyramid.valid.float(),
+                                     self.cvjp_batch_budget))
+        if pyramid.backend == "blocks":
+            out = out[pyramid.inv_perm]
+        return out
 
 
 class CDN(nn.Module):

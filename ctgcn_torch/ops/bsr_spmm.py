@@ -10,6 +10,11 @@ of a graph are nearly empty (0.38 % fill at UCI).  ``block_spmm``'s
 backward runs ``dx = A^T g`` through a precomputed transpose plan; the
 matrix values are graph data and get no gradient.
 
+The kernels take a ``CsrPlan`` (the CSR alone), so plans that never had
+blocks, such as the ELL backend's (``ops/ell.py``), run on them too; a
+``BlockPlan`` is a ``CsrPlan`` with the blocks beside it.  ``csr_spmm`` is
+the differentiable product over two ``CsrPlan``s that both backends share.
+
 Wrappers: on a CPU tensor a kernel wrapper runs the plain version over the
 plan's CSR; on a CUDA tensor it launches the kernel (built from
 ``csrc/bsr_spmm.cu`` at first use) or raises.  Each wrapper counts its
@@ -38,33 +43,23 @@ _CSR_FIELDS = ("csr_ptr", "csr_col", "csr_row", "csr_val", "row_order")
 
 
 @dataclasses.dataclass(frozen=True)
-class BlockPlan:
-    """BSR plan of one matrix (one direction), with its CSR beside it.
+class CsrPlan:
+    """One matrix (one direction) in CSR: all that the kernels read.
 
-    blocks:      f32[NB, 128, 128] dense blocks, sorted by row tile (host
-                 plans; ``to`` leaves them behind unless asked).
-    block_col:   int32[NB] column-tile index per block.
-    block_row:   int32[NB] row-tile index per block (non-decreasing).
-    row_ptr:     int32[R+1] block range per row tile (padding blocks from
-                 :func:`pad_block_plan` sit past ``row_ptr[-1]``).
     csr_ptr:     int32[n_rows+1] nonzero range per row.
     csr_col:     int32[nnz] column per nonzero, ascending within a row.
     csr_row:     int32[nnz] row per nonzero (non-decreasing): how
                  bsr_spmm_blockpar's chunks of the nonzero stream find
                  their rows.
-    csr_val:     f32[nnz] the values the blocks hold, zeros left out.
+    csr_val:     f32[nnz] the values, zeros left out.
     row_order:   int32[n_rows] the order in which bsr_spmm_rowwalk's warps
                  take rows: rows of one group (rows that share columns,
                  e.g. one node's slot rows in a pyramid) side by side,
                  groups with the most nonzeros first.
     max_row_nnz: the longest row's nonzero count.
-    n_rows / n_cols: padded (multiple of 128) output / input sizes.
+    n_rows / n_cols: output / input sizes.
     """
 
-    blocks: torch.Tensor | None
-    block_col: torch.Tensor
-    block_row: torch.Tensor
-    row_ptr: torch.Tensor
     csr_ptr: torch.Tensor
     csr_col: torch.Tensor
     csr_row: torch.Tensor
@@ -75,22 +70,45 @@ class BlockPlan:
     n_cols: int
 
     @property
-    def num_blocks(self) -> int:
-        return int(self.block_col.shape[0])
-
-    @property
     def nnz(self) -> int:
         return int(self.csr_val.shape[0])
+
+    def to(self, device) -> "CsrPlan":
+        """The plan on ``device``."""
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)})
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockPlan(CsrPlan):
+    """BSR plan of one matrix (one direction): a ``CsrPlan`` whose sizes
+    are padded to multiples of 128, with the 128x128 blocks beside it.
+
+    blocks:      f32[NB, 128, 128] dense blocks, sorted by row tile (host
+                 plans; ``to`` leaves them behind unless asked).
+    block_col:   int32[NB] column-tile index per block.
+    block_row:   int32[NB] row-tile index per block (non-decreasing).
+    row_ptr:     int32[R+1] block range per row tile (padding blocks from
+                 :func:`pad_block_plan` sit past ``row_ptr[-1]``).
+    The CSR holds the values the blocks hold.
+    """
+
+    blocks: torch.Tensor | None
+    block_col: torch.Tensor
+    block_row: torch.Tensor
+    row_ptr: torch.Tensor
+
+    @property
+    def num_blocks(self) -> int:
+        return int(self.block_col.shape[0])
 
     def to(self, device, blocks: bool = False) -> "BlockPlan":
         """The plan on ``device``.  The dense blocks come along only with
         ``blocks=True``: no kernel reads them, only ``bsr_spmm_plain``."""
-        moved = {f.name: getattr(self, f.name).to(device)
-                 for f in dataclasses.fields(self)
-                 if isinstance(getattr(self, f.name), torch.Tensor)}
-        if not blocks:
-            moved["blocks"] = None
-        return dataclasses.replace(self, **moved)
+        moved = super().to(device)
+        return moved if blocks else dataclasses.replace(moved, blocks=None)
 
 
 def _walk_order(counts, group):
@@ -98,6 +116,40 @@ def _walk_order(counts, group):
     (so the longest work starts first), rows ascending within a group."""
     totals = np.bincount(group, weights=counts)[group]
     return np.lexsort((np.arange(len(counts)), group, -totals))
+
+
+def _csr_fields(r, c, val, n_rows, row_group):
+    """CsrPlan fields from nonzeros sorted by (row, col), zeros left out."""
+    counts = np.bincount(r, minlength=n_rows)
+    return dict(
+        csr_ptr=torch.from_numpy(
+            np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)),
+        csr_col=torch.from_numpy(c.astype(np.int32)),
+        csr_row=torch.from_numpy(r.astype(np.int32)),
+        csr_val=torch.from_numpy(val.astype(np.float32)),
+        row_order=torch.from_numpy(_walk_order(
+            counts, np.arange(n_rows) if row_group is None
+            else np.asarray(row_group)).astype(np.int32)),
+        max_row_nnz=int(counts.max(initial=0)))
+
+
+def build_csr_plan(mat, row_group=None) -> CsrPlan:
+    """scipy sparse matrix -> CsrPlan (host tensors) of the same shape:
+    duplicates summed in float64, then stored as float32, zeros left out.
+
+    Args:
+      row_group: int[n_rows] group of each row for the row walk's order
+        (see ``build_block_plan``).  Default: each row its own group."""
+    csr = sp.csr_matrix(mat, dtype=np.float64, copy=True)
+    csr.sum_duplicates()
+    csr.sort_indices()
+    val = csr.data.astype(np.float32)
+    keep = val != 0
+    r = np.repeat(np.arange(csr.shape[0]), np.diff(csr.indptr))
+    n_rows, n_cols = csr.shape
+    return CsrPlan(**_csr_fields(r[keep], csr.indices[keep], val[keep],
+                                 n_rows, row_group),
+                   n_rows=int(n_rows), n_cols=int(n_cols))
 
 
 def build_block_plan(mat, block=BLOCK, row_group=None) -> BlockPlan:
@@ -140,20 +192,10 @@ def build_block_plan(mat, block=BLOCK, row_group=None) -> BlockPlan:
     val = blocks[np.searchsorted(all_keys, (r // block) * c_tiles
                                  + c // block), r % block, c % block]
     keep = val != 0
-    r, c, val = r[keep], c[keep], val[keep]
-    counts = np.bincount(r, minlength=n_rows)
-    csr_ptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
     return BlockPlan(
         blocks=torch.from_numpy(blocks), block_col=torch.from_numpy(u_ct),
         block_row=torch.from_numpy(u_rt), row_ptr=torch.from_numpy(row_ptr),
-        csr_ptr=torch.from_numpy(csr_ptr),
-        csr_col=torch.from_numpy(c.astype(np.int32)),
-        csr_row=torch.from_numpy(r.astype(np.int32)),
-        csr_val=torch.from_numpy(val),
-        row_order=torch.from_numpy(_walk_order(
-            counts, np.arange(n_rows) if row_group is None
-            else np.asarray(row_group)).astype(np.int32)),
-        max_row_nnz=int(counts.max(initial=0)),
+        **_csr_fields(r[keep], c[keep], val[keep], n_rows, row_group),
         n_rows=int(n_rows), n_cols=int(n_cols))
 
 
@@ -218,7 +260,7 @@ def build_pyramid_plans(slot_mats, n_nodes, num_slots, block=BLOCK):
 # the kernels: plain versions and wrappers
 # ---------------------------------------------------------------------------
 
-def _check(plan: BlockPlan, x: torch.Tensor):
+def _check(plan: CsrPlan, x: torch.Tensor):
     if x.dtype != torch.float32 or x.dim() != 2 or not x.is_contiguous():
         raise ValueError("x must be a contiguous float32 [n_cols, d] tensor")
     if x.shape[0] != plan.n_cols or x.shape[1] % D_ALIGN:
@@ -237,7 +279,7 @@ def _check(plan: BlockPlan, x: torch.Tensor):
         raise ValueError("x must be 16-byte aligned")
 
 
-def bsr_spmm_csr_plain(plan: BlockPlan, x):
+def bsr_spmm_csr_plain(plan: CsrPlan, x):
     """Plain version of both kernels over the arrays they read, ``A @ x``:
     gather ``x[col] * val`` per nonzero and add it into its row (rows from
     ``csr_ptr``)."""
@@ -274,7 +316,7 @@ def _raise_on(rc, name):
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
 
 
-def bsr_spmm_rowwalk(plan: BlockPlan, x: torch.Tensor) -> torch.Tensor:
+def bsr_spmm_rowwalk(plan: CsrPlan, x: torch.Tensor) -> torch.Tensor:
     """``A @ x`` by the row-walk kernel (counterpart of ``_spmm_kernel``,
     ``ctgcn_tpu/ops/pallas_spmm.py:97``).
 
@@ -310,7 +352,7 @@ def bsr_spmm_rowwalk(plan: BlockPlan, x: torch.Tensor) -> torch.Tensor:
 bsr_spmm_rowwalk.launches = 0
 
 
-def bsr_spmm_blockpar(plan: BlockPlan, x: torch.Tensor) -> torch.Tensor:
+def bsr_spmm_blockpar(plan: CsrPlan, x: torch.Tensor) -> torch.Tensor:
     """``A @ x`` by the block-parallel kernel (counterpart of
     ``_spmm_v2_kernel``, ``ctgcn_tpu/ops/pallas_spmm.py:146``).
 
@@ -350,7 +392,7 @@ def bsr_spmm_blockpar(plan: BlockPlan, x: torch.Tensor) -> torch.Tensor:
 bsr_spmm_blockpar.launches = 0
 
 
-def dispatch(plan: BlockPlan):
+def dispatch(plan: CsrPlan):
     """The kernel wrapper that runs ``plan``.  The TPU package chose by the
     size of x (10 MB, what stays resident in VMEM); on the H100 the
     longest row decides.  A row walk keeps a row on one SM, which a hub row
@@ -365,20 +407,35 @@ def dispatch(plan: BlockPlan):
     return bsr_spmm_blockpar
 
 
-def block_spmm_raw(plan: BlockPlan, x: torch.Tensor) -> torch.Tensor:
+def block_spmm_raw(plan: CsrPlan, x: torch.Tensor) -> torch.Tensor:
     """x: [n_cols, d] (d a multiple of 4) -> [n_rows, d]."""
     return dispatch(plan)(plan, x)
 
 
-class _BlockSpmm(torch.autograd.Function):
+def _kernel_input(x: torch.Tensor) -> torch.Tensor:
+    """x as the kernels take it: contiguous float32, 16-byte aligned."""
+    x = x.float().contiguous()
+    return x.clone() if x.data_ptr() % 16 else x
+
+
+class _CsrSpmm(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x_p, fwd_plan, t_plan):
+    def forward(ctx, x, fwd_plan, t_plan):
         ctx.t_plan = t_plan
-        return block_spmm_raw(fwd_plan, x_p)
+        return block_spmm_raw(fwd_plan, x)
 
     @staticmethod
     def backward(ctx, g):
-        return block_spmm_raw(ctx.t_plan, g.contiguous()), None, None
+        return block_spmm_raw(ctx.t_plan, _kernel_input(g)), None, None
+
+
+def csr_spmm(fwd_plan: CsrPlan, t_plan: CsrPlan, x):
+    """``A @ x`` on the kernels, differentiable w.r.t. x: the backward runs
+    ``dx = A^T g`` on the transpose plan (the JAX custom VJPs of
+    ``block_spmm`` and ``ell_spmm``); the matrix gets no gradient.
+
+    x: [n_cols, d], d a multiple of 4 -> [n_rows, d]."""
+    return _CsrSpmm.apply(_kernel_input(x), fwd_plan, t_plan)
 
 
 def block_spmm(fwd_plan: BlockPlan, t_plan: BlockPlan, x):
@@ -389,8 +446,8 @@ def block_spmm(fwd_plan: BlockPlan, t_plan: BlockPlan, x):
     n_in, d = x.shape
     d_pad = -(-d // BLOCK) * BLOCK
     x_p = torch.nn.functional.pad(
-        x.float(), (0, d_pad - d, 0, fwd_plan.n_cols - n_in)).contiguous()
-    return _BlockSpmm.apply(x_p, fwd_plan, t_plan)[:, :d]
+        x.float(), (0, d_pad - d, 0, fwd_plan.n_cols - n_in))
+    return csr_spmm(fwd_plan, t_plan, x_p)[:, :d]
 
 
 def pyramid_spmm(fwd_plan: BlockPlan, t_plan: BlockPlan, x, num_slots,

@@ -1,0 +1,106 @@
+# coding: utf-8
+"""The core pyramid's SpMM for large sparse graphs: per-snapshot slot
+matrices, full-slot or delta-encoded, run on the CUDA CSR kernels (port of
+``build_pyramid_ell_plans`` and ``ell_spmm`` in ``ctgcn_tpu/ops/ell.py``).
+
+A snapshot's K core slots flatten to one block-diagonal [K·N, N] matrix,
+slot k's rows at k·N, so all K slot products are one SpMM; its transpose
+[N, K·N] carries the backward (dx = A^T g).  With ``delta=True`` the slots
+hold Δ_k = A_k − A_{k−1} (slot 0 without its +I): k-core supports nest and
+keep the original edge weights, so each edge is gathered once, at its
+deepest slot, instead of once per slot that holds it.  ``CoreDiffusion``
+then rebuilds the slot prefixes with two cumulative sums and adds the
+identity back as "+ x".
+
+The JAX package stores each matrix as degree-bucketed ELL tables
+(``EllPlan``, ``_bucket_apply``, ``_soft_bucket``): a TPU scatters slowly,
+so each bucket is a dense gather and row-sum, one permutation gather
+restores row order, and bucket sizes are rounded so that windows share
+compiled shapes.  On Hopper the CSR row walk is that scatter-free gather
+and row-sum already (a warp sums its row in registers), and nothing is
+compiled per shape, so the plans here are ``CsrPlan``s and no bucket table
+is carried over.  They run on the two existing kernels through
+``dispatch``: a forward plan (short rows) on ``bsr_spmm_rowwalk``, a
+transpose with hub rows on ``bsr_spmm_blockpar``.  The forward plan's walk
+order puts a node's K slot rows side by side, as the BSR pyramid plans do.
+No plan builds 128x128 blocks: at 60k nodes that bank would be mostly
+zeros.  ``ell_spmm_ev`` (edge values that change every step, the GAT
+aggregation) comes with the model zoo.
+"""
+from __future__ import annotations
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+from torch.nn import functional as F
+
+from ctgcn_torch.ops.bsr_spmm import D_ALIGN, CsrPlan, build_csr_plan, csr_spmm
+
+
+def _slot_matrix(rows, cols, vals, valid, n_nodes, delta):
+    """One snapshot's [K, P] COO slots (+I in slot 0) -> scipy CSR
+    [K·N, N] with slot k's rows at k·N; invalid slots give no rows."""
+    K = rows.shape[0]
+    val_mask = (vals != 0) & valid[:, None]
+    if not delta:
+        off = (np.arange(K) * n_nodes)[:, None]
+        flat = ((rows + off)[val_mask], cols[val_mask], vals[val_mask])
+    else:
+        n_kept = int(valid.sum())
+        if not valid[:n_kept].all():
+            raise ValueError("delta plans need prefix validity")
+        parts = [(np.zeros(0, np.int64), np.zeros(0, np.int64),
+                  np.zeros(0))]
+        prev = None
+        for k in range(n_kept):
+            m = val_mask[k]
+            cur = sp.coo_matrix((vals[k][m], (rows[k][m], cols[k][m])),
+                                shape=(n_nodes, n_nodes)).tocsr()
+            if k == 0:
+                # slot 0 carries the +I; the model adds it back as "+ x"
+                cur = cur - sp.eye(n_nodes, format="csr")
+                cur.eliminate_zeros()
+                delta_k = cur
+            else:
+                delta_k = cur - prev
+                delta_k.eliminate_zeros()
+            prev = cur
+            dcoo = delta_k.tocoo()
+            parts.append((dcoo.row + k * n_nodes, dcoo.col, dcoo.data))
+        flat = tuple(np.concatenate(p) for p in zip(*parts))
+    return sp.coo_matrix((flat[2], (flat[0], flat[1])),
+                         shape=(K * n_nodes, n_nodes)).tocsr()
+
+
+def build_pyramid_ell_plans(stacked_rows, stacked_cols, stacked_vals, valid,
+                            n_nodes, delta=False):
+    """A window's [T, K, P] COO slots -> (forward plans [K·N, N],
+    transpose plans [N, K·N]), one ``CsrPlan`` per snapshot each, on the
+    host.  Values are summed in float64 and stored as float32.
+
+    ``delta``: slot k holds Δ_k = A_k − A_{k−1}, slot 0 without its +I,
+    which needs validity to be a prefix (``build_core_pyramid`` compacts
+    the kept slots, so it is)."""
+    rows = np.asarray(stacked_rows).astype(np.int64)
+    cols = np.asarray(stacked_cols).astype(np.int64)
+    vals = np.asarray(stacked_vals).astype(np.float64)
+    valid = np.asarray(valid).astype(bool)
+    T, K, _ = rows.shape
+    node_of_row = np.arange(K * n_nodes) % n_nodes
+    fwd, tr = [], []
+    for t in range(T):
+        mat = _slot_matrix(rows[t], cols[t], vals[t], valid[t], n_nodes,
+                           delta)
+        fwd.append(build_csr_plan(mat, row_group=node_of_row))
+        tr.append(build_csr_plan(mat.T))
+    return tuple(fwd), tuple(tr)
+
+
+def ell_spmm(fwd_plan: CsrPlan, t_plan: CsrPlan, x):
+    """``A @ x`` ([R, C] @ [C, d] -> [R, d]), differentiable in x through
+    the transpose plan (the JAX custom VJP).  d is zero-padded to a
+    multiple of 4 inside, as the kernels take it."""
+    d = x.shape[1]
+    pad = -d % D_ALIGN
+    out = csr_spmm(fwd_plan, t_plan, F.pad(x, (0, pad)) if pad else x)
+    return out[:, :d] if pad else out

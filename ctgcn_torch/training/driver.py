@@ -2,10 +2,11 @@
 """Embedding-task driver (port of ``ctgcn_tpu/training/driver.py`` for
 CTGCN-C with the U-neg learning type).
 
-Per window: load the k-core pyramids (BSR plans) and walk tables, build a
-fresh CTGCN, train it with the negative-sampling loss, export the
-per-timestamp embedding CSVs, and record the window's training seconds in
-``<base_path>/<method>_time.csv`` after every window.
+Per window: load the k-core pyramids (on the config's ``core_backend``,
+``"auto"`` by default) and walk tables, build a fresh CTGCN, train it with
+the negative-sampling loss, export the per-timestamp embedding CSVs, and
+record the window's training seconds in ``<base_path>/<method>_time.csv``
+after every window.
 
 The JAX driver's memory knobs, which it reads from ``CTGCN_TPU_*``
 environment variables, reach the model as constructor arguments here:
@@ -53,6 +54,12 @@ def _check_scope(method, args):
         raise NotImplementedError(
             "multi-device runs are not ported yet (ROADMAP.md queue 1, "
             "item 13)")
+    prec = args.get("matmul_precision", "highest")
+    if prec != "highest":
+        raise NotImplementedError(
+            f"matmul_precision {prec!r} is not ported yet (ROADMAP.md "
+            "queue 1, item 2: it needs a bf16 bank and bf16 gathers in the "
+            "kernels); only 'highest'")
 
 
 def get_data_loader(args):
@@ -84,7 +91,8 @@ def get_input_data(method, idx, time_length, data_loader: DataLoader, args):
     pyramids = data_loader.get_core_adj_list(
         args["core_base_path"], idx, time_length,
         max_core=args.get("max_core", -1),
-        core_backend=args.get("core_backend", "auto"))
+        core_backend=args.get("core_backend", "auto"),
+        dense_budget_bytes=args.get("dense_budget_bytes", 4 << 30))
     return data_loader.node_num, pyramids, None
 
 
@@ -193,7 +201,8 @@ def gnn_embedding(method, args, device="cuda"):
             load_model=load_model, shuffle=args.get("shuffle", True),
             export=args.get("export", True), seed=seed + widx)
         time_list.append(res["cost_time"])
-        results.append({"idx": idx, "setup_seconds": setup_seconds, **res})
+        results.append({"idx": idx, "setup_seconds": setup_seconds,
+                        "core_backend": trainer.data["adjs"].backend, **res})
         if record_time:
             write_time_csv(os.path.join(base_path, method + "_time.csv"),
                            time_list)

@@ -1,6 +1,7 @@
 # coding: utf-8
 """``python -m ctgcn_torch.main`` end to end on the CPU: the preprocessing
-and embedding tasks of CTGCN-C (U-neg, BSR backend) on a small generated
+and embedding tasks of CTGCN-C (U-neg, BSR backend, and the default
+``"auto"`` backend) on a small generated
 dataset, one epoch.  The embedding and time CSVs must read the way the
 JAX package's evaluators read them (pandas, tab-separated, node name as
 the index)."""
@@ -109,9 +110,10 @@ def test_default_device_without_gpu_raises(dataset):
 
 
 @pytest.mark.parametrize("change, error", [
-    ({"core_backend": "auto"}, NotImplementedError),
+    ({"matmul_precision": "bf16"}, NotImplementedError),
     ({"learning_type": "U-own"}, NotImplementedError),
     ({"remat_policy": "save_spmm"}, NotImplementedError),
+    ({"matmul_precision": "high"}, NotImplementedError),
 ])
 def test_unported_options_raise(dataset, tmp_path, change, error):
     _, cfg, _, _ = dataset
@@ -122,6 +124,26 @@ def test_unported_options_raise(dataset, tmp_path, change, error):
     with pytest.raises(error, match="not ported"):
         cli.main([f"--config={path}", "--task=embedding",
                   "--method=CTGCN-C", "--device=cpu"])
+
+
+def test_embedding_without_core_backend_runs_auto(dataset, trained,
+                                                  tmp_path):
+    """A config with no ``core_backend`` key runs the JAX default,
+    ``"auto"``, which picks the principal blocks on this small graph."""
+    base, cfg, names, emb = dataset
+    config = json.loads(Path(cfg).read_text())
+    entry = config["embedding"]["CTGCN-C"]
+    del entry["core_backend"]
+    entry.update(embed_folder="2.embedding/auto", model_file="auto",
+                 record_time=False)
+    path = tmp_path / "cfg.json"
+    path.write_text(json.dumps(config))
+    results = cli.main([f"--config={path}", "--task=embedding",
+                        "--method=CTGCN-C", "--device=cpu"])
+    assert [r["core_backend"] for r in results] == ["blocks", "blocks"]
+    assert all(np.isfinite(r["losses"]).all() for r in results)
+    files = sorted(os.listdir(base / "2.embedding" / "auto"))
+    assert files == [f"2010-0{t + 1}.csv" for t in range(SNAPS)]
 
 
 @pytest.mark.parametrize("task, method", [("link_pred", None),

@@ -59,7 +59,8 @@ def window():
     K = max(len(m) for m in per_snap)
     jpyr = j_stack([j_build(m, N, num_slots=K, build_plans=True)
                     for m in per_snap])
-    tpyr = t_stack([t_build(m, N, num_slots=K) for m in per_snap])
+    tpyr = t_stack([t_build(m, N, num_slots=K, build_plans=True)
+                    for m in per_snap])
     np.testing.assert_array_equal(tpyr.valid.numpy(), np.asarray(jpyr.valid))
     assert not tpyr.valid.all()           # the delta-skip took a slot
     # the port's window keeps each snapshot's own plans, unpadded

@@ -7,6 +7,7 @@ import json
 import os
 from pathlib import Path
 
+import jax
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -172,7 +173,8 @@ def test_loader_core_pyramids_match(toy_tree):
     ``row_ptr[-1]``) that the JAX bank adds to stack the window."""
     base, n = toy_tree
     names = tf.read_node_list(str(base / "nodes_set" / "nodes.csv"))
-    got = TDataLoader(names, 3).get_core_adj_list(str(base / "cores"), 0, 3)
+    got = TDataLoader(names, 3).get_core_adj_list(str(base / "cores"), 0, 3,
+                                                  core_backend="pallas")
     ref = JDataLoader(names, 3).get_core_adj_list(
         str(base / "cores"), 0, 3, core_backend="pallas")
     np.testing.assert_array_equal(got.valid.numpy(), np.asarray(ref.valid))
@@ -193,10 +195,60 @@ def test_loader_core_pyramids_match(toy_tree):
             assert not np.asarray(theirs.blocks)[t][nb:].any()
 
 
-@pytest.mark.parametrize("backend", ["auto", "dense", "blocks", "ell"])
-def test_loader_unported_backend_raises(toy_tree, backend):
+def _ell_nnz(plan):
+    """Nonzeros of a JAX ELL plan (one snapshot's buckets)."""
+    return sum(int((np.asarray(b.vals) != 0).sum()) for b in plan.buckets)
+
+
+@pytest.mark.parametrize("backend, kwargs, chosen", [
+    ("auto", {}, "blocks"),
+    ("dense", {}, "dense"),
+    ("blocks", {}, "blocks"),
+    ("ell", {}, "ell"),
+    ("auto", {"dense_budget_bytes": 1000}, "ell"),
+    ("auto", {"allow_blocks": False}, "dense"),
+], ids=["auto", "dense", "blocks", "ell", "auto_small_budget",
+        "auto_no_blocks"])
+def test_loader_backend_matches_jax(toy_tree, backend, kwargs, chosen):
+    """Every core backend, and the ``"auto"`` policy, builds the JAX
+    loader's bank on the same tree: the same backend (``"auto"`` takes the
+    blocks when the dense bank fits the budget, the dense bank without
+    blocks, ELL above the budget), validity, dense bank, principal blocks
+    and node order, and ELL plans of the same size."""
+    base, n = toy_tree
+    names = tf.read_node_list(str(base / "nodes_set" / "nodes.csv"))
+    got = TDataLoader(names, 3).get_core_adj_list(
+        str(base / "cores"), 0, 3, core_backend=backend, **kwargs)
+    ref = JDataLoader(names, 3).get_core_adj_list(
+        str(base / "cores"), 0, 3, core_backend=backend, **kwargs)
+    ref_backend = ("blocks" if ref.blocks is not None
+                   else "dense" if ref.dense is not None
+                   else "ell" if ref.ell_fwd is not None else None)
+    assert got.backend == ref_backend == chosen
+    np.testing.assert_array_equal(got.valid.numpy(), np.asarray(ref.valid))
+    # the COO is dropped once a bank is built
+    assert got.rows is None and got.plan_fwd is None
+    assert got.ell_delta == (chosen == "ell")
+    if got.backend == "dense":
+        np.testing.assert_array_equal(got.dense.numpy(),
+                                      np.asarray(ref.dense))
+    elif got.backend == "blocks":
+        np.testing.assert_array_equal(got.perm.numpy(), np.asarray(ref.perm))
+        for mine, theirs in zip(got.blocks, ref.blocks, strict=True):
+            for a, b in zip(mine, theirs, strict=True):
+                np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    else:
+        assert got.ell_delta and ref.ell_delta
+        for t in range(3):
+            theirs = jax.tree.map(lambda a, t=t: a[t], ref.ell_fwd)
+            assert got.ell_fwd[t].nnz == _ell_nnz(theirs)
+            assert (got.ell_fwd[t].n_rows, got.ell_fwd[t].n_cols) == (
+                theirs.n_rows, theirs.n_cols)
+
+
+def test_loader_unknown_backend_raises(toy_tree):
     base, _ = toy_tree
     names = tf.read_node_list(str(base / "nodes_set" / "nodes.csv"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="core_backend"):
         TDataLoader(names, 3).get_core_adj_list(str(base / "cores"), 0, 3,
-                                                core_backend=backend)
+                                                core_backend="csr")
