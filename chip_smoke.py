@@ -40,7 +40,16 @@ Phases, one line each:
                 and read just after;
      profile    an epoch's device time by kernel class (``torch.profiler``)
                 on each path;
-  5. the ``kernels`` JSON line, the card's name and power limit, and the
+  5. quality    the UCI Had AUC gate: CTGCN-C trained on UCI as configured
+                but for 10 epochs, seeds 0 and 1, scored by the port's
+                ``link_pred`` over edge-split reps 0-2 (mean Had AUC of the
+                last 4 dates, ``RESULTS.md:66-68``); fails below
+                ``HAD_AUC_GATE``;
+     eval       ``cent_pred`` and ``sim_pred`` on seed 0's UCI embeddings;
+                ``node_cls`` and ``edge_cls`` on America-Air (preprocessed,
+                CTGCN-C trained 3 epochs); the centralities of UCI 2004-05
+                and one date's logistic sweep on the GPU against the CPU;
+  6. the ``kernels`` JSON line, the card's name and power limit, and the
      final ``{"ok": true, "device": ...}`` line.
 
 Any failure exits non-zero.  Without a GPU, or outside a checkout of the
@@ -71,6 +80,18 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 #: device cycles queued ahead of a timed run (about 10 ms on an H100)
 SLEEP_CYCLES = 20_000_000
+#: the Had AUC gate (RESULTS.md:66-68): CTGCN-C on UCI, 10 epochs, mean Had
+#: AUC of the last 4 dates over edge-split reps 0-2, averaged over the seeds.
+#: The gate is the JAX package's lowest of 6 seeds (0.9431) less 0.0025,
+#: about one seed-to-seed standard deviation
+QUALITY_EPOCHS, QUALITY_SEEDS, QUALITY_REPS = 10, (0, 1), 3
+HAD_AUC_GATE = 0.9406
+HAD_AUC_RANGES = {"ctgcn_tpu, 6 seeds": [0.9431, 0.9496],
+                  "torch original, 6 seeds": [0.9453, 0.9519]}
+#: America-Air training for node_cls / edge_cls
+AA_EPOCHS = 3
+#: evaluation on the GPU against the CPU: float64 on both sides
+DEVICE_CPU_RTOL = 1e-9
 
 
 def _fail(msg):
@@ -598,6 +619,211 @@ def run_path(path, cfg, backend, dev):
     return launches
 
 
+def _cli(config, task, device, method=None):
+    """``ctgcn_torch.main`` on a config dict written to a file beside
+    ``config["_path"]``; returns what the task returns."""
+    from ctgcn_torch import main as cli
+
+    path = config.pop("_path")
+    with open(path, "w") as fp:
+        json.dump(config, fp, indent=1)
+    argv = [f"--config={path}", f"--task={task}", f"--device={device}"]
+    return cli.main(argv + ([f"--method={method}"] if method else []))
+
+
+def _train(base, name, conf, device, **change):
+    """CTGCN-C trained through the CLI on the preprocessed ``base`` into
+    ``2.embedding/<name>``; checks the losses and returns the seconds and
+    the window results."""
+    import numpy as np
+
+    emb = dict(conf["embedding"]["CTGCN-C"], base_path=str(base),
+               embed_folder=f"2.embedding/{name}", model_file=name,
+               record_time=False, **change)
+    t0 = time.time()
+    results = _cli({"_path": base / f"{name}.json",
+                    "embedding": {"CTGCN-C": emb}}, "embedding", device,
+                   "CTGCN-C")
+    losses = [l for r in results for l in r["losses"]]
+    if not losses or not all(np.isfinite(losses)):
+        raise AssertionError(f"{name}: losses {losses}")
+    return time.time() - t0, results
+
+
+def phase_quality(base, device):
+    """The Had AUC gate on the preprocessed UCI copy ``base``: one
+    10-epoch CTGCN-C per seed, then ``link_pred`` as ``configs/uci.json``
+    gives it (ratios 0.5/0.3/0.2, C in 0.01-10, four measures) over reps
+    0-2.  Returns the method folders, seed 0's first."""
+    import numpy as np
+
+    from ctgcn_torch.evaluation.tables import read_table
+
+    with open(ROOT / "configs" / "uci.json") as fp:
+        conf = json.load(fp)
+    methods, train = [], {}
+    for seed in QUALITY_SEEDS:
+        name = f"CTGCN-C-s{seed}"
+        seconds, results = _train(base, name, conf, device,
+                                  epoch=QUALITY_EPOCHS, seed=seed)
+        train[name] = {"seconds": seconds,
+                       "core_backend": [r["core_backend"] for r in results],
+                       "final_loss": results[-1]["losses"][-1]}
+        methods.append(name)
+    lp = dict(conf["link_pred"], base_path=str(base), start_idx=0,
+              rep_num=QUALITY_REPS, method_list=methods, aggregate=True)
+    timing = _cli({"_path": base / "link_pred.json", "link_pred": lp},
+                  "link_pred", device)
+    had, means = {}, {}
+    for name in methods:
+        per_rep = []
+        for i in range(QUALITY_REPS):
+            header, cols = read_table(base / f"lp_res_{i}"
+                                      / f"{name}_auc_record.csv", ",")
+            vals = cols[header.index("Had")]
+            if len(vals) != 6 or not all(0.0 <= v <= 1.0 for v in vals):
+                raise AssertionError(f"{name} rep {i}: Had AUCs {vals}")
+            per_rep.append(float(np.mean(vals[-4:])))
+            means.setdefault(i, {})[name] = {
+                m: float(np.mean(cols[header.index(m)][-4:]))
+                for m in lp["measure_list"]}
+        had[name] = per_rep
+    seed_means = {name: float(np.mean(v)) for name, v in had.items()}
+    mean = float(np.mean(list(seed_means.values())))
+    _phase("quality", had_auc_last4_by_seed_and_rep=had,
+           had_auc_by_seed=seed_means, had_auc_mean=mean,
+           gate=HAD_AUC_GATE, reference_ranges=HAD_AUC_RANGES,
+           all_measures_last4=means, train=train,
+           split_generation_seconds=timing["generate_seconds"],
+           fit_seconds=timing["predict_seconds"])
+    if not mean >= HAD_AUC_GATE:
+        raise AssertionError(f"Had AUC {mean:.4f} below the gate "
+                             f"{HAD_AUC_GATE}")
+    return methods
+
+
+def _check_record(task, path, rows, lo, hi):
+    """A record's values: ``rows`` dates, each value finite in [lo, hi]."""
+    import math
+
+    from ctgcn_torch.evaluation.tables import read_table
+
+    header, cols = read_table(path, ",")
+    vals = [v for c in cols[1:] for v in c]
+    if (len(cols[0]) != rows
+            or not all(math.isfinite(v) and lo <= v <= hi for v in vals)):
+        raise AssertionError(f"{task}: record {path.name}: {cols}")
+    return {h: c for h, c in zip(header, cols)}
+
+
+def phase_eval(uci, method, aa, device):
+    """``cent_pred`` and ``sim_pred`` of ``configs/uci.json`` on
+    ``method``'s UCI embeddings (all 7 snapshots); ``node_cls`` and
+    ``edge_cls`` of ``configs/america-air.json`` (rep 0) on a CTGCN-C
+    trained for ``AA_EPOCHS`` epochs on a preprocessed copy of America-Air
+    at ``aa``."""
+    with open(ROOT / "configs" / "uci.json") as fp:
+        conf = json.load(fp)
+    for task, res, col_range in (
+            ("cent_pred", "centrality_res", (0.0, float("inf"))),
+            ("sim_pred", "similarity_res", (-1.0, 1.0))):
+        section = dict(conf[task], base_path=str(uci), method_list=[method])
+        t0 = time.time()
+        timing = _cli({"_path": uci / f"{task}.json", task: section}, task,
+                      device)
+        record = _check_record(task, uci / res / f"{method}_mse_record.csv",
+                               7, *col_range)
+        _phase("eval", task=task, data="uci", method=method,
+               seconds=time.time() - t0, **timing, record=record,
+               checked=f"7 dates, every value finite in {list(col_range)}")
+
+    src = ROOT / "data" / "america_air"
+    for folder in ("1.format", "nodes_set", "nodes_label", "edges_label"):
+        shutil.copytree(src / folder, aa / folder)
+    with open(ROOT / "configs" / "america-air.json") as fp:
+        conf = json.load(fp)
+    pre = dict(conf["preprocessing"]["CTGCN-C"], base_path=str(aa))
+    t0 = time.time()
+    _cli({"_path": aa / "pre.json", "preprocessing": {"CTGCN-C": pre}},
+         "preprocessing", device, "CTGCN-C")
+    pre_s = time.time() - t0
+    train_s, results = _train(aa, "CTGCN-C", conf, device, epoch=AA_EPOCHS)
+    _phase("eval", data="america_air", preprocess_seconds=pre_s,
+           train_seconds=train_s,
+           core_backend=[r["core_backend"] for r in results],
+           losses=[l for r in results for l in r["losses"]])
+    for task, res in (("node_cls", "nodecls_res_0"),
+                      ("edge_cls", "edgecls_res_0")):
+        section = dict(conf[task], base_path=str(aa), start_idx=0,
+                       rep_num=1, method_list=["CTGCN-C"], aggregate=False)
+        t0 = time.time()
+        timing = _cli({"_path": aa / f"{task}.json", task: section}, task,
+                      device)
+        record = _check_record(task, aa / res / "CTGCN-C_acc_record.csv",
+                               10, 0.0, 1.0)
+        _phase("eval", task=task, data="america_air", method="CTGCN-C",
+               seconds=time.time() - t0, **timing, record=record,
+               checked="10 dates, every value finite in [0.0, 1.0]")
+
+
+def _close64(name, got, ref):
+    """|got - ref| <= DEVICE_CPU_RTOL * max|ref| (float64 on both)."""
+    err = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    if not err <= DEVICE_CPU_RTOL * scale:
+        raise AssertionError(f"{name}: device against cpu {err:.3e} over "
+                             f"{DEVICE_CPU_RTOL} * {scale:.3e}")
+    return err / scale if scale else 0.0
+
+
+def phase_device_vs_cpu(uci, method, dev):
+    """The three centralities of UCI 2004-05, and one date's logistic
+    sweep (Had features of 2004-05's rep-0 training edges on ``method``'s
+    2004-04 embedding, every C of ``configs/uci.json``), computed on the
+    GPU and on the CPU: float64 on both, so they agree within
+    ``DEVICE_CPU_RTOL`` of the largest value."""
+    import numpy as np
+    import torch
+
+    from ctgcn_torch.data.formats import get_sp_adj_mat, read_node_list
+    from ctgcn_torch.evaluation import centrality, linear, tables
+    from ctgcn_torch.evaluation.link_prediction import edge_features
+
+    nodes = read_node_list(uci / "nodes_set" / "nodes.csv")
+    adj = get_sp_adj_mat(uci / "1.format" / f"{SNAPSHOT}.csv", nodes)
+    sides = {"device": dev, "cpu": torch.device("cpu")}
+    out, seconds, res, fits = {}, {}, {}, {}
+    for side, d in sides.items():
+        t0 = time.time()
+        A = centrality.edge_pattern(adj, d)
+        res[side] = [v.cpu() for v in (
+            *centrality.shortest_path_centralities(A),
+            centrality.eigenvector_centrality(A))]
+        seconds[f"centralities_{side}"] = time.time() - t0
+    for k, name in enumerate(("closeness", "betweenness", "eigenvector")):
+        out[name] = _close64(name, res["device"][k], res["cpu"][k])
+
+    with open(ROOT / "configs" / "uci.json") as fp:
+        lp = json.load(fp)["link_pred"]
+    emb = tables.read_embedding(
+        uci / "2.embedding" / method / "2004-04.csv", nodes, "\t")
+    cols = tables.read_split(uci / "lp_data_0" / f"{SNAPSHOT}_train.csv",
+                             "\t")
+    for side, d in sides.items():
+        edges = torch.from_numpy(np.stack(cols, 1)).to(d)
+        X = edge_features(edges, torch.from_numpy(emb).to(d), ["Had"])["Had"]
+        t0 = time.time()
+        fits[side] = linear.fit_logistic(X, edges[:, 2], lp["c_list"],
+                                         lp["max_iter"]).cpu()
+        seconds[f"fit_logistic_{side}"] = time.time() - t0
+    out["fit_logistic"] = _close64("fit_logistic", fits["device"],
+                                   fits["cpu"])
+    return {"snapshot": SNAPSHOT, "n_nodes": len(nodes),
+            "train_edges": int(len(cols[0])), "C": lp["c_list"],
+            "max_rel_err": out, "tolerance": DEVICE_CPU_RTOL,
+            "seconds": seconds}
+
+
 def main():
     try:
         import torch
@@ -608,9 +834,11 @@ def main():
     if not ((ROOT / "ctgcn_torch" / "csrc").is_dir()
             and (ROOT / "configs" / "uci.json").is_file()
             and (ROOT / "data" / "uci" / "1.format").is_dir()
+            and (ROOT / "data" / "america_air" / "edges_label").is_dir()
             and all((ROOT / "data" / "as" / "1.format" / f).is_file()
                     for f in AS_SNAPSHOTS)):
         return _fail(f"{ROOT} is not a checkout of the repository")
+    t_start = time.time()
     sys.path.insert(0, str(ROOT))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -676,6 +904,23 @@ def main():
         # where an epoch's time goes (after the counted runs)
         for path, (cfg, _) in PATHS.items():
             phase_profile(path, cfgs[cfg][2], dev)
+
+        # 5. model quality and the other evaluation tasks, counters set to
+        # 0 just before and read just after (UCI and America-Air train on
+        # the blocks backend, and evaluation runs no kernel of ours)
+        from ctgcn_torch.ops import bsr_spmm as B
+
+        for name in KERNELS:
+            getattr(B, name).launches = 0
+        t0 = time.time()
+        methods = phase_quality(work / "uci", "cuda")
+        phase_eval(work / "uci", methods[0], work / "america_air", "cuda")
+        launches["evaluation"] = {name: getattr(B, name).launches
+                                  for name in KERNELS}
+        _phase("eval", check="device against cpu",
+               **phase_device_vs_cpu(work / "uci", methods[0], dev))
+        _phase("eval", total_seconds=time.time() - t0,
+               launches=launches["evaluation"])
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -691,6 +936,7 @@ def main():
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             **kernels[name], "ell_as": kernels_ell[name]})
     print(json.dumps({"kernels": entries}))
+    _phase("total", seconds=time.time() - t_start)
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

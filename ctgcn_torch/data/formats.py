@@ -25,7 +25,9 @@ import numpy as np
 import scipy.sparse as sp
 
 
-def _infer_names(tokens):
+def infer_names(tokens):
+    """Node names as pandas types a column of them: ints if every token is
+    one, else the strings."""
     try:
         return [int(t) for t in tokens]
     except ValueError:
@@ -35,7 +37,7 @@ def _infer_names(tokens):
 def read_node_list(node_path):
     with open(node_path) as fp:
         tokens = [line.rstrip("\r\n") for line in fp]
-    return _infer_names([t for t in tokens if t != ""])
+    return infer_names([t for t in tokens if t != ""])
 
 
 def read_edge_csv(file_path, node2idx, sep="\t"):
@@ -44,8 +46,8 @@ def read_edge_csv(file_path, node2idx, sep="\t"):
     with open(file_path) as fp:
         lines = fp.read().splitlines()[1:]
     rows = [line.split(sep) for line in lines if line != ""]
-    src_names = _infer_names([r[0] for r in rows])
-    dst_names = _infer_names([r[1] for r in rows])
+    src_names = infer_names([r[0] for r in rows])
+    dst_names = infer_names([r[1] for r in rows])
     src = np.fromiter((node2idx[s] for s in src_names), np.int64,
                       count=len(rows))
     dst = np.fromiter((node2idx[d] for d in dst_names), np.int64,
@@ -98,13 +100,14 @@ def write_embedding_csv(path, arr, names, sep="\t"):
         fp.write("\n".join(lines) + "\n")
 
 
-def read_embedding_csv(path, sep="\t"):
-    """Inverse of :func:`write_embedding_csv`: (names, float32 [N, d])."""
+def read_embedding_csv(path, sep="\t", dtype=np.float32):
+    """Inverse of :func:`write_embedding_csv`: (names, [N, d] of ``dtype``).
+    The evaluators read float64, as ``pandas.read_csv`` does."""
     with open(path) as fp:
         lines = fp.read().splitlines()[1:]
     rows = [line.split(sep) for line in lines if line != ""]
-    names = _infer_names([r[0] for r in rows])
-    arr = np.array([[float(v) for v in r[1:]] for r in rows], np.float32)
+    names = infer_names([r[0] for r in rows])
+    arr = np.array([[float(v) for v in r[1:]] for r in rows], dtype)
     return names, arr
 
 

@@ -4,25 +4,28 @@
     python -m ctgcn_torch.main --config=<json> --task=<task> \
         [--method=<M>] [--device=cuda|cpu]
 
-Tasks ported so far: ``preprocessing`` and ``embedding`` (CTGCN-C, U-neg).
+Tasks: ``preprocessing`` and ``embedding`` (CTGCN-C, U-neg), and the five
+evaluation tasks ``link_pred``, ``node_cls``, ``edge_cls``, ``cent_pred``
+and ``sim_pred``, whose fits, metrics and centralities run on the device.
 The device defaults to ``cuda``; without a GPU the run stops unless
 ``--device cpu`` is given.
 """
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import sys
 
 from ctgcn_torch.utils import get_supported_methods, resolve_device
 
-#: ROADMAP.md item that brings each task the port does not have yet
-_MISSING_TASKS = {
-    "link_pred": "queue 1, item 8",
-    "node_cls": "queue 1, item 8",
-    "edge_cls": "queue 1, item 8",
-    "cent_pred": "queue 1, item 8",
-    "sim_pred": "queue 1, item 8",
+#: evaluation task -> (module, function) of ``ctgcn_torch.evaluation``
+EVAL_TASKS = {
+    "link_pred": ("link_prediction", "link_prediction"),
+    "node_cls": ("node_classification", "node_classification"),
+    "edge_cls": ("edge_classification", "edge_classification"),
+    "cent_pred": ("centrality_prediction", "centrality_prediction"),
+    "sim_pred": ("similarity_prediction", "similarity_prediction"),
 }
 
 
@@ -44,7 +47,7 @@ def parse_args(argv):
 
 def main(argv=None):
     """Run one task; returns what the task returns (the embedding task:
-    one result dict per window)."""
+    one result dict per window; an evaluation task: its seconds)."""
     args = parse_args(argv if argv is not None else sys.argv[1:])
     device = resolve_device(args.device)
     with open(args.config[0]) as fp:
@@ -63,10 +66,11 @@ def main(argv=None):
 
         return gnn_embedding(args.method, config[args.task][args.method],
                              device=device)
-    if args.task in _MISSING_TASKS:
-        raise NotImplementedError(
-            f"task {args.task!r} is not ported yet "
-            f"(ROADMAP.md {_MISSING_TASKS[args.task]})")
+    if args.task in EVAL_TASKS:
+        module, fn = EVAL_TASKS[args.task]
+        task = getattr(importlib.import_module(
+            f"ctgcn_torch.evaluation.{module}"), fn)
+        return task(config[args.task], device=device)
     raise AttributeError(f"Unsupported task {args.task!r}!")
 
 

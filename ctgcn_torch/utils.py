@@ -1,8 +1,10 @@
 # coding: utf-8
 """Shared helpers: device selection, path helpers, method registries,
-padding buckets (the port's own copy of ``ctgcn_tpu/utils.py``)."""
+padding buckets, the sigmoid and negative edge sampling (the port's own
+copy of ``ctgcn_tpu/utils.py``)."""
 import os
 
+import numpy as np
 import torch
 
 
@@ -55,3 +57,40 @@ def pad_bucket(n, minimum=256):
     """Bucketed padding size: next power of two >= max(n, minimum)."""
     n = max(int(n), int(minimum))
     return 1 << (n - 1).bit_length()
+
+
+def sigmoid(x):
+    """``1 / (1 + exp(-x))`` of a tensor, the JAX package's formula (it
+    saturates to exactly 0 and 1 as numpy's does)."""
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+def get_neg_edge_samples(pos_edges, edge_num, all_edge_dict, node_num,
+                         add_label=True, rng=None):
+    """Rejection-sample ``edge_num`` non-edges and stack them under
+    ``pos_edges``.  The draws are the JAX package's, call for call (two
+    ``rng.choice(node_num)`` an attempt), so one ``RandomState`` gives the
+    same rows in both packages."""
+    rng = rng if rng is not None else np.random
+    neg_edge_dict = {}
+    neg_edge_list = []
+    cnt = 0
+    while cnt < edge_num:
+        from_id = int(rng.choice(node_num))
+        to_id = int(rng.choice(node_num))
+        if from_id == to_id:
+            continue
+        if ((from_id, to_id) in all_edge_dict
+                or (to_id, from_id) in all_edge_dict):
+            continue
+        if ((from_id, to_id) in neg_edge_dict
+                or (to_id, from_id) in neg_edge_dict):
+            continue
+        neg_edge_dict[(from_id, to_id)] = 1
+        if add_label:
+            neg_edge_list.append([from_id, to_id, 0])
+        else:
+            neg_edge_list.append([from_id, to_id])
+        cnt += 1
+    neg_edges = np.array(neg_edge_list)
+    return np.vstack([pos_edges, neg_edges])
