@@ -3,28 +3,42 @@
 
     python3 chip_smoke.py
 
-Drives three paths of the port through its CLI, CTGCN-C with U-neg at the
-full width of the repository's configs, and holds each hand-written kernel
-against its plain PyTorch version:
+Drives the port's paths through its CLI at the full width of the
+repository's configs (hid 500, embed 128), and holds each hand-written
+kernel against its plain PyTorch version:
 
-  * main path   ``configs/uci.json`` as written (hid 500, embed 128,
-                T = 7, batch 2048, neg_num 20, Q 20; no ``core_backend``,
-                so ``"auto"``, which picks the principal blocks at UCI),
-                3 epochs on a temporary copy of the bundled UCI data;
-  * pallas path the same with ``core_backend: "pallas"`` (the BSR plans on
+  * uci_auto    ``configs/uci.json`` CTGCN-C as written (T = 7, batch 2048,
+                neg_num 20, Q 20; no ``core_backend``, so ``"auto"``, which
+                picks the principal blocks at UCI), 3 epochs on a temporary
+                copy of the bundled UCI data;
+  * uci_pallas  the same with ``core_backend: "pallas"`` (the BSR plans on
                 both CUDA kernels), 1 epoch;
-  * ELL path    ``configs/as.json`` (hid 500, embed 128, T = 5, batch 8192,
-                neg_num 20, Q 20) on the first 5 AS snapshots, one window,
-                under ``"auto"``, which picks delta-encoded ELL plans there
-                (the CSR row walk forward, the block-parallel kernel on the
-                transpose's hub rows), 3 epochs.
+  * as_auto     ``configs/as.json`` CTGCN-C (T = 5, batch 8192) on the first
+                5 AS snapshots, one window, under ``"auto"``, which picks
+                delta-encoded ELL plans there (the CSR row walk forward, the
+                block-parallel kernel on the transpose's hub rows), 3 epochs;
+  * as_ctgcn_s  ``configs/as.json`` CTGCN-S as written (U-own, gaussian
+                degree features, 3 SELU trans layers, one CoreDiffusion
+                layer at 128) on the same window, 3 epochs;
+  * as_bf16     as_auto with ``matmul_precision: "bf16"`` (both bf16 kernel
+                instantiations: the row walk on the forward, the
+                block-parallel kernel on the transpose), 1 epoch;
+  * enron_bf16  ``configs/enron.json`` CTGCN-C as written
+                (``matmul_precision: "bf16"``, batch 32768: 3 batches an
+                epoch) on a preprocessed copy of Enron snapshots 000-004
+                (N = 87,036, K = 22 slots), delta-ELL, 2 epochs; both plans
+                have hub rows, so only the block-parallel bf16 kernel runs;
+                then enron_highest, one epoch of it at ``"highest"`` from
+                the same seed (no export), for the first-epoch loss gap;
+  * uci_cgcn_c, uci_cgcn_s  ``configs/uci.json`` CGCN-C and CGCN-S (U-own,
+                combine features) as written, windows 0-1, 2 epochs.
 
 Phases, one line each:
 
   1. build      the CUDA kernels from ``ctgcn_torch/csrc`` (nvcc, sm_90a);
   2. preprocess k-core pyramids and walk tables through ``ctgcn_torch.main``
-                (UCI, then the AS snapshots);
-  3. kernels    each kernel on the UCI pallas plans (snapshot 2004-05,
+                (UCI, then the AS and the Enron snapshots);
+  3. kernels    each f32 kernel on the UCI pallas plans (snapshot 2004-05,
                 both directions, d = 512 and 128: ``block_spmm`` pads hid
                 500 and embed 128 to multiples of 128) against both plain
                 versions (CSR gather + index_add_, dense blocks), and on the
@@ -33,18 +47,27 @@ Phases, one line each:
                 one; the autograd gradients of ``block_spmm`` and
                 ``ell_spmm``; times of kernel, plain version and one library
                 call on every plan at both widths, and each kernel's bound;
+     kernels_bf16  each bf16 instantiation (bf16 and f32 out) on the
+                Enron delta plans of snapshot 004 and the AS ones, at d = 504
+                and 128 (``ell_spmm`` pads to a multiple of 8 in bf16),
+                against its plain version; its time beside the f32 kernel's
+                on the same plan and width, ``torch.sparse.mm``'s and the
+                bound;
      parity     small CTGCN-C models on BSR and on delta-ELL plans, forward
                 and gradients, kernels on the GPU against the plain versions
-                on the CPU;
+                on the CPU, and one on f32 blocks at ``"high"`` (3xTF32);
   4. paths      each path with the launch counters set to 0 just before it
-                and read just after;
+                and read just after (``PATHS``: the kernels each must launch,
+                every other must not), and Enron's bf16 / "highest" loss gap;
      profile    an epoch's device time by kernel class (``torch.profiler``)
-                on each path;
-  5. quality    the UCI Had AUC gate: CTGCN-C trained on UCI as configured
-                but for 10 epochs, seeds 0 and 1, scored by the port's
-                ``link_pred`` over edge-split reps 0-2 (mean Had AUC of the
-                last 4 dates, ``RESULTS.md:66-68``); fails below
-                ``HAD_AUC_GATE``;
+                on each path of ``PROFILED``;
+  5. quality    the UCI Had AUC gates, seeds 0 and 1 each, scored by the
+                port's ``link_pred`` over edge-split reps 0-2 (mean Had AUC
+                of the last 4 dates): CTGCN-C as configured but for 10
+                epochs (``RESULTS.md:66-68``) and the same at
+                ``matmul_precision: "bf16"`` (``RESULTS.md:69``), each
+                failing below ``HAD_AUC_GATE``; CTGCN-S as configured (20
+                epochs, ``RESULTS.md:38``), failing below ``S_AUC_GATE``;
      eval       ``cent_pred`` and ``sim_pred`` on seed 0's UCI embeddings;
                 ``node_cls`` and ``edge_cls`` on America-Air (preprocessed,
                 CTGCN-C trained 3 epochs); the centralities of UCI 2004-05
@@ -69,6 +92,16 @@ SNAPSHOT = "2004-05"
 EPOCHS = 3
 #: the AS snapshots of the ELL path (one window of configs/as.json)
 AS_SNAPSHOTS = tuple(f"{i:03d}.csv" for i in range(5))
+#: the Enron snapshots of the bf16 path (window 0 of configs/enron.json),
+#: its epochs, and the snapshot whose plans [kernels_bf16] times
+ENRON_SNAPSHOTS = tuple(f"{i:03d}.csv" for i in range(5))
+ENRON_EPOCHS = 2
+ENRON_SNAPSHOT = 4
+#: bf16 kernel with bf16 out vs its plain version: within one bf16 ulp of
+#: the plain value (at most 2^-7 of it) plus ATOL_REL * max|plain|
+BF16_ULP = 2.0 ** -7
+#: relative gap of Enron's first-epoch loss, bf16 against "highest"
+ENRON_LOSS_GAP = 1e-2
 #: kernel vs plain version: |k - p| <= RTOL * |p| + ATOL_REL * max|p|
 #: (f32 sums taken in another order; no TF32 on either side)
 RTOL, ATOL_REL = 1e-5, 1e-5
@@ -88,6 +121,17 @@ QUALITY_EPOCHS, QUALITY_SEEDS, QUALITY_REPS = 10, (0, 1), 3
 HAD_AUC_GATE = 0.9406
 HAD_AUC_RANGES = {"ctgcn_tpu, 6 seeds": [0.9431, 0.9496],
                   "torch original, 6 seeds": [0.9453, 0.9519]}
+#: CTGCN-S on UCI as configured (20 epochs): the JAX package's one seed,
+#: 0.9342 (RESULTS.md:38, rep std 0.0031), less 0.0100
+S_AUC_GATE = 0.9242
+#: (name, method, config change, epochs, gate) of each quality run; the
+#: bf16 run's gate is the f32 one, as RESULTS.md:69 found bf16
+#: quality-neutral (0.9331 vs 0.9340 at 50 epochs)
+QUALITY_RUNS = (
+    ("CTGCN-C", "CTGCN-C", {}, QUALITY_EPOCHS, HAD_AUC_GATE),
+    ("CTGCN-C-bf16", "CTGCN-C", {"matmul_precision": "bf16"},
+     QUALITY_EPOCHS, HAD_AUC_GATE),
+    ("CTGCN-S", "CTGCN-S", {}, 20, S_AUC_GATE))
 #: America-Air training for node_cls / edge_cls
 AA_EPOCHS = 3
 #: evaluation on the GPU against the CPU: float64 on both sides
@@ -156,19 +200,21 @@ def _plan_csr(plan):
                                    check_invariants=False)
 
 
-def _bound(plan, d):
+def _bound(plan, d, x_bytes=4, out_bytes=4):
     """Least time for ``out = A @ x`` with ``plan`` at width d: the larger
     of the bytes the product must move (A's values, column indices and row
-    pointers, the rows of x that A's columns name, and out, each once)
-    over the HBM rate and its 2 * nnz * d FLOPs over the FP32 peak.  Rows
-    of x that no nonzero names need not be read: in a pyramid transpose
-    that is most of g, whose rows for empty slot rows are never used."""
+    pointers, the rows of x that A's columns name, and out, each once;
+    ``x_bytes`` / ``out_bytes`` per element: 2 for bf16) over the HBM rate
+    and its 2 * nnz * d FLOPs over the FP32 peak (the kernels multiply in
+    f32 FFMA).  Rows of x that no nonzero names need not be read: in a
+    pyramid transpose that is most of g, whose rows for empty slot rows
+    are never used."""
     import torch
 
     x_rows = int(torch.unique(plan.csr_col).numel())
     flops = 2.0 * plan.nnz * d
     bytes_ = (plan.nnz * 8 + (plan.n_rows + 1) * 4
-              + (x_rows + plan.n_rows) * d * 4)
+              + x_rows * d * x_bytes + plan.n_rows * d * out_bytes)
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, bytes_ / PEAK_HBM_BYTES
     return {
         "bound_ms": max(t_ops, t_bytes) * 1e3,
@@ -189,8 +235,11 @@ def _check_close(name, got, ref, rtol=RTOL, atol_rel=ATOL_REL):
     return float(err.max())
 
 
-KERNELS = {"bsr_spmm_blockpar": "ctgcn_tpu/ops/pallas_spmm.py:146",
-           "bsr_spmm_rowwalk": "ctgcn_tpu/ops/pallas_spmm.py:97"}
+#: the f32 kernels, then their bf16 instantiations (same TPU kernels)
+F32_KERNELS = {"bsr_spmm_blockpar": "ctgcn_tpu/ops/pallas_spmm.py:146",
+               "bsr_spmm_rowwalk": "ctgcn_tpu/ops/pallas_spmm.py:97"}
+BF16_KERNELS = {f"{k}_bf16": v for k, v in F32_KERNELS.items()}
+KERNELS = {**F32_KERNELS, **BF16_KERNELS}
 
 
 def _spmm_widths(cfg, align):
@@ -215,11 +264,11 @@ def _kernel_rows(tag, plans, dev, widths, extra_check=None):
                              generator=gen) for k, p in plans.items()}
     # the plan each kernel gets on the path
     main_plan = {B.dispatch(p).__name__: k for k, p in plans.items()}
-    if set(main_plan) != set(KERNELS):
+    if set(main_plan) != set(F32_KERNELS):
         raise AssertionError(f"{tag}: the plans do not reach both kernels "
                              f"({main_plan})")
     errs = {}
-    for name in KERNELS:
+    for name in F32_KERNELS:
         kern = getattr(B, name)
         for pk, plan in plans.items():
             for dd in widths:
@@ -235,7 +284,7 @@ def _kernel_rows(tag, plans, dev, widths, extra_check=None):
     torch.cuda.synchronize()
 
     results = {}
-    times = {name: [] for name in KERNELS}
+    times = {name: [] for name in F32_KERNELS}
     for pk, plan in plans.items():
         csr = _plan_csr(plan)
         for dd in widths:
@@ -245,7 +294,7 @@ def _kernel_rows(tag, plans, dev, widths, extra_check=None):
             _check_close(f"{tag} torch.sparse.mm {pk} d={dd}",
                          torch.sparse.mm(csr, inp),
                          B.bsr_spmm_csr_plain(plan, inp))
-            for name in KERNELS:
+            for name in F32_KERNELS:
                 kern = getattr(B, name)
                 ms = _time_ms(lambda: kern(plan, inp))
                 row = {"plan": pk, "d": dd, "ms": ms,
@@ -285,7 +334,7 @@ def _kernel_rows(tag, plans, dev, widths, extra_check=None):
                        x_rows_read=bound["x_rows_read"],
                        flops=bound["flops"], bytes=bound["bytes"])
         del csr
-    for name in KERNELS:
+    for name in F32_KERNELS:
         results[name]["times"] = times[name]
         _phase(tag, kernel=name, times=times[name])
     return results
@@ -387,6 +436,160 @@ def phase_kernels_ell(cfg, dev):
                         B.bsr_spmm_csr_plain(tr, g_pad)[:, :dm])
     _phase("kernels_ell", check="ell_spmm autograd grad", snapshot=t,
            d=dm, max_abs_err=gerr)
+    return results, plans
+
+
+def _check_bf16(name, got, ref_f32, out_dtype):
+    """A bf16 kernel's output against its plain version's f32 sum: a bf16
+    output within one bf16 ulp of the plain value (the plain version
+    rounds that sum once; the kernel's sum, taken in another order, may
+    round to the neighbour) plus ATOL_REL * max|plain|; an f32 output at
+    RTOL and ATOL_REL."""
+    import torch
+
+    if out_dtype == torch.float32:
+        return _check_close(name, got, ref_f32)
+    ref = ref_f32.bfloat16().float()
+    got = got.float()
+    err = (got - ref).abs()
+    tol = BF16_ULP * ref.abs() + ATOL_REL * float(ref.abs().max())
+    if not torch.isfinite(got).all() or bool((err > tol).any()):
+        raise AssertionError(f"{name}: max abs err {float(err.max()):.3e} "
+                             "over one bf16 ulp + atol")
+    return float(err.max())
+
+
+def _library_ms(plan, x):
+    """``torch.sparse.mm``'s time on ``plan`` and x: in bf16 where cuSPARSE
+    takes it, else in f32.  Returns (ms, dtype name)."""
+    import torch
+
+    csr = torch.sparse_csr_tensor(plan.csr_ptr.long(), plan.csr_col.long(),
+                                  plan.csr_val.bfloat16(),
+                                  (plan.n_rows, plan.n_cols),
+                                  check_invariants=False)
+    try:
+        torch.sparse.mm(csr, x)
+        torch.cuda.synchronize()
+        return _time_ms(lambda: torch.sparse.mm(csr, x)), "bf16"
+    except RuntimeError:
+        csr32, x32 = _plan_csr(plan), x.float()
+        return _time_ms(lambda: torch.sparse.mm(csr32, x32)), "f32"
+
+
+def phase_kernels_bf16(cfg, as_plans, dev):
+    """Both bf16 instantiations, with bf16 and with f32 out, on the Enron
+    window's delta plans of snapshot ``ENRON_SNAPSHOT`` (forward and
+    transpose) and on the AS ones, at d = 504 and 128 (the widths bf16
+    ``ell_spmm`` runs: hid 500 padded to a multiple of 8, embed 128),
+    against their plain version; then on every plan at every width the
+    time of each with the out dtype the path uses there (bf16 forward, f32
+    transpose: the backward's dx), beside the f32 kernel's on the same plan
+    and width, ``torch.sparse.mm``'s and the bound (2-byte x rows, 8 bytes
+    of (col, val) a nonzero, out at 2 or 4 bytes).  Returns each kernel's
+    row on the plan its path gives it (the row walk on as_bf16's forward,
+    the block-parallel kernel on Enron's forward) at d = 504, and every
+    time."""
+    import torch
+
+    from ctgcn_torch.ops import bsr_spmm as B
+    from ctgcn_torch.training.driver import get_data_loader
+
+    args = dict(cfg)
+    loader = get_data_loader(args)
+    t0 = time.time()
+    pyr = loader.get_core_adj_list(args["core_base_path"], 0,
+                                   args["duration"],
+                                   dense_dtype=torch.bfloat16)
+    built_s = time.time() - t0
+    if pyr.backend != "ell" or not pyr.ell_bf16:
+        raise AssertionError(f"auto chose {pyr.backend} (bf16 "
+                             f"{pyr.ell_bf16}) at Enron, not bf16 ELL")
+    # the enron_bf16 path expects the block-parallel kernel alone
+    chosen = {B.dispatch(p, bf16=True).__name__
+              for p in pyr.ell_fwd + pyr.ell_t}
+    if chosen != set(PATHS["enron_bf16"][3]):
+        raise AssertionError(f"dispatch gives {chosen} on the Enron plans")
+    fwd = pyr.ell_fwd[ENRON_SNAPSHOT]
+    _phase("kernels_bf16", window_plans_built_seconds=built_s,
+           n_nodes=pyr.n_nodes, num_slots=pyr.num_slots,
+           kept_slots=pyr.valid.sum(1).tolist(),
+           nnz=[p.nnz for p in pyr.ell_fwd],
+           forward_rows=fwd.n_rows, csr_ptr_max=int(fwd.csr_ptr[-1]),
+           max_row_nnz_fwd=[p.max_row_nnz for p in pyr.ell_fwd],
+           max_row_nnz_t=[p.max_row_nnz for p in pyr.ell_t],
+           dispatch=sorted(chosen))
+    plans = {"enron_forward": fwd.to(dev),
+             "enron_transpose": pyr.ell_t[ENRON_SNAPSHOT].to(dev),
+             "as_forward": as_plans["forward"],
+             "as_transpose": as_plans["transpose"]}
+    del pyr
+    widths = _spmm_widths(args, B.D_ALIGN_BF16)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    inputs = {k: torch.randn(p.n_cols, max(widths), device=dev,
+                             generator=gen).bfloat16()
+              for k, p in plans.items()}
+    out_of = {k: torch.bfloat16 if k.endswith("forward") else torch.float32
+              for k in plans}
+    errs = {}
+    for name in BF16_KERNELS:
+        kern = getattr(B, name)
+        for pk, plan in plans.items():
+            for dd in widths:
+                inp = inputs[pk][:, :dd].contiguous()
+                ref = B.bsr_spmm_csr_plain_bf16(plan, inp, torch.float32)
+                for od in (torch.bfloat16, torch.float32):
+                    err = _check_bf16(f"kernels_bf16 {name} {pk} d={dd} {od}",
+                                      kern(plan, inp, od), ref, od)
+                    errs[name, pk, dd, od] = (
+                        err, err / float(ref.abs().max()))
+    torch.cuda.synchronize()
+    main = {"bsr_spmm_rowwalk_bf16": "as_forward",
+            "bsr_spmm_blockpar_bf16": "enron_forward"}
+    results, times = {}, {name: [] for name in BF16_KERNELS}
+    for pk, plan in plans.items():
+        od = out_of[pk]
+        out_bytes = 2 if od == torch.bfloat16 else 4
+        for dd in widths:
+            inp = inputs[pk][:, :dd].contiguous()
+            x32 = inp.float()
+            bound = _bound(plan, dd, x_bytes=2, out_bytes=out_bytes)
+            library_ms, library_dtype = _library_ms(plan, inp)
+            plain_ms = _time_ms(
+                lambda: B.bsr_spmm_csr_plain_bf16(plan, inp, od), iters=5,
+                warmup=1)
+            for name in BF16_KERNELS:
+                kern = getattr(B, name)
+                f32 = getattr(B, name[:-len("_bf16")])
+                row = {"plan": pk, "d": dd, "out": str(od)[6:],
+                       "ms": _time_ms(lambda: kern(plan, inp, od)),
+                       "f32_kernel_ms": _time_ms(lambda: f32(plan, x32)),
+                       "plain_ms": plain_ms, "library_ms": library_ms,
+                       "library_dtype": library_dtype,
+                       "bound_ms": bound["bound_ms"],
+                       "bound_by": bound["bound_by"],
+                       "dispatched": B.dispatch(plan, bf16=True) is kern}
+                times[name].append(row)
+                if main[name] == pk and dd == widths[0]:
+                    err, rel = errs[name, pk, dd, od]
+                    results[name] = {
+                        "plan": pk, "shape": [plan.n_rows, plan.n_cols, dd],
+                        "nnz": plan.nnz, "max_row_nnz": plan.max_row_nnz,
+                        "max_abs_err": err, **{k: row[k] for k in (
+                            "ms", "plain_ms", "bound_ms", "bound_by",
+                            "library_ms", "f32_kernel_ms")}}
+                    _phase("kernels_bf16", kernel=name, **results[name],
+                           out=row["out"], max_rel_err=rel,
+                           library=f"torch.sparse.mm (CSR, {library_dtype})",
+                           tolerance="bf16 out: one bf16 ulp + atol "
+                                     f"{ATOL_REL} * max|plain|; f32 out: "
+                                     f"rtol {RTOL} + atol {ATOL_REL} * "
+                                     "max|plain|",
+                           x_rows_read=bound["x_rows_read"],
+                           flops=bound["flops"], bytes=bound["bytes"])
+    for name in BF16_KERNELS:
+        results[name]["times"] = times[name]
+        _phase("kernels_bf16", kernel=name, times=times[name])
     return results
 
 
@@ -415,7 +618,9 @@ def phase_parity(dev):
     versions on the CPU, on BSR plans and on delta-ELL plans.  Node 0 is a
     hub, so that some plan's longest row passes ``ROWWALK_MAX_ROW`` and
     both kernels run: degree 150 for the BSR plans (the transpose holds it
-    once per slot), 300 for the delta plans (once in all)."""
+    once per slot), 300 for the delta plans (once in all).  Also the
+    principal blocks at ``matmul_precision: "high"`` (3xTF32 GEMMs on the
+    GPU, full f32 products of the same splits on the CPU)."""
     import torch
 
     from ctgcn_torch.nn.core_models import CTGCN
@@ -431,12 +636,20 @@ def phase_parity(dev):
         "ell": attach_ell_plans(stack_pyramids([
             build_core_pyramid(m, n, num_slots=3)
             for m in _parity_window(n, T, hub=300)]), delta=True),
+        "blocks_high": stack_pyramids([
+            build_core_pyramid(m, n, num_slots=3, build_blocks=True,
+                               dense_prec="high")
+            for m in _parity_window(n, T, hub=150)]),
     }
     for backend, pyr in windows.items():
-        plans = (pyr.plan_fwd + pyr.plan_t if backend == "pallas"
-                 else pyr.ell_fwd + pyr.ell_t)
-        if pyr.backend != backend or {B.dispatch(q).__name__
-                                      for q in plans} != set(KERNELS):
+        if backend == "blocks_high":
+            if pyr.backend != "blocks" or pyr.dense_prec != "high":
+                raise AssertionError("the high parity model is not on "
+                                     "f32 blocks at \"high\"")
+        elif pyr.backend != backend or {
+                B.dispatch(q).__name__
+                for q in (pyr.plan_fwd + pyr.plan_t if backend == "pallas"
+                          else pyr.ell_fwd + pyr.ell_t)} != set(F32_KERNELS):
             raise AssertionError(f"the {backend} parity model does not "
                                  "reach both kernels")
         model = CTGCN(n, hid, 64, 1, 2, T,
@@ -476,7 +689,7 @@ def _kernel_class(name):
     return "other (elementwise, reductions, indexing)"
 
 
-def _trainer(cfg, dev):
+def _trainer(method, cfg, dev):
     """The trainer of window 0 of ``cfg`` on ``dev`` (setup synchronised)
     and the ``learn_embedding`` arguments of an unexported epoch."""
     import torch
@@ -485,7 +698,7 @@ def _trainer(cfg, dev):
 
     args = dict(cfg)
     loader = get_data_loader(args)
-    trainer = build_trainer("CTGCN-C", args, loader, 0, args["duration"], dev,
+    trainer = build_trainer(method, args, loader, 0, args["duration"], dev,
                             torch.Generator().manual_seed(0))
     torch.cuda.synchronize()
     return trainer, dict(batch_size=args["batch_size"], lr=args["lr"],
@@ -493,7 +706,7 @@ def _trainer(cfg, dev):
                          export=False, verbose=False)
 
 
-def phase_profile(path, cfg, dev, epochs=2):
+def phase_profile(path, method, cfg, dev, epochs=2):
     """Where a training epoch's time goes on the card on ``path``: the
     window's setup (plans, walk tables, model, all moved to the card), then
     the trainer after one warm-up epoch, ``epochs`` epochs timed on the
@@ -504,7 +717,7 @@ def phase_profile(path, cfg, dev, epochs=2):
     from torch.profiler import ProfilerActivity, profile
 
     t0 = time.time()
-    trainer, kw = _trainer(cfg, dev)
+    trainer, kw = _trainer(method, cfg, dev)
     setup_s = time.time() - t0
     trainer.learn_embedding(epoch=1, **kw)
     # the epoch's wall time without the profiler's host overhead
@@ -548,25 +761,41 @@ def phase_profile(path, cfg, dev, epochs=2):
                         for k, v in top])
 
 
-#: path -> (config, the core backend "auto" or the config must give)
-PATHS = {"uci_auto": ("uci", "blocks"), "uci_pallas": ("uci_pallas", "pallas"),
-         "as_auto": ("as", "ell")}
+#: path -> (config, method, the core backend "auto" or the config must
+#: give, the kernels it must launch: every other kernel must not)
+PATHS = {
+    "uci_auto": ("uci", "CTGCN-C", "blocks", ()),
+    "uci_pallas": ("uci_pallas", "CTGCN-C", "pallas", tuple(F32_KERNELS)),
+    "as_auto": ("as", "CTGCN-C", "ell", tuple(F32_KERNELS)),
+    "as_ctgcn_s": ("as_ctgcn_s", "CTGCN-S", "ell", tuple(F32_KERNELS)),
+    "as_bf16": ("as_bf16", "CTGCN-C", "ell", tuple(BF16_KERNELS)),
+    "enron_bf16": ("enron", "CTGCN-C", "ell", ("bsr_spmm_blockpar_bf16",)),
+    "enron_highest": ("enron_highest", "CTGCN-C", "ell",
+                      ("bsr_spmm_blockpar",)),
+    "uci_cgcn_c": ("uci_cgcn_c", "CGCN-C", "blocks", ()),
+    "uci_cgcn_s": ("uci_cgcn_s", "CGCN-S", "blocks", ()),
+}
+#: the paths profiled, with their epochs under the profiler
+PROFILED = {"uci_auto": 2, "uci_pallas": 2, "as_auto": 2, "as_ctgcn_s": 2,
+            "as_bf16": 2, "enron_bf16": 1, "uci_cgcn_c": 2, "uci_cgcn_s": 2}
 
 
-def _write_config(path, pre, emb):
-    """A CTGCN-C config file; returns (path, preprocessing, embedding)."""
+def _write_config(path, method, pre, emb):
+    """A config file of one method; returns (path, preprocessing,
+    embedding)."""
     with open(path, "w") as fp:
-        json.dump({"preprocessing": {"CTGCN-C": pre},
-                   "embedding": {"CTGCN-C": emb}}, fp, indent=1)
+        json.dump({"preprocessing": {method: pre},
+                   "embedding": {method: emb}}, fp, indent=1)
     return path, pre, emb
 
 
-def run_path(path, cfg, backend, dev):
+def run_path(path, cfg, method, backend, kernels, dev):
     """The embedding task of ``cfg`` through the CLI, with the launch
     counters set to 0 just before and read just after.  Checks that
-    ``backend`` ran, the losses are finite and every embedding CSV holds
-    every node; on a path of the CUDA kernels, that both were launched.
-    Returns the launch counts."""
+    ``backend`` ran in every window, the losses are finite and (when the
+    config exports) every embedding CSV holds every node; that each kernel
+    of ``kernels`` was launched and no other.  Returns the launch counts
+    and the window results."""
     import numpy as np
     import torch
 
@@ -581,42 +810,66 @@ def run_path(path, cfg, backend, dev):
         getattr(B, name).launches = 0
     t0 = time.time()
     results = cli.main([f"--config={cfg_path}", "--task=embedding",
-                        "--method=CTGCN-C"])
+                        f"--method={method}"])
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = {name: getattr(B, name).launches for name in KERNELS}
     peak = torch.cuda.max_memory_allocated(dev)
     backends = [r["core_backend"] for r in results]
-    if backends != [backend]:
+    if not results or backends != [backend] * len(results):
         raise AssertionError(f"{path}: backends {backends}, want "
-                             f"[{backend!r}] (one window)")
+                             f"{backend!r} in every window")
     losses = [l for r in results for l in r["losses"]]
-    if len(losses) != emb["epoch"] or not all(np.isfinite(losses)):
+    if (len(losses) != emb["epoch"] * len(results)
+            or not all(np.isfinite(losses))):
         raise AssertionError(f"{path}: losses {losses}")
     for name, n_launch in launches.items():
-        if (n_launch > 0) != (backend in ("pallas", "ell")):
+        if (n_launch > 0) != (name in kernels):
             raise AssertionError(f"{path}: {name} launched {n_launch} "
-                                 f"times on the {backend} backend")
-    base = Path(emb["base_path"])
-    nodes = read_node_list(base / emb["node_file"])
-    emb_dir = base / emb["embed_folder"]
+                                 f"times; the path runs {kernels}")
     shapes = []
-    for f in sorted(os.listdir(emb_dir)):
-        names, arr = read_embedding_csv(emb_dir / f)
-        if (names != nodes or arr.shape != (len(nodes), emb["embed_dim"])
-                or not np.isfinite(arr).all()):
-            raise AssertionError(f"{path}: embedding {f}: {arr.shape}")
-        shapes.append(list(arr.shape))
-    if len(shapes) != emb["duration"]:
-        raise AssertionError(f"{path}: {len(shapes)} embedding CSVs")
-    _phase("path", path=path, core_backend=backend, seconds=wall,
-           setup_seconds=results[0]["setup_seconds"],
-           train_seconds=results[0]["cost_time"],
-           epoch_seconds=results[0]["epoch_seconds"],
-           export_seconds=results[0]["export_seconds"], losses=losses,
-           launches=launches, max_memory_allocated=peak,
+    if emb.get("export", True):
+        base = Path(emb["base_path"])
+        nodes = read_node_list(base / emb["node_file"])
+        emb_dir = base / emb["embed_folder"]
+        for f in sorted(os.listdir(emb_dir)):
+            names, arr = read_embedding_csv(emb_dir / f)
+            if (names != nodes or arr.shape != (len(nodes), emb["embed_dim"])
+                    or not np.isfinite(arr).all()):
+                raise AssertionError(f"{path}: embedding {f}: {arr.shape}")
+            shapes.append(list(arr.shape))
+        if len(shapes) != emb["duration"] * len(results):
+            raise AssertionError(f"{path}: {len(shapes)} embedding CSVs")
+    _phase("path", path=path, method=method, core_backend=backend,
+           matmul_precision=emb.get("matmul_precision", "highest"),
+           windows=len(results), seconds=wall,
+           setup_seconds=[r["setup_seconds"] for r in results],
+           train_seconds=[r["cost_time"] for r in results],
+           epoch_seconds=[r["epoch_seconds"] for r in results],
+           export_seconds=[r["export_seconds"] for r in results],
+           losses=losses, launches=launches, max_memory_allocated=peak,
            embedding_csvs=shapes)
-    return launches
+    return launches, results
+
+
+def _enron_acc_gate(cfg):
+    """Whether each CoreDiffusion layer of the Enron CTGCN-C stores its
+    prefix in bf16 (the tail budget gate), at the window's K and N."""
+    import torch
+
+    from ctgcn_torch.nn.core_models import CORE_RNN_BUDGET, acc_in_bf16
+    from ctgcn_torch.training.driver import get_data_loader
+
+    args = dict(cfg)
+    loader = get_data_loader(args)
+    mats = loader.get_core_scipy_list(args["core_base_path"], 0,
+                                      args["duration"])
+    K, n = max(len(m) for m in mats), loader.node_num
+    hid, out = args["hid_dim"], args["embed_dim"]
+    return {"num_slots": K, "n_nodes": n, "budget": CORE_RNN_BUDGET,
+            "acc_in_bf16_by_layer": [
+                acc_in_bf16(torch.bfloat16, K, n, d_in, out, False)
+                for d_in in (hid, out)]}
 
 
 def _cli(config, task, device, method=None):
@@ -631,19 +884,19 @@ def _cli(config, task, device, method=None):
     return cli.main(argv + ([f"--method={method}"] if method else []))
 
 
-def _train(base, name, conf, device, **change):
-    """CTGCN-C trained through the CLI on the preprocessed ``base`` into
+def _train(base, name, conf, device, method="CTGCN-C", **change):
+    """``method`` trained through the CLI on the preprocessed ``base`` into
     ``2.embedding/<name>``; checks the losses and returns the seconds and
     the window results."""
     import numpy as np
 
-    emb = dict(conf["embedding"]["CTGCN-C"], base_path=str(base),
+    emb = dict(conf["embedding"][method], base_path=str(base),
                embed_folder=f"2.embedding/{name}", model_file=name,
                record_time=False, **change)
     t0 = time.time()
     results = _cli({"_path": base / f"{name}.json",
-                    "embedding": {"CTGCN-C": emb}}, "embedding", device,
-                   "CTGCN-C")
+                    "embedding": {method: emb}}, "embedding", device,
+                   method)
     losses = [l for r in results for l in r["losses"]]
     if not losses or not all(np.isfinite(losses)):
         raise AssertionError(f"{name}: losses {losses}")
@@ -651,25 +904,30 @@ def _train(base, name, conf, device, **change):
 
 
 def phase_quality(base, device):
-    """The Had AUC gate on the preprocessed UCI copy ``base``: one
-    10-epoch CTGCN-C per seed, then ``link_pred`` as ``configs/uci.json``
-    gives it (ratios 0.5/0.3/0.2, C in 0.01-10, four measures) over reps
-    0-2.  Returns the method folders, seed 0's first."""
+    """The Had AUC gates on the preprocessed UCI copy ``base``: each run of
+    ``QUALITY_RUNS`` trained once per seed, then one ``link_pred`` as
+    ``configs/uci.json`` gives it (ratios 0.5/0.3/0.2, C in 0.01-10, four
+    measures) over reps 0-2 on all of them; each run's mean Had AUC of the
+    last 4 dates, over seeds and reps, must reach its gate.  Returns the
+    method folders, the f32 CTGCN-C seed 0's first."""
     import numpy as np
 
     from ctgcn_torch.evaluation.tables import read_table
 
     with open(ROOT / "configs" / "uci.json") as fp:
         conf = json.load(fp)
-    methods, train = [], {}
-    for seed in QUALITY_SEEDS:
-        name = f"CTGCN-C-s{seed}"
-        seconds, results = _train(base, name, conf, device,
-                                  epoch=QUALITY_EPOCHS, seed=seed)
-        train[name] = {"seconds": seconds,
-                       "core_backend": [r["core_backend"] for r in results],
-                       "final_loss": results[-1]["losses"][-1]}
-        methods.append(name)
+    runs, methods, train = {}, [], {}
+    for label, method, change, epochs, gate in QUALITY_RUNS:
+        for seed in QUALITY_SEEDS:
+            name = f"{label}-s{seed}"
+            seconds, results = _train(base, name, conf, device, method,
+                                      epoch=epochs, seed=seed, **change)
+            train[name] = {"seconds": seconds,
+                           "core_backend": [r["core_backend"]
+                                            for r in results],
+                           "final_loss": results[-1]["losses"][-1]}
+            methods.append(name)
+            runs.setdefault(label, (gate, epochs, []))[2].append(name)
     lp = dict(conf["link_pred"], base_path=str(base), start_idx=0,
               rep_num=QUALITY_REPS, method_list=methods, aggregate=True)
     timing = _cli({"_path": base / "link_pred.json", "link_pred": lp},
@@ -689,16 +947,20 @@ def phase_quality(base, device):
                 for m in lp["measure_list"]}
         had[name] = per_rep
     seed_means = {name: float(np.mean(v)) for name, v in had.items()}
-    mean = float(np.mean(list(seed_means.values())))
+    gates = {label: {"had_auc_mean": float(np.mean(
+                         [seed_means[n] for n in names])),
+                     "gate": gate, "epochs": epochs}
+             for label, (gate, epochs, names) in runs.items()}
     _phase("quality", had_auc_last4_by_seed_and_rep=had,
-           had_auc_by_seed=seed_means, had_auc_mean=mean,
-           gate=HAD_AUC_GATE, reference_ranges=HAD_AUC_RANGES,
+           had_auc_by_seed=seed_means, gates=gates,
+           reference_ranges=HAD_AUC_RANGES,
            all_measures_last4=means, train=train,
            split_generation_seconds=timing["generate_seconds"],
            fit_seconds=timing["predict_seconds"])
-    if not mean >= HAD_AUC_GATE:
-        raise AssertionError(f"Had AUC {mean:.4f} below the gate "
-                             f"{HAD_AUC_GATE}")
+    for label, g in gates.items():
+        if not g["had_auc_mean"] >= g["gate"]:
+            raise AssertionError(f"{label}: Had AUC {g['had_auc_mean']:.4f}"
+                                 f" below the gate {g['gate']}")
     return methods
 
 
@@ -836,7 +1098,9 @@ def main():
             and (ROOT / "data" / "uci" / "1.format").is_dir()
             and (ROOT / "data" / "america_air" / "edges_label").is_dir()
             and all((ROOT / "data" / "as" / "1.format" / f).is_file()
-                    for f in AS_SNAPSHOTS)):
+                    for f in AS_SNAPSHOTS)
+            and all((ROOT / "data" / "enron" / "1.format" / f).is_file()
+                    for f in ENRON_SNAPSHOTS)):
         return _fail(f"{ROOT} is not a checkout of the repository")
     t_start = time.time()
     sys.path.insert(0, str(ROOT))
@@ -865,9 +1129,11 @@ def main():
         from ctgcn_torch import main as cli
 
         # 2. preprocessing on temporary copies of data/uci and of the first
-        # AS snapshots
-        cfgs = {}
-        for name, files in (("uci", None), ("as", AS_SNAPSHOTS)):
+        # AS and Enron snapshots
+        cfgs, confs = {}, {}
+        for name, files, epochs in (("uci", None, EPOCHS),
+                                    ("as", AS_SNAPSHOTS, EPOCHS),
+                                    ("enron", ENRON_SNAPSHOTS, ENRON_EPOCHS)):
             base = work / name
             src = ROOT / "data" / name
             shutil.copytree(src / "nodes_set", base / "nodes_set")
@@ -878,32 +1144,65 @@ def main():
                 for f in files:
                     shutil.copy(src / "1.format" / f, base / "1.format" / f)
             with open(ROOT / "configs" / f"{name}.json") as fp:
-                conf = json.load(fp)
+                confs[name] = conf = json.load(fp)
             pre = dict(conf["preprocessing"]["CTGCN-C"], base_path=str(base))
             emb = dict(conf["embedding"]["CTGCN-C"], base_path=str(base),
-                       epoch=EPOCHS)
-            cfgs[name] = _write_config(work / f"{name}.json", pre, emb)
+                       epoch=epochs)
+            cfgs[name] = _write_config(work / f"{name}.json", "CTGCN-C", pre,
+                                       emb)
             t0 = time.time()
             cli.main([f"--config={cfgs[name][0]}", "--task=preprocessing",
                       "--method=CTGCN-C"])
             _phase("preprocess", data=name, seconds=time.time() - t0)
-        pre, emb = cfgs["uci"][1:]
-        cfgs["uci_pallas"] = _write_config(
-            work / "uci_pallas.json", pre,
-            dict(emb, core_backend="pallas", epoch=1,
-                 embed_folder=emb["embed_folder"] + "-pallas"))
+
+        def variant(name, data, method, **change):
+            """A config of ``method`` from configs/<data>.json as written,
+            on the preprocessed copy, with ``change``."""
+            emb = dict(confs[data]["embedding"][method],
+                       base_path=str(work / data), **change)
+            cfgs[name] = _write_config(work / f"{name}.json", method,
+                                       cfgs[data][1], emb)
+
+        emb = cfgs["uci"][2]
+        variant("uci_pallas", "uci", "CTGCN-C", core_backend="pallas",
+                epoch=1, embed_folder=emb["embed_folder"] + "-pallas")
+        variant("as_ctgcn_s", "as", "CTGCN-S", epoch=EPOCHS)
+        variant("as_bf16", "as", "CTGCN-C", matmul_precision="bf16", epoch=1,
+                embed_folder="2.embedding/CTGCN-C-bf16",
+                model_file="ctgcn-c-bf16")
+        variant("enron_highest", "enron", "CTGCN-C",
+                matmul_precision="highest", epoch=1, export=False,
+                record_time=False, model_file="")
+        for method in ("CGCN-C", "CGCN-S"):
+            variant(f"uci_{method.lower().replace('-', '_')}", "uci", method,
+                    end_idx=1, epoch=2)
 
         # 3. kernels at the paths' shapes, and small-model parity
         kernels = phase_kernels(cfgs["uci_pallas"][2], dev)
-        kernels_ell = phase_kernels_ell(cfgs["as"][2], dev)
+        kernels_ell, as_plans = phase_kernels_ell(cfgs["as"][2], dev)
+        kernels_bf16 = phase_kernels_bf16(cfgs["enron"][2], as_plans, dev)
+        del as_plans
         phase_parity(dev)
 
         # 4. the paths, counters set to 0 just before and read just after
-        launches = {path: run_path(path, cfgs[cfg], backend, dev)
-                    for path, (cfg, backend) in PATHS.items()}
+        launches, results = {}, {}
+        for path, (cfg, method, backend, kerns) in PATHS.items():
+            launches[path], results[path] = run_path(
+                path, cfgs[cfg], method, backend, kerns, dev)
+        first = {p: results[p][0]["losses"][0]
+                 for p in ("enron_bf16", "enron_highest")}
+        gap = (abs(first["enron_bf16"] - first["enron_highest"])
+               / abs(first["enron_highest"]))
+        _phase("path", path="enron_bf16", first_epoch_losses=first,
+               relative_gap=gap, limit=ENRON_LOSS_GAP,
+               **_enron_acc_gate(cfgs["enron"][2]))
+        if not gap < ENRON_LOSS_GAP:
+            raise AssertionError(f"Enron first-epoch loss: bf16 against "
+                                 f"highest {gap:.3e} apart")
         # where an epoch's time goes (after the counted runs)
-        for path, (cfg, _) in PATHS.items():
-            phase_profile(path, cfgs[cfg][2], dev)
+        for path, epochs in PROFILED.items():
+            cfg, method = PATHS[path][:2]
+            phase_profile(path, method, cfgs[cfg][2], dev, epochs=epochs)
 
         # 5. model quality and the other evaluation tasks, counters set to
         # 0 just before and read just after (UCI and America-Air train on
@@ -927,14 +1226,20 @@ def main():
     entries = []
     for name in KERNELS:
         by_path = {p: n[name] for p, n in launches.items()}
+        if name in F32_KERNELS:
+            rows = {**kernels[name], "ell_as": kernels_ell[name]}
+            status = ("matches its plain versions, launched on the pallas "
+                      "and ELL paths")
+        else:
+            rows = kernels_bf16[name]
+            status = ("matches its plain version (bf16 and f32 out), "
+                      "launched on the bf16 ELL paths")
         entries.append({
             "name": name, "route": "cuda",
             "source": "ctgcn_torch/csrc/bsr_spmm.cu",
-            "replaces": KERNELS[name],
-            "status": "matches its plain versions, launched on the pallas "
-                      "and ELL paths",
+            "replaces": KERNELS[name], "status": status,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
-            **kernels[name], "ell_as": kernels_ell[name]})
+            **rows})
     print(json.dumps({"kernels": entries}))
     _phase("total", seconds=time.time() - t_start)
     print(smi)

@@ -94,8 +94,11 @@ def write_embedding_csv(path, arr, names, sep="\t"):
     ``%.9g`` round-trips float32 exactly."""
     arr = np.asarray(arr, dtype=np.float32)
     lines = [sep + sep.join(str(j) for j in range(arr.shape[1]))]
-    for name, row in zip(names, arr):
-        lines.append(str(name) + sep + sep.join("%.9g" % v for v in row))
+    # one %-format call a row (the values as Python floats, which format as
+    # the float32 values do)
+    fmt = "%s" + sep + sep.join(["%.9g"] * arr.shape[1])
+    for name, row in zip(names, arr.tolist()):
+        lines.append(fmt % (name, *row))
     with open(path, "w") as fp:
         fp.write("\n".join(lines) + "\n")
 

@@ -1,7 +1,8 @@
 # coding: utf-8
 """Window loaders (port of ``ctgcn_tpu/data/loader.py``, the parts the
-CTGCN-C / U-neg path reads): the k-core pyramid bank of a window on its
-core backend, and the walk tables as CSR ``WalkData``.
+CGCN / CTGCN paths read): the k-core pyramid bank of a window on its core
+backend, the walk tables as CSR ``WalkData``, the raw adjacency, and the
+node features (file, or built from degrees for the S-variants).
 
 Everything here is built on the host; the driver moves the results to the
 training device.
@@ -16,13 +17,14 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from ctgcn_torch.data.formats import sorted_dir
+from ctgcn_torch.data.formats import get_sp_adj_mat, sorted_dir
 from ctgcn_torch.losses import WalkData
 from ctgcn_torch.ops.pyramid import (attach_ell_plans, build_core_pyramid,
                                       stack_pyramids)
 from ctgcn_torch.utils import pad_bucket
 
 CORE_BACKENDS = ("auto", "dense", "blocks", "ell", "pallas", "segment")
+DEGREE_FEATURES = ("gaussian", "one-hot", "adj", "combine")
 
 
 class DataLoader:
@@ -35,6 +37,72 @@ class DataLoader:
 
     def _window(self, start_idx, duration):
         return range(start_idx, min(start_idx + duration, self.max_time_num))
+
+    def get_scipy_adj_list(self, origin_base_path, start_idx, duration,
+                           sep="\t"):
+        """The raw symmetric adjacency (scipy COO) of each snapshot of the
+        window."""
+        f_list = sorted_dir(origin_base_path)
+        return [get_sp_adj_mat(os.path.join(origin_base_path, f_list[i]),
+                               self.full_node_list, sep=sep)
+                for i in self._window(start_idx, duration)]
+
+    def get_feature_list(self, feature_base_path, start_idx, duration,
+                         sep="\t"):
+        """(xs, input_dim): ``None`` and N for identity features (never
+        materialized), else the window's feature files (a header row, then
+        one row of numbers per node) zero-padded to the widest, as a host
+        f32 [T, N, D] tensor."""
+        if feature_base_path is None:
+            return None, self.node_num
+        files = sorted_dir(feature_base_path)
+        arrs = []
+        for i in self._window(start_idx, duration):
+            with open(os.path.join(feature_base_path, files[i])) as fp:
+                lines = fp.read().splitlines()[1:]
+            arrs.append(np.array([[float(v) for v in line.split(sep)]
+                                  for line in lines if line != ""],
+                                 np.float64))
+        max_dim = max(a.shape[1] for a in arrs)
+        xs = np.stack([np.pad(a, ((0, 0), (0, max_dim - a.shape[1])))
+                       for a in arrs]).astype(np.float32)
+        return torch.from_numpy(xs), max_dim
+
+    def get_degree_feature_list(self, origin_base_path, start_idx, duration,
+                                sep="\t", init_type="gaussian", std=1e-4,
+                                rng=None):
+        """Node features built from each snapshot's (weighted) degrees,
+        [T, N, D] f32 on the host, D from the window's largest degree:
+        'gaussian' N(degree, std) of width max_degree + 1, 'one-hot' the
+        degree, 'adj' the adjacency rows, 'combine' gaussian then adj.
+        ``rng``: the numpy ``RandomState`` (or ``Generator``) the gaussians
+        come from (default ``np.random``); the draws are the JAX
+        package's, call for call."""
+        if init_type not in DEGREE_FEATURES:
+            raise ValueError(f"unknown init_type {init_type!r}")
+        rng = rng if rng is not None else np.random
+        mats = self.get_scipy_adj_list(origin_base_path, start_idx, duration,
+                                       sep=sep)
+        degree_list = [np.asarray(m.sum(axis=1)).astype(np.int64).flatten()
+                       for m in mats]
+        max_degree = int(max(d.max() for d in degree_list))
+        xs = []
+        for mat, degrees in zip(mats, degree_list):
+            if init_type == "one-hot":
+                fea = np.zeros((self.node_num, max_degree + 1), np.float32)
+                fea[np.arange(self.node_num), degrees] = 1.0
+            elif init_type == "adj":
+                fea = mat.toarray().astype(np.float32)
+            else:
+                fea = rng.normal(loc=degrees[:, None].astype(np.float64),
+                                 scale=std,
+                                 size=(self.node_num, max_degree + 1))
+                if init_type == "combine":
+                    fea = np.hstack([fea, mat.toarray()])
+                fea = fea.astype(np.float32)
+            xs.append(fea)
+        stacked = torch.from_numpy(np.stack(xs))
+        return stacked, int(stacked.shape[-1])
 
     def get_core_scipy_list(self, core_base_path, start_idx, duration,
                             max_core=-1):
@@ -55,36 +123,45 @@ class DataLoader:
 
     def get_core_adj_list(self, core_base_path, start_idx, duration,
                           max_core=-1, core_backend="auto",
-                          dense_budget_bytes=4 << 30, allow_blocks=True):
+                          dense_budget_bytes=4 << 30, allow_blocks=True,
+                          dense_dtype=None, dense_prec="highest"):
         """The window's k-core pyramids as one stacked host ``CorePyramid``:
         K = the window's largest core count, +I on slot 0, delta-skip as
         ``valid``, the slot products on ``core_backend``.
 
         ``"auto"`` is the JAX package's policy: when the dense bank
-        (T * K * N^2 * 4 bytes) fits ``dense_budget_bytes``, core-sorted
+        (T * K * N^2 entries of 4 bytes, 2 with a bf16 ``dense_dtype``)
+        fits ``dense_budget_bytes``, core-sorted
         principal blocks (the dense bank with ``allow_blocks=False``, or
         where the slot supports do not nest); otherwise delta-encoded ELL
         plans, since a large graph's 128x128 blocks are nearly empty.
         ``"dense"``, ``"blocks"``, ``"ell"`` (delta-encoded), ``"pallas"``
         (BSR plans) and ``"segment"`` (padded COO) force one backend.  The
-        COO is kept only for ``"segment"``: no other backend reads it."""
+        COO is kept only for ``"segment"``: no other backend reads it.
+
+        ``dense_dtype`` (``torch.bfloat16`` for the config's
+        ``matmul_precision: "bf16"``) stores the dense bank and the blocks
+        in bf16 and makes the ELL plans gather in bf16; ``dense_prec``
+        ("highest" or "high") is the GEMM precision of an f32 bank."""
         if core_backend not in CORE_BACKENDS:
             raise ValueError(f"unknown core_backend {core_backend!r}")
         per_snap = self.get_core_scipy_list(core_base_path, start_idx,
                                             duration, max_core=max_core)
         num_slots = max(len(m) for m in per_snap)
         if core_backend == "auto":
+            itemsize = 2 if dense_dtype == torch.bfloat16 else 4
             dense_bytes = (len(per_snap) * num_slots * self.node_num
-                           * self.node_num * 4)
+                           * self.node_num * itemsize)
             fits = (dense_budget_bytes is not None
                     and dense_bytes <= dense_budget_bytes)
             core_backend = (("blocks" if allow_blocks else "dense") if fits
                             else "ell")
+        bank = {"dense_dtype": dense_dtype, "dense_prec": dense_prec}
         pyramids = [
             build_core_pyramid(mats, self.node_num, num_slots=num_slots,
                                densify=core_backend == "dense",
                                build_blocks=core_backend == "blocks",
-                               build_plans=core_backend == "pallas")
+                               build_plans=core_backend == "pallas", **bank)
             for mats in per_snap]
         if core_backend == "blocks" and any(p.blocks is None
                                             for p in pyramids):
@@ -92,11 +169,12 @@ class DataLoader:
             # the dense bank (cannot happen for true k-core pyramids)
             pyramids = [
                 build_core_pyramid(mats, self.node_num, num_slots=num_slots,
-                                   densify=True)
+                                   densify=True, **bank)
                 for mats in per_snap]
         out = stack_pyramids(pyramids)
         if core_backend == "ell":
-            out = attach_ell_plans(out, delta=True)
+            out = attach_ell_plans(out, delta=True,
+                                   bf16=dense_dtype == torch.bfloat16)
         if core_backend != "segment":
             out = dataclasses.replace(out, rows=None, cols=None, vals=None)
         return out

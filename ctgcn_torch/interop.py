@@ -1,14 +1,15 @@
 # coding: utf-8
 """Parameters of the JAX package's models as the port's state_dicts.
 
-``params_from_numpy(tree)`` takes the parameter tree of a JAX ``CTGCN`` as
-nested dicts of numpy arrays -- what ``flax.serialization.to_state_dict``
-gives, converted leaf by leaf with ``numpy.asarray`` -- and returns the
-``state_dict`` of the port's ``ctgcn_torch.nn.core_models.CTGCN``.  The
-per-timestep ``mlps``/``cdns`` leaves carry a leading [T] axis there and
-become one module per timestep here.  Layouts match without transposes:
-``Linear.weight`` is [in, out] in both packages and the RNN cells use
-torch's gate layout in both.
+``params_from_numpy(tree)`` takes the parameter tree of a JAX ``CTGCN`` or
+``CGCN`` (either variant) as nested dicts of numpy arrays -- what
+``flax.serialization.to_state_dict`` gives, converted leaf by leaf with
+``numpy.asarray`` -- and returns the ``state_dict`` of the port's model of
+the same name in ``ctgcn_torch.nn.core_models``.  CTGCN's per-timestep
+``mlps``/``cdns`` leaves carry a leading [T] axis there and become one
+module per timestep here; CGCN's shared ``mlp``/``cdn`` map as they are.
+Layouts match without transposes: ``Linear.weight`` is [in, out] in both
+packages and the RNN cells use torch's gate layout in both.
 """
 from __future__ import annotations
 
@@ -29,7 +30,8 @@ def _flatten(tree, prefix=""):
 
 
 def params_from_numpy(tree):
-    """JAX CTGCN parameter tree (nested dicts of arrays) -> state_dict."""
+    """JAX CTGCN / CGCN parameter tree (nested dicts of arrays) ->
+    state_dict."""
     state = {}
     for name, arr in _flatten(tree).items():
         head, _, rest = name.partition(".")

@@ -1,5 +1,6 @@
 # coding: utf-8
-"""Skip-gram negative-sampling loss (port of ``ctgcn_tpu/losses.py``).
+"""Skip-gram negative-sampling loss, and the reconstruction loss of the
+S-variants (port of ``ctgcn_tpu/losses.py``).
 
 The sampler and the loss arithmetic are separate functions, so a test can
 hand both packages the same indices:
@@ -105,3 +106,19 @@ def negative_sampling_loss(embs, batch_idx, batch_mask, walk: WalkData,
     """Sample with ``generator`` and compute the loss."""
     j, neg_idx = sample_uneg(walk, batch_idx, neg_num, generator)
     return uneg_loss(embs, batch_idx, batch_mask, walk, j, neg_idx, Q=Q)
+
+
+def reconstruction_loss(embs, trans, batch_idx=None, batch_mask=None):
+    """MSE between the structure embedding ``trans`` and the node embedding
+    ``embs`` ([T, N, d] each), summed over timestamps (the U-own loss of
+    CGCN-S / CTGCN-S).  With ``batch_idx`` only those rows count; with
+    ``batch_mask`` too, only the masked-in ones (padding entries of
+    ``batch_idx`` are arbitrary)."""
+    if batch_idx is None:
+        return (trans - embs).square().mean(dim=(1, 2)).sum()
+    diff2 = (trans[:, batch_idx] - embs[:, batch_idx]).square()
+    if batch_mask is None:
+        return diff2.mean(dim=(1, 2)).sum()
+    mask = batch_mask.to(diff2.dtype)
+    cnt = torch.clamp(mask.sum(), min=1) * embs.shape[-1]
+    return ((diff2 * mask[None, :, None]).sum(dim=(1, 2)) / cnt).sum()

@@ -20,6 +20,11 @@ plan's CSR; on a CUDA tensor it launches the kernel (built from
 ``csrc/bsr_spmm.cu`` at first use) or raises.  Each wrapper counts its
 launches in ``.launches``.  ``bsr_spmm_plain`` multiplies the dense blocks
 and is a second, independent oracle.
+
+Each kernel has an f32 wrapper and a bf16 one (``*_bf16``: x in bf16, out
+in bf16 or f32), the counterpart of the JAX package's bf16 gathers
+(``ell_spmm(..., bf16=True)``); ``bsr_spmm_csr_plain_bf16`` is their plain
+version.
 """
 from __future__ import annotations
 
@@ -30,8 +35,10 @@ import scipy.sparse as sp
 import torch
 
 BLOCK = 128
-#: d must be a multiple of this: the kernels move x and out rows as float4
+#: d must be a multiple of this: the kernels move x rows 16 bytes at a
+#: time, 4 f32 values (D_ALIGN) or 8 bf16 values (D_ALIGN_BF16)
 D_ALIGN = 4
+D_ALIGN_BF16 = 8
 #: nonzeros per chunk of bsr_spmm_blockpar's first pass
 CHUNK = 128
 #: longest row ``dispatch`` gives the row walk: one warp walks a row on one
@@ -260,12 +267,13 @@ def build_pyramid_plans(slot_mats, n_nodes, num_slots, block=BLOCK):
 # the kernels: plain versions and wrappers
 # ---------------------------------------------------------------------------
 
-def _check(plan: CsrPlan, x: torch.Tensor):
-    if x.dtype != torch.float32 or x.dim() != 2 or not x.is_contiguous():
-        raise ValueError("x must be a contiguous float32 [n_cols, d] tensor")
-    if x.shape[0] != plan.n_cols or x.shape[1] % D_ALIGN:
+def _check(plan: CsrPlan, x: torch.Tensor, dtype=torch.float32):
+    align = D_ALIGN_BF16 if dtype == torch.bfloat16 else D_ALIGN
+    if x.dtype != dtype or x.dim() != 2 or not x.is_contiguous():
+        raise ValueError(f"x must be a contiguous {dtype} [n_cols, d] tensor")
+    if x.shape[0] != plan.n_cols or x.shape[1] % align:
         raise ValueError(f"x is {tuple(x.shape)}; the plan takes "
-                         f"[{plan.n_cols}, multiple of {D_ALIGN}]")
+                         f"[{plan.n_cols}, multiple of {align}]")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
     for name in _CSR_FIELDS:
@@ -274,20 +282,43 @@ def _check(plan: CsrPlan, x: torch.Tensor):
         if t.device != x.device or t.dtype != want or not t.is_contiguous():
             raise ValueError(f"plan.{name} must be a contiguous {want} "
                              f"tensor on {x.device}")
-    # the kernels move x and out as float4
+    # the kernels move x and out 16 bytes at a time
     if x.device.type == "cuda" and x.data_ptr() % 16:
         raise ValueError("x must be 16-byte aligned")
+
+
+def _check_out_dtype(out_dtype):
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"out_dtype must be bfloat16 or float32, not "
+                         f"{out_dtype}")
+
+
+def _rows(plan: CsrPlan, device):
+    return torch.repeat_interleave(
+        torch.arange(plan.n_rows, device=device), plan.csr_ptr.diff())
 
 
 def bsr_spmm_csr_plain(plan: CsrPlan, x):
     """Plain version of both kernels over the arrays they read, ``A @ x``:
     gather ``x[col] * val`` per nonzero and add it into its row (rows from
     ``csr_ptr``)."""
-    rows = torch.repeat_interleave(
-        torch.arange(plan.n_rows, device=x.device), plan.csr_ptr.diff())
     out = x.new_zeros(plan.n_rows, x.shape[1])
-    out.index_add_(0, rows, x[plan.csr_col.long()] * plan.csr_val[:, None])
+    out.index_add_(0, _rows(plan, x.device),
+                   x[plan.csr_col.long()] * plan.csr_val[:, None])
     return out
+
+
+def bsr_spmm_csr_plain_bf16(plan: CsrPlan, x, out_dtype=torch.bfloat16):
+    """Plain version of the bf16 kernels, with the JAX package's bf16
+    gather (``ctgcn_tpu/ops/ell.py:184-190``): x rows and values rounded
+    to bf16, products (exact in f32) summed in f32, the sum cast once to
+    ``out_dtype``."""
+    xb = x.bfloat16().float()
+    vals = plan.csr_val.bfloat16().float()
+    out = xb.new_zeros(plan.n_rows, x.shape[1])
+    out.index_add_(0, _rows(plan, x.device),
+                   xb[plan.csr_col.long()] * vals[:, None])
+    return out.to(out_dtype)
 
 
 def bsr_spmm_plain(plan: BlockPlan, x):
@@ -316,6 +347,35 @@ def _raise_on(rc, name):
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
 
 
+def _launch(name, plan: CsrPlan, x, out_dtype, *extra):
+    """Launch C entry point ``name`` on ``plan`` and x (CUDA): the row
+    walk's arguments, or the block-parallel kernel's with its scratch;
+    ``extra`` goes before the stream (the bf16 entry points' out_f32)."""
+    from ctgcn_torch.ops.cuda_build import load_kernels
+
+    lib = load_kernels()
+    d = x.shape[1]
+    out = torch.empty(plan.n_rows, d, device=x.device, dtype=out_dtype)
+    with torch.cuda.device(x.device):
+        if name.startswith("bsr_spmm_rowwalk"):
+            rc = getattr(lib, name)(
+                plan.csr_ptr.data_ptr(), plan.csr_col.data_ptr(),
+                plan.csr_val.data_ptr(), plan.row_order.data_ptr(),
+                x.data_ptr(), out.data_ptr(), plan.n_rows, d, *extra,
+                _stream(x))
+        else:
+            # f32 partial sums of rows across chunk edges, whatever x's type
+            scratch = torch.empty(2 * -(-plan.nnz // CHUNK), d,
+                                  device=x.device)
+            rc = getattr(lib, name)(
+                plan.csr_ptr.data_ptr(), plan.csr_row.data_ptr(),
+                plan.csr_col.data_ptr(), plan.csr_val.data_ptr(),
+                x.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+                plan.n_rows, plan.nnz, CHUNK, d, *extra, _stream(x))
+    _raise_on(rc, name)
+    return out
+
+
 def bsr_spmm_rowwalk(plan: CsrPlan, x: torch.Tensor) -> torch.Tensor:
     """``A @ x`` by the row-walk kernel (counterpart of ``_spmm_kernel``,
     ``ctgcn_tpu/ops/pallas_spmm.py:97``).
@@ -334,17 +394,7 @@ def bsr_spmm_rowwalk(plan: CsrPlan, x: torch.Tensor) -> torch.Tensor:
     _check(plan, x)
     if x.device.type == "cpu":
         return bsr_spmm_csr_plain(plan, x)
-    from ctgcn_torch.ops.cuda_build import load_kernels
-
-    lib = load_kernels()
-    out = torch.empty(plan.n_rows, x.shape[1], device=x.device)
-    with torch.cuda.device(x.device):
-        rc = lib.bsr_spmm_rowwalk(
-            plan.csr_ptr.data_ptr(), plan.csr_col.data_ptr(),
-            plan.csr_val.data_ptr(), plan.row_order.data_ptr(),
-            x.data_ptr(), out.data_ptr(), plan.n_rows, x.shape[1],
-            _stream(x))
-    _raise_on(rc, "bsr_spmm_rowwalk")
+    out = _launch("bsr_spmm_rowwalk", plan, x, torch.float32)
     bsr_spmm_rowwalk.launches += 1
     return out
 
@@ -372,19 +422,7 @@ def bsr_spmm_blockpar(plan: CsrPlan, x: torch.Tensor) -> torch.Tensor:
     _check(plan, x)
     if x.device.type == "cpu":
         return bsr_spmm_csr_plain(plan, x)
-    from ctgcn_torch.ops.cuda_build import load_kernels
-
-    lib = load_kernels()
-    d = x.shape[1]
-    out = torch.empty(plan.n_rows, d, device=x.device)
-    scratch = torch.empty(2 * -(-plan.nnz // CHUNK), d, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = lib.bsr_spmm_blockpar(
-            plan.csr_ptr.data_ptr(), plan.csr_row.data_ptr(),
-            plan.csr_col.data_ptr(), plan.csr_val.data_ptr(), x.data_ptr(),
-            scratch.data_ptr(), out.data_ptr(), plan.n_rows, plan.nnz,
-            CHUNK, d, _stream(x))
-    _raise_on(rc, "bsr_spmm_blockpar")
+    out = _launch("bsr_spmm_blockpar", plan, x, torch.float32)
     bsr_spmm_blockpar.launches += 1
     return out
 
@@ -392,19 +430,66 @@ def bsr_spmm_blockpar(plan: CsrPlan, x: torch.Tensor) -> torch.Tensor:
 bsr_spmm_blockpar.launches = 0
 
 
-def dispatch(plan: CsrPlan):
-    """The kernel wrapper that runs ``plan``.  The TPU package chose by the
-    size of x (10 MB, what stays resident in VMEM); on the H100 the
-    longest row decides.  A row walk keeps a row on one SM, which a hub row
-    holds up (the pyramid's transpose: up to 16x a node's degree); the
-    block-parallel kernel's equal chunks spread it over many SMs and pay a
-    second pass for it.  At UCI (snapshot 2004-05, d = 512, NVIDIA H100
-    80GB HBM3, 700 W) the row walk is the faster on the forward plan
-    (longest row 198) and the block-parallel kernel on the transpose
-    (longest row 1977); ``chip_smoke.py`` times both on both."""
+def bsr_spmm_rowwalk_bf16(plan: CsrPlan, x: torch.Tensor,
+                          out_dtype=torch.bfloat16) -> torch.Tensor:
+    """``A @ x`` by the row-walk kernel with x in bf16: 16-byte loads of 8
+    bf16 values, each value of A rounded to bf16 as it is read, products
+    and sums in f32 FFMA, one rounding at the store when ``out_dtype`` is
+    bf16 (the forward's slot products) and none for f32 (the backward's
+    dx).  Half the gathered bytes of ``bsr_spmm_rowwalk``.
+
+    x: contiguous bf16 [n_cols, d], d a multiple of 8 -> ``out_dtype``
+    [n_rows, d]."""
+    _check(plan, x, torch.bfloat16)
+    _check_out_dtype(out_dtype)
+    if x.device.type == "cpu":
+        return bsr_spmm_csr_plain_bf16(plan, x, out_dtype)
+    out = _launch("bsr_spmm_rowwalk_bf16", plan, x, out_dtype,
+                  int(out_dtype == torch.float32))
+    bsr_spmm_rowwalk_bf16.launches += 1
+    return out
+
+
+bsr_spmm_rowwalk_bf16.launches = 0
+
+
+def bsr_spmm_blockpar_bf16(plan: CsrPlan, x: torch.Tensor,
+                           out_dtype=torch.bfloat16) -> torch.Tensor:
+    """``A @ x`` by the block-parallel kernel with x in bf16 (the rounding
+    of ``bsr_spmm_rowwalk_bf16``); the pieces of rows across chunk edges
+    stay f32 until pass 2 adds them and stores the row once.
+
+    x: contiguous bf16 [n_cols, d], d a multiple of 8 -> ``out_dtype``
+    [n_rows, d]."""
+    _check(plan, x, torch.bfloat16)
+    _check_out_dtype(out_dtype)
+    if x.device.type == "cpu":
+        return bsr_spmm_csr_plain_bf16(plan, x, out_dtype)
+    out = _launch("bsr_spmm_blockpar_bf16", plan, x, out_dtype,
+                  int(out_dtype == torch.float32))
+    bsr_spmm_blockpar_bf16.launches += 1
+    return out
+
+
+bsr_spmm_blockpar_bf16.launches = 0
+
+
+def dispatch(plan: CsrPlan, bf16: bool = False):
+    """The kernel wrapper that runs ``plan`` (the ``*_bf16`` one for x in
+    bf16).  The TPU package chose by the size of x (10 MB, what stays
+    resident in VMEM); on the H100 the longest row decides.  A row walk
+    keeps a row on one SM, which a hub row holds up (the pyramid's
+    transpose: up to 16x a node's degree); the block-parallel kernel's
+    equal chunks spread it over many SMs and pay a second pass for it.  At
+    UCI (snapshot 2004-05, d = 512, NVIDIA H100 80GB HBM3, 700 W) the row
+    walk is the faster on the forward plan (longest row 198) and the
+    block-parallel kernel on the transpose (longest row 1977); at Enron
+    both delta plans have a hub row (1130 and 1147 nonzeros) and the
+    block-parallel kernel takes both.  ``chip_smoke.py`` times both on
+    both."""
     if plan.max_row_nnz <= ROWWALK_MAX_ROW:
-        return bsr_spmm_rowwalk
-    return bsr_spmm_blockpar
+        return bsr_spmm_rowwalk_bf16 if bf16 else bsr_spmm_rowwalk
+    return bsr_spmm_blockpar_bf16 if bf16 else bsr_spmm_blockpar
 
 
 def block_spmm_raw(plan: CsrPlan, x: torch.Tensor) -> torch.Tensor:

@@ -35,6 +35,10 @@ _SIGNATURES = {
     # (csr_ptr, csr_row, csr_col, csr_val, x, scratch, out, n_rows, nnz,
     #  chunk, d, stream)
     "bsr_spmm_blockpar": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # the same with x in bf16, then out_f32 (0: bf16 out) before the stream
+    "bsr_spmm_rowwalk_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "bsr_spmm_blockpar_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _I, _P),
 }
 
 

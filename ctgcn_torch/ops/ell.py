@@ -19,7 +19,9 @@ restores row order, and bucket sizes are rounded so that windows share
 compiled shapes.  On Hopper the CSR row walk is that scatter-free gather
 and row-sum already (a warp sums its row in registers), and nothing is
 compiled per shape, so the plans here are ``CsrPlan``s and no bucket table
-is carried over.  They run on the two existing kernels through
+is carried over.  ``ell_spmm(..., bf16=True)`` gathers x in bf16 and stores
+the products in bf16 (the config's ``matmul_precision: "bf16"``), on the
+kernels' bf16 instantiations.  They run on the two existing kernels through
 ``dispatch``: a forward plan (short rows) on ``bsr_spmm_rowwalk``, a
 transpose with hub rows on ``bsr_spmm_blockpar``.  The forward plan's walk
 order puts a node's K slot rows side by side, as the BSR pyramid plans do.
@@ -34,7 +36,8 @@ import scipy.sparse as sp
 import torch
 from torch.nn import functional as F
 
-from ctgcn_torch.ops.bsr_spmm import D_ALIGN, CsrPlan, build_csr_plan, csr_spmm
+from ctgcn_torch.ops.bsr_spmm import (D_ALIGN, D_ALIGN_BF16, CsrPlan,
+                                      build_csr_plan, csr_spmm, dispatch)
 
 
 def _slot_matrix(rows, cols, vals, valid, n_nodes, delta):
@@ -96,11 +99,38 @@ def build_pyramid_ell_plans(stacked_rows, stacked_cols, stacked_vals, valid,
     return tuple(fwd), tuple(tr)
 
 
-def ell_spmm(fwd_plan: CsrPlan, t_plan: CsrPlan, x):
+class _CsrSpmmBf16(torch.autograd.Function):
+    """The JAX custom VJP of ``ell_spmm(..., bf16=True)``: the forward
+    gathers x in bf16 and returns bf16 products; the backward gathers the
+    cotangent in bf16 and returns dx in f32 (``ctgcn_tpu/ops/ell.py:
+    199-204``)."""
+
+    @staticmethod
+    def forward(ctx, x, fwd_plan, t_plan):
+        ctx.t_plan = t_plan
+        return dispatch(fwd_plan, bf16=True)(
+            fwd_plan, x.bfloat16().contiguous(), torch.bfloat16)
+
+    @staticmethod
+    def backward(ctx, g):
+        t_plan = ctx.t_plan
+        dx = dispatch(t_plan, bf16=True)(
+            t_plan, g.bfloat16().contiguous(), torch.float32)
+        return dx, None, None
+
+
+def ell_spmm(fwd_plan: CsrPlan, t_plan: CsrPlan, x, bf16=False):
     """``A @ x`` ([R, C] @ [C, d] -> [R, d]), differentiable in x through
-    the transpose plan (the JAX custom VJP).  d is zero-padded to a
-    multiple of 4 inside, as the kernels take it."""
+    the transpose plan (the JAX custom VJP).  d is zero-padded inside to
+    what the kernels take: a multiple of 4, or of 8 with ``bf16``.
+
+    ``bf16``: x and the values are rounded to bf16, the products summed in
+    f32 and returned in bf16; dx comes back in f32."""
     d = x.shape[1]
-    pad = -d % D_ALIGN
-    out = csr_spmm(fwd_plan, t_plan, F.pad(x, (0, pad)) if pad else x)
+    pad = -d % (D_ALIGN_BF16 if bf16 else D_ALIGN)
+    xp = F.pad(x, (0, pad)) if pad else x
+    if bf16:
+        out = _CsrSpmmBf16.apply(xp.float(), fwd_plan, t_plan)
+    else:
+        out = csr_spmm(fwd_plan, t_plan, xp)
     return out[:, :d] if pad else out

@@ -48,7 +48,12 @@ class CorePyramid:
     perm/inv_perm: int64[N] core-sorted node order and its inverse.
     plan_fwd/plan_t: BlockPlans [K·Np, Np] and transpose (pallas).
     ell_fwd/ell_t: CsrPlans [K·N, N] and transpose (ell), delta-encoded
-                  when ``ell_delta``.
+                  when ``ell_delta``; ``ell_bf16`` gathers x in bf16 and
+                  stores the slot products in bf16 (the config's
+                  ``matmul_precision: "bf16"``).
+    dense_prec:   "highest" or "high" (3xTF32 on the card) for the GEMMs
+                  of an f32 dense bank or f32 blocks; a bf16 bank or bf16
+                  blocks run bf16 operands with f32 results.
     """
 
     valid: torch.Tensor
@@ -65,6 +70,8 @@ class CorePyramid:
     ell_fwd: CsrPlan | tuple | None = None
     ell_t: CsrPlan | tuple | None = None
     ell_delta: bool = False
+    ell_bf16: bool = False
+    dense_prec: str = "highest"
 
     @property
     def num_slots(self) -> int:
@@ -97,7 +104,8 @@ class CorePyramid:
 
 
 def build_core_pyramid(core_mats, n_nodes, num_slots, densify=False,
-                       build_blocks=False, build_plans=False):
+                       build_blocks=False, build_plans=False,
+                       dense_dtype=None, dense_prec="highest"):
     """Host CorePyramid from scipy matrices ordered max core first (the
     caller truncates to ``max_core`` and reverses): I is added to slot 0,
     and a core equal to the previous one is dropped.  The padded COO is
@@ -107,6 +115,9 @@ def build_core_pyramid(core_mats, n_nodes, num_slots, densify=False,
       num_slots: fixed K (>= number of kept cores).
       build_blocks: core-sorted principal blocks, left out (None) when the
         slot supports do not nest.
+      dense_dtype: dtype of the dense bank and of the blocks (default f32;
+        ``torch.bfloat16`` for the config's ``matmul_precision: "bf16"``).
+      dense_prec: "highest" or "high", the GEMM precision of an f32 bank.
     """
     kept, kept_raw = [], []
     prev = None
@@ -147,22 +158,25 @@ def build_core_pyramid(core_mats, n_nodes, num_slots, densify=False,
         dense = torch.zeros(K, n_nodes, n_nodes)
         dense.index_put_((torch.arange(K)[:, None].expand(K, P), rows_t,
                           cols_t), vals_t, accumulate=True)
+        dense = dense.to(dense_dtype or torch.float32)
     plan_fwd = plan_t = None
     if build_plans:
         plan_fwd, plan_t = build_pyramid_plans(list(enumerate(kept)),
                                                n_nodes, K)
     blocks = perm = inv_perm = None
     if build_blocks:
-        built = _build_core_blocks(kept_raw, n_nodes)
+        built = _build_core_blocks(kept_raw, n_nodes,
+                                   dtype=dense_dtype or torch.float32)
         if built is not None:
             blocks, perm, inv_perm = built
     return CorePyramid(valid=torch.from_numpy(valid), n_nodes=int(n_nodes),
                        rows=rows_t, cols=cols_t, vals=vals_t, dense=dense,
                        blocks=blocks, perm=perm, inv_perm=inv_perm,
-                       plan_fwd=plan_fwd, plan_t=plan_t)
+                       plan_fwd=plan_fwd, plan_t=plan_t,
+                       dense_prec=dense_prec)
 
 
-def _build_core_blocks(kept_raw, n_nodes, bucket=256):
+def _build_core_blocks(kept_raw, n_nodes, dtype=torch.float32, bucket=256):
     """Core-sorted leading-principal blocks of the kept slots (without
     the +I, which the model adds as "+ x").
 
@@ -170,8 +184,8 @@ def _build_core_blocks(kept_raw, n_nodes, bucket=256):
     k+1)), so with nodes sorted by the number of slots that hold them,
     descending (a stable sort), slot k's adjacency is the leading
     n_k x n_k block of the permuted matrix.  Returns (blocks, perm,
-    inv_perm), each block padded with zeros to a multiple of ``bucket``
-    (at most N), or None when the supports do not nest."""
+    inv_perm), each block of ``dtype`` padded with zeros to a multiple of
+    ``bucket`` (at most N), or None when the supports do not nest."""
     level = np.zeros(n_nodes, np.int64)
     supports = []
     for m in kept_raw:
@@ -198,7 +212,7 @@ def _build_core_blocks(kept_raw, n_nodes, bucket=256):
             return None
         blk = np.zeros((nb, nb), np.float32)
         blk[r, c] = coo.data[nz]
-        blocks.append(torch.from_numpy(blk))
+        blocks.append(torch.from_numpy(blk).to(dtype))
     return tuple(blocks), torch.from_numpy(perm), torch.from_numpy(inv)
 
 
@@ -213,7 +227,7 @@ def stack_pyramids(pyramids):
     out = {}
     for f in dataclasses.fields(CorePyramid):
         vs = [getattr(p, f.name) for p in pyramids]
-        if f.name in ("n_nodes", "ell_delta"):
+        if f.name in ("n_nodes", "ell_delta", "ell_bf16", "dense_prec"):
             out[f.name] = getattr(first, f.name)
         elif vs[0] is None:
             out[f.name] = None
@@ -236,14 +250,16 @@ def pyramid_at(stacked: CorePyramid, t: int) -> CorePyramid:
         if isinstance(getattr(stacked, f.name), (torch.Tensor, tuple))})
 
 
-def attach_ell_plans(stacked: CorePyramid, delta=True) -> CorePyramid:
+def attach_ell_plans(stacked: CorePyramid, delta=True,
+                     bf16=False) -> CorePyramid:
     """A stacked window with per-snapshot CSR plans of its [K·N, N] slot
     matrices and their transposes (``ops/ell.py``), built from its COO.
 
     ``delta`` (default): delta-encode the nested core slots, so each edge
-    is gathered once instead of once per slot that holds it."""
+    is gathered once instead of once per slot that holds it.  ``bf16``:
+    the slot products gather x in bf16 and are stored in bf16."""
     fwd, t = build_pyramid_ell_plans(stacked.rows, stacked.cols,
                                      stacked.vals, stacked.valid,
                                      stacked.n_nodes, delta=delta)
     return dataclasses.replace(stacked, ell_fwd=fwd, ell_t=t,
-                               ell_delta=delta)
+                               ell_delta=delta, ell_bf16=bf16)

@@ -1,17 +1,22 @@
 # coding: utf-8
-"""Embedding-task driver (port of ``ctgcn_tpu/training/driver.py`` for
-CTGCN-C with the U-neg learning type).
+"""Embedding-task driver (port of ``ctgcn_tpu/training/driver.py`` for the
+CTGCN family: CGCN-C, CGCN-S, CTGCN-C and CTGCN-S, with the U-neg and
+U-own learning types).
 
 Per window: load the k-core pyramids (on the config's ``core_backend``,
-``"auto"`` by default) and walk tables, build a fresh CTGCN, train it with
-the negative-sampling loss, export the per-timestamp embedding CSVs, and
-record the window's training seconds in ``<base_path>/<method>_time.csv``
-after every window.
+``"auto"`` by default, at its ``matmul_precision``), the node features
+(file features, identity, or degree features for the S-variants) and, for
+U-neg, the walk tables; build a fresh model, train it with the
+negative-sampling loss (U-neg) or the reconstruction loss (U-own), export
+the per-timestamp embedding CSVs (the S-variants export the structure
+embedding, as the JAX package does), and record the window's training
+seconds in ``<base_path>/<method>_time.csv`` after every window.
 
 The JAX driver's memory knobs, which it reads from ``CTGCN_TPU_*``
 environment variables, reach the model as constructor arguments here:
 ``layer_remat`` from the config, as in the JAX driver, and the byte
-budgets at their module defaults (``ACT_BUDGET``, ``CVJP_BATCH_BUDGET``).
+budgets at their module defaults (``ACT_BUDGET``, ``CVJP_BATCH_BUDGET``,
+``CORE_RNN_BUDGET``).
 """
 from __future__ import annotations
 
@@ -19,47 +24,50 @@ import functools
 import os
 import time
 
+import numpy as np
 import torch
 
 from ctgcn_torch.data.formats import read_node_list, write_time_csv
 from ctgcn_torch.data.loader import DataLoader
-from ctgcn_torch.losses import negative_sampling_loss
-from ctgcn_torch.nn.core_models import ACT_BUDGET, CTGCN
+from ctgcn_torch.losses import negative_sampling_loss, reconstruction_loss
+from ctgcn_torch.nn.core_models import (ACT_BUDGET, CGCN, CORE_RNN_BUDGET,
+                                        CTGCN)
 from ctgcn_torch.ops.rnn import CVJP_BATCH_BUDGET
 from ctgcn_torch.training.engine import UnsupervisedEmbedding
 from ctgcn_torch.utils import resolve_device
 
-PORTED_METHODS = ("CTGCN-C",)
-PORTED_LEARNING_TYPES = ("U-neg",)
+#: method -> model class
+PORTED_METHODS = {"CGCN-C": CGCN, "CGCN-S": CGCN, "CTGCN-C": CTGCN,
+                  "CTGCN-S": CTGCN}
+S_VARIANTS = ("CGCN-S", "CTGCN-S")
+PORTED_LEARNING_TYPES = ("U-neg", "U-own")
+MATMUL_PRECISIONS = ("highest", "high", "bf16")
 
 
 def _check_scope(method, args):
     if method not in PORTED_METHODS:
         raise NotImplementedError(
             f"method {method!r} is not ported yet (ROADMAP.md queue 1: "
-            "CGCN and the S-variants item 9, the model zoo item 12)")
+            "the model zoo, item 12)")
     lt = args["learning_type"]
     if lt not in PORTED_LEARNING_TYPES:
         raise NotImplementedError(
             f"learning_type {lt!r} is not ported yet (ROADMAP.md queue 1: "
-            "U-own item 9, supervised types item 10)")
+            "supervised types, item 10)")
+    if lt == "U-own" and method not in S_VARIANTS:
+        raise ValueError(f"U-own is defined for the S-variants, not "
+                         f"{method}")
     if args.get("remat_policy", "full") != "full":
         raise NotImplementedError(
             "remat_policy 'save_spmm' is not ported yet; only 'full'")
-    if args.get("nfeature_folder"):
-        raise NotImplementedError(
-            "file node features are not ported yet (ROADMAP.md queue 1, "
-            "item 9); CTGCN-C runs on identity features")
     if args.get("n_devices", 0) > 1:
         raise NotImplementedError(
             "multi-device runs are not ported yet (ROADMAP.md queue 1, "
             "item 13)")
     prec = args.get("matmul_precision", "highest")
-    if prec != "highest":
-        raise NotImplementedError(
-            f"matmul_precision {prec!r} is not ported yet (ROADMAP.md "
-            "queue 1, item 2: it needs a bf16 bank and bf16 gathers in the "
-            "kernels); only 'highest'")
+    if prec not in MATMUL_PRECISIONS:
+        raise ValueError(f"matmul_precision {prec!r}, not one of "
+                         f"{MATMUL_PRECISIONS}")
 
 
 def get_data_loader(args):
@@ -68,84 +76,132 @@ def get_data_loader(args):
     base_path = args["base_path"]
     origin_folder = args["origin_folder"]
     core_folder = args.get("core_folder")
+    nfeature_folder = args.get("nfeature_folder")
     node_list = read_node_list(
         os.path.abspath(os.path.join(base_path, args["node_file"])))
-    origin_base_path = (os.path.abspath(os.path.join(base_path,
-                                                     origin_folder))
-                        if origin_folder else None)
-    core_base_path = (os.path.abspath(os.path.join(base_path, core_folder))
-                      if core_folder else None)
+
+    def absolute(folder):
+        return (os.path.abspath(os.path.join(base_path, folder)) if folder
+                else None)
+
+    origin_base_path = absolute(origin_folder)
+    core_base_path = absolute(core_folder)
     max_time_num = len(os.listdir(origin_base_path or core_base_path))
     if max_time_num == 0:
         raise ValueError(f"no snapshots under {origin_base_path}")
     args["origin_base_path"] = origin_base_path
     args["core_base_path"] = core_base_path
+    args["nfeature_path"] = absolute(nfeature_folder)
     args["node_num"] = len(node_list)
     return DataLoader(node_list, max_time_num)
 
 
-def get_input_data(method, idx, time_length, data_loader: DataLoader, args):
-    """(input_dim, stacked CorePyramid, xs) for one window on the host;
-    xs is None: identity node features, never materialized."""
-    del method
+def get_input_data(method, idx, time_length, data_loader: DataLoader, args,
+                   rng=None):
+    """(input_dim, stacked CorePyramid, xs) for one window on the host.
+
+    ``matmul_precision`` sets the bank: "bf16" a bf16 dense bank / bf16
+    blocks / bf16 ELL gathers, "high" 3xTF32 GEMMs on an f32 bank.  xs is
+    None (identity features, never materialized), the files under
+    ``nfeature_folder``, or, for CGCN-S / CTGCN-S without them, degree
+    features drawn from ``rng`` (a numpy ``RandomState``)."""
+    prec = args.get("matmul_precision", "highest")
     pyramids = data_loader.get_core_adj_list(
         args["core_base_path"], idx, time_length,
         max_core=args.get("max_core", -1),
         core_backend=args.get("core_backend", "auto"),
-        dense_budget_bytes=args.get("dense_budget_bytes", 4 << 30))
-    return data_loader.node_num, pyramids, None
+        dense_budget_bytes=args.get("dense_budget_bytes", 4 << 30),
+        dense_dtype=torch.bfloat16 if prec == "bf16" else None,
+        dense_prec="high" if prec == "high" else "highest")
+    sep = args.get("file_sep", "\t")
+    if method in S_VARIANTS and args.get("nfeature_path") is None:
+        xs, input_dim = data_loader.get_degree_feature_list(
+            args["origin_base_path"], idx, time_length, sep=sep,
+            init_type=args["init_type"], std=args.get("std", 1e-4), rng=rng)
+    else:
+        xs, input_dim = data_loader.get_feature_list(
+            args.get("nfeature_path"), idx, time_length, sep=sep)
+    return input_dim, pyramids, xs
 
 
 def get_gnn_model(method, time_length, args, generator):
-    """A fresh CTGCN for one window, parameters drawn from ``generator``."""
-    del method
-    return CTGCN(args["input_dim"], args["hid_dim"], args["embed_dim"],
-                 trans_num=args["trans_layer_num"],
-                 diffusion_num=args["diffusion_layer_num"],
-                 duration=time_length, bias=args.get("bias", True),
-                 rnn_type=args.get("rnn_type", "GRU"),
-                 model_type=args["model_type"],
-                 trans_activate_type=args.get("trans_activate_type", "L"),
-                 generator=generator,
-                 act_budget=ACT_BUDGET,
-                 layer_remat=bool(args.get("layer_remat", False)),
-                 cvjp_batch_budget=CVJP_BATCH_BUDGET)
+    """A fresh CGCN or CTGCN for one window, parameters drawn from
+    ``generator``."""
+    kw = dict(trans_num=args["trans_layer_num"],
+              diffusion_num=args["diffusion_layer_num"],
+              bias=args.get("bias", True),
+              rnn_type=args.get("rnn_type", "GRU"),
+              model_type=args["model_type"],
+              trans_activate_type=args.get("trans_activate_type", "L"),
+              generator=generator, act_budget=ACT_BUDGET,
+              layer_remat=bool(args.get("layer_remat", False)),
+              cvjp_batch_budget=CVJP_BATCH_BUDGET,
+              core_rnn_budget=CORE_RNN_BUDGET)
+    if PORTED_METHODS[method] is CTGCN:
+        kw["duration"] = time_length
+    return PORTED_METHODS[method](args["input_dim"], args["hid_dim"],
+                                  args["embed_dim"], **kw)
 
 
 @functools.lru_cache(maxsize=None)
-def _uneg_loss_fn(neg_num, Q):
+def _uneg_loss_fn(take_first, neg_num, Q):
+    """U-neg on the node embedding (``res[0]`` of an S-variant)."""
     def loss_fn(model, data, b_idx, b_mask, generator):
-        embs = model(data["xs"], data["adjs"])
-        return negative_sampling_loss(embs, b_idx, b_mask, data["walk"],
-                                      generator, neg_num=neg_num, Q=Q)
+        res = model(data["xs"], data["adjs"])
+        return negative_sampling_loss(res[0] if take_first else res, b_idx,
+                                      b_mask, data["walk"], generator,
+                                      neg_num=neg_num, Q=Q)
 
     return loss_fn
 
 
-def _embed_fn(model, data):
+def _recon_loss_fn(model, data, b_idx, b_mask, generator):
+    """U-own: the S-variants' reconstruction loss on the batch rows."""
+    del generator
+    embs, trans = model(data["xs"], data["adjs"])
+    return reconstruction_loss(embs, trans, b_idx, b_mask)
+
+
+def _embed(model, data):
+    """The exported embedding: the model's output."""
     return model(data["xs"], data["adjs"])
 
 
+def _embed_trans(model, data):
+    """The exported embedding of an S-variant: its structure embedding (the
+    MLP output), as the JAX driver exports it."""
+    return model(data["xs"], data["adjs"])[1]
+
+
 def build_trainer(method, args, data_loader, idx, time_length, device,
-                  generator):
+                  generator, rng=None):
     """The window's inputs on ``device``, a fresh model drawn from
-    ``generator``, and the U-neg trainer over them."""
+    ``generator``, and the trainer of the config's learning type over
+    them; ``rng`` (numpy ``RandomState``) draws degree features."""
     base_path = args["base_path"]
     input_dim, pyramids, xs = get_input_data(method, idx, time_length,
-                                             data_loader, args)
+                                             data_loader, args, rng=rng)
     args["input_dim"] = input_dim
-    walk = data_loader.get_walk_data(
-        os.path.abspath(os.path.join(base_path, args["walk_pair_folder"])),
-        os.path.abspath(os.path.join(base_path, args["node_freq_folder"])),
-        idx, time_length)
-    data = {"adjs": pyramids.to(device), "xs": xs, "walk": walk.to(device)}
+    data = {"adjs": pyramids.to(device),
+            "xs": None if xs is None else xs.to(device)}
+    s_variant = method in S_VARIANTS
+    if args["learning_type"] == "U-neg":
+        data["walk"] = data_loader.get_walk_data(
+            os.path.abspath(os.path.join(base_path,
+                                         args["walk_pair_folder"])),
+            os.path.abspath(os.path.join(base_path,
+                                         args["node_freq_folder"])),
+            idx, time_length).to(device)
+        loss_fn = _uneg_loss_fn(s_variant, args["neg_num"], args["Q"])
+    else:
+        loss_fn = _recon_loss_fn
     model = get_gnn_model(method, time_length, args, generator).to(device)
     return UnsupervisedEmbedding(
         base_path=base_path, origin_folder=args["origin_folder"],
         embedding_folder=args["embed_folder"],
         node_list=data_loader.full_node_list, model=model,
-        loss_fn=_uneg_loss_fn(args["neg_num"], args["Q"]),
-        embed_fn=_embed_fn, data=data, device=device,
+        loss_fn=loss_fn, embed_fn=_embed_trans if s_variant else _embed,
+        data=data, device=device,
         model_folder=args.get("model_folder", "model"),
         file_sep=args.get("file_sep", "\t"))
 
@@ -155,13 +211,23 @@ def gnn_embedding(method, args, device="cuda"):
 
     Returns one dict per window: ``idx``, ``setup_seconds`` (loading the
     window and building its model, on the host clock) and what
-    ``UnsupervisedEmbedding.learn_embedding`` returns."""
+    ``UnsupervisedEmbedding.learn_embedding`` returns.
+
+    On the card every f32 GEMM runs in full f32 (the JAX package's
+    ``Precision.HIGHEST``): TF32 is turned off for the run and the
+    caller's setting restored after it; ``matmul_precision: "high"``
+    turns it on only around its bank GEMMs."""
     _check_scope(method, args)
     dev = resolve_device(device)
-    if dev.type == "cuda":
-        # full-f32 GEMMs around the SpMM kernels (the JAX package's
-        # Precision.HIGHEST)
-        torch.backends.cuda.matmul.allow_tf32 = False
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return _run_windows(method, args, dev)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+
+
+def _run_windows(method, args, dev):
     base_path = args["base_path"]
     model_file = args.get("model_file", method.lower())
     start_idx = args["start_idx"]
@@ -184,12 +250,15 @@ def gnn_embedding(method, args, device="cuda"):
           f"duration = {duration}")
     print(f"start {method} embedding! (ctgcn_torch on {dev})")
     gen = torch.Generator().manual_seed(seed)
+    # degree features: the JAX driver draws from the unseeded global
+    # np.random; here one stream from the config's seed
+    rng = np.random.RandomState(seed)
     for widx, idx in enumerate(range(start_idx, end_idx, step)):
         print(f"idx = {idx}, duration = {duration}")
         time_length = min(idx + duration, end_idx) - idx
         t_setup = time.time()
         trainer = build_trainer(method, args, data_loader, idx, time_length,
-                                dev, gen)
+                                dev, gen, rng=rng)
         setup_seconds = time.time() - t_setup
         # every window overwrites the same model file; only the last
         # window's save is kept unless the run reloads models

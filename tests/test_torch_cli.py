@@ -1,10 +1,10 @@
 # coding: utf-8
 """``python -m ctgcn_torch.main`` end to end on the CPU: the preprocessing
 and embedding tasks of CTGCN-C (U-neg, BSR backend, and the default
-``"auto"`` backend) on a small generated
-dataset, one epoch.  The embedding and time CSVs must read the way the
-JAX package's evaluators read them (pandas, tab-separated, node name as
-the index)."""
+``"auto"`` backend, at each ``matmul_precision``), CGCN-C, CGCN-S and
+CTGCN-S on a small generated dataset, one epoch.  The embedding and time
+CSVs must read the way the JAX package's evaluators read them (pandas,
+tab-separated, node name as the index)."""
 import json
 import os
 import subprocess
@@ -110,10 +110,10 @@ def test_default_device_without_gpu_raises(dataset):
 
 
 @pytest.mark.parametrize("change, error", [
-    ({"matmul_precision": "bf16"}, NotImplementedError),
-    ({"learning_type": "U-own"}, NotImplementedError),
     ({"remat_policy": "save_spmm"}, NotImplementedError),
-    ({"matmul_precision": "high"}, NotImplementedError),
+    ({"n_devices": 2}, NotImplementedError),
+    ({"learning_type": "S-node"}, NotImplementedError),
+    ({"matmul_precision": "fp8"}, ValueError),
 ])
 def test_unported_options_raise(dataset, tmp_path, change, error):
     _, cfg, _, _ = dataset
@@ -121,9 +121,48 @@ def test_unported_options_raise(dataset, tmp_path, change, error):
     config["embedding"]["CTGCN-C"].update(change)
     path = tmp_path / "cfg.json"
     path.write_text(json.dumps(config))
-    with pytest.raises(error, match="not ported"):
+    with pytest.raises(error, match="not ported|matmul_precision"):
         cli.main([f"--config={path}", "--task=embedding",
                   "--method=CTGCN-C", "--device=cpu"])
+
+
+@pytest.mark.parametrize("method, change, backend", [
+    ("CTGCN-C", {"matmul_precision": "bf16"}, "blocks"),
+    ("CTGCN-C", {"matmul_precision": "bf16", "core_backend": "ell"}, "ell"),
+    ("CTGCN-C", {"matmul_precision": "high"}, "blocks"),
+    ("CTGCN-S", {}, "blocks"),
+    ("CGCN-C", {}, "blocks"),
+    ("CGCN-S", {}, "blocks"),
+], ids=["bf16", "bf16_ell", "high", "CTGCN-S", "CGCN-C", "CGCN-S"])
+def test_precisions_and_methods_run(dataset, trained, tmp_path, method,
+                                    change, backend):
+    """``matmul_precision`` "bf16" and "high", and CGCN-C, CGCN-S and
+    CTGCN-S (U-own, degree features) as ``configs/uci.json`` gives them,
+    narrowed to test size, one epoch: finite losses and one embedding CSV
+    per snapshot, every node at ``embed_dim`` (the S-variants export the
+    structure embedding, which has that width too)."""
+    base, _, names, emb = dataset
+    with open(ROOT / "configs" / "uci.json") as fp:
+        entry = dict(json.load(fp)["embedding"][method])
+    entry.update(base_path=str(base), epoch=1, hid_dim=12, embed_dim=6,
+                 batch_size=50, neg_num=4, record_time=False,
+                 duration=min(entry["duration"], 3),
+                 embed_folder=f"2.embedding/{tmp_path.name}",
+                 model_file=tmp_path.name, **change)
+    path = tmp_path / "cfg.json"
+    path.write_text(json.dumps({"embedding": {method: entry}}))
+    results = cli.main([f"--config={path}", "--task=embedding",
+                        f"--method={method}", "--device=cpu"])
+    windows = -(-SNAPS // entry["duration"])
+    assert [r["core_backend"] for r in results] == [backend] * windows
+    assert all(len(r["losses"]) == 1 and np.isfinite(r["losses"]).all()
+               for r in results)
+    out = base / entry["embed_folder"]
+    files = sorted(os.listdir(out))
+    assert files == [f"2010-0{t + 1}.csv" for t in range(SNAPS)]
+    for f in files:
+        arr = pd.read_csv(out / f, sep="\t", index_col=0).loc[names].values
+        assert arr.shape == (N, 6) and np.isfinite(arr).all()
 
 
 def test_embedding_without_core_backend_runs_auto(dataset, trained,

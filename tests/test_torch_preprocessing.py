@@ -8,9 +8,11 @@ import os
 from pathlib import Path
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import scipy.sparse as sp
+import torch
 
 from ctgcn_torch.data import formats as tf
 from ctgcn_torch.data.loader import DataLoader as TDataLoader
@@ -207,20 +209,35 @@ def _ell_nnz(plan):
     ("ell", {}, "ell"),
     ("auto", {"dense_budget_bytes": 1000}, "ell"),
     ("auto", {"allow_blocks": False}, "dense"),
+    ("auto", {"bf16_bank_budget": 2}, "blocks"),
+    ("auto", {"bf16_bank_budget": 1}, "ell"),
 ], ids=["auto", "dense", "blocks", "ell", "auto_small_budget",
-        "auto_no_blocks"])
+        "auto_no_blocks", "auto_bf16_fits", "auto_bf16_over"])
 def test_loader_backend_matches_jax(toy_tree, backend, kwargs, chosen):
     """Every core backend, and the ``"auto"`` policy, builds the JAX
     loader's bank on the same tree: the same backend (``"auto"`` takes the
     blocks when the dense bank fits the budget, the dense bank without
     blocks, ELL above the budget), validity, dense bank, principal blocks
-    and node order, and ELL plans of the same size."""
+    and node order, and ELL plans of the same size.
+
+    ``bf16_bank_budget`` asks for a bf16 bank under a budget of that many
+    bytes an entry: 2, what a bf16 bank takes, fits; 1 does not.  At 2
+    bytes an entry the f32 bank (4) would not fit, so "auto" counts the
+    bf16 bank's 2 bytes as the JAX loader does."""
     base, n = toy_tree
     names = tf.read_node_list(str(base / "nodes_set" / "nodes.csv"))
+    t_kw, j_kw = dict(kwargs), dict(kwargs)
+    if "bf16_bank_budget" in kwargs:
+        n_slots = max(len(m) for m in TDataLoader(
+            names, 3).get_core_scipy_list(str(base / "cores"), 0, 3))
+        budget = 3 * n_slots * n * n * t_kw.pop("bf16_bank_budget")
+        del j_kw["bf16_bank_budget"]
+        t_kw.update(dense_dtype=torch.bfloat16, dense_budget_bytes=budget)
+        j_kw.update(dense_dtype=jnp.bfloat16, dense_budget_bytes=budget)
     got = TDataLoader(names, 3).get_core_adj_list(
-        str(base / "cores"), 0, 3, core_backend=backend, **kwargs)
+        str(base / "cores"), 0, 3, core_backend=backend, **t_kw)
     ref = JDataLoader(names, 3).get_core_adj_list(
-        str(base / "cores"), 0, 3, core_backend=backend, **kwargs)
+        str(base / "cores"), 0, 3, core_backend=backend, **j_kw)
     ref_backend = ("blocks" if ref.blocks is not None
                    else "dense" if ref.dense is not None
                    else "ell" if ref.ell_fwd is not None else None)
@@ -236,9 +253,12 @@ def test_loader_backend_matches_jax(toy_tree, backend, kwargs, chosen):
         np.testing.assert_array_equal(got.perm.numpy(), np.asarray(ref.perm))
         for mine, theirs in zip(got.blocks, ref.blocks, strict=True):
             for a, b in zip(mine, theirs, strict=True):
-                np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+                assert str(a.dtype).split(".")[-1] == str(b.dtype)
+                np.testing.assert_array_equal(a.float().numpy(),
+                                              np.asarray(b, np.float32))
     else:
         assert got.ell_delta and ref.ell_delta
+        assert got.ell_bf16 == ref.ell_bf16 == ("dense_dtype" in t_kw)
         for t in range(3):
             theirs = jax.tree.map(lambda a, t=t: a[t], ref.ell_fwd)
             assert got.ell_fwd[t].nnz == _ell_nnz(theirs)
