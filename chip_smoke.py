@@ -31,13 +31,30 @@ kernel against its plain PyTorch version:
                 then enron_highest, one epoch of it at ``"highest"`` from
                 the same seed (no export), for the first-epoch loss gap;
   * uci_cgcn_c, uci_cgcn_s  ``configs/uci.json`` CGCN-C and CGCN-S (U-own,
-                combine features) as written, windows 0-1, 2 epochs.
+                combine features) as written, windows 0-1, 2 epochs;
+  * aa_snode    ``configs/america-air.json`` CTGCN-C with ``learning_type:
+                "S-node"`` and nothing else changed (its ``nodes_label``,
+                classifier keys and 0.5/0.3/0.2 split, duration 10, 50
+                epochs) on a preprocessed copy of America-Air (N = 1190,
+                T = 10; ``"auto"`` picks the principal blocks);
+  * aa_sedge    the same with ``"S-edge"`` and ``elabel_folder:
+                "edges_label"``, 5 epochs;
+  * as_ctgcn_s_slink  ``configs/as.json`` CTGCN-S with ``"S-link-st"``
+                (the supervised type that config gives its PGNN entry) on
+                the AS window, delta-ELL, 3 epochs: classification plus
+                reconstruction loss;
+  * uci_slink_dy  ``configs/uci.json`` CTGCN-C with ``"S-link-dy"`` on BSR
+                plans (``core_backend: "pallas"``), 3 epochs: one window of
+                6 snapshots whose embeddings predict the next snapshot's
+                edges.
 
 Phases, one line each:
 
   1. build      the CUDA kernels from ``ctgcn_torch/csrc`` (nvcc, sm_90a);
   2. preprocess k-core pyramids and walk tables through ``ctgcn_torch.main``
-                (UCI, then the AS and the Enron snapshots);
+                on the native host-graph kernels (UCI, the AS and the Enron
+                snapshots, then America-Air), and the native core numbers
+                against the numpy peel on every UCI snapshot;
   3. kernels    each f32 kernel on the UCI pallas plans (snapshot 2004-05,
                 both directions, d = 512 and 128: ``block_spmm`` pads hid
                 500 and embed 128 to multiples of 128) against both plain
@@ -68,6 +85,10 @@ Phases, one line each:
                 ``matmul_precision: "bf16"`` (``RESULTS.md:69``), each
                 failing below ``HAD_AUC_GATE``; CTGCN-S as configured (20
                 epochs, ``RESULTS.md:38``), failing below ``S_AUC_GATE``;
+                and aa_snode's mean test accuracy over seeds 0 and 1,
+                failing more than ``AA_SNODE_MARGIN`` under the JAX
+                package's mean on the same config and seeds
+                (``AA_SNODE_JAX_ACC``);
      eval       ``cent_pred`` and ``sim_pred`` on seed 0's UCI embeddings;
                 ``node_cls`` and ``edge_cls`` on America-Air (preprocessed,
                 CTGCN-C trained 3 epochs); the centralities of UCI 2004-05
@@ -88,6 +109,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+_START = time.time()
 SNAPSHOT = "2004-05"
 EPOCHS = 3
 #: the AS snapshots of the ELL path (one window of configs/as.json)
@@ -134,6 +156,17 @@ QUALITY_RUNS = (
     ("CTGCN-S", "CTGCN-S", {}, 20, S_AUC_GATE))
 #: America-Air training for node_cls / edge_cls
 AA_EPOCHS = 3
+#: aa_snode's quality gate: the JAX package's mean test accuracy on the
+#: same config (configs/america-air.json CTGCN-C under S-node, 50 epochs)
+#: over seeds 0 and 1, on the CPU (scripts/jax_snode_reference.py; the
+#: splits are the same, the model inits differ); the port's mean over the
+#: same seeds may fall at most AA_SNODE_MARGIN under it
+AA_SNODE_JAX_ACC = 0.55085
+AA_SNODE_MARGIN = 0.03
+AA_SNODE_SEEDS = (0, 1)
+#: preprocessing seconds of the numpy walks, chip_smoke.py before the
+#: native kernels (PERF.md section 5: NVIDIA H100 80GB HBM3, 700 W host)
+NUMPY_PREPROCESS_SECONDS = {"as": 9.7, "enron": 13.2}
 #: evaluation on the GPU against the CPU: float64 on both sides
 DEVICE_CPU_RTOL = 1e-9
 
@@ -144,6 +177,8 @@ def _fail(msg):
 
 
 def _phase(tag, **fields):
+    """One result line; ``at_s``: seconds since the script started."""
+    fields["at_s"] = time.time() - _START
     print(f"[{tag}] " + json.dumps(fields), flush=True)
 
 
@@ -252,9 +287,9 @@ def _spmm_widths(cfg, align):
 def _kernel_rows(tag, plans, dev, widths, extra_check=None):
     """Each kernel on each of ``plans`` (name -> device plan) at each of
     ``widths`` against the CSR plain version (and ``extra_check``), then
-    each kernel's time on every plan at every width beside the library
-    call and the bound.  Returns the row of each kernel on the plan
-    ``dispatch`` gives it, at the first width."""
+    each kernel's time on every plan at every width beside the plain
+    version's, the library call's and the bound.  Returns the row of each
+    kernel on the plan ``dispatch`` gives it, at the first width."""
     import torch
 
     from ctgcn_torch.ops import bsr_spmm as B
@@ -294,10 +329,12 @@ def _kernel_rows(tag, plans, dev, widths, extra_check=None):
             _check_close(f"{tag} torch.sparse.mm {pk} d={dd}",
                          torch.sparse.mm(csr, inp),
                          B.bsr_spmm_csr_plain(plan, inp))
+            plain_ms = _time_ms(lambda: B.bsr_spmm_csr_plain(plan, inp),
+                                iters=5, warmup=1)
             for name in F32_KERNELS:
                 kern = getattr(B, name)
                 ms = _time_ms(lambda: kern(plan, inp))
-                row = {"plan": pk, "d": dd, "ms": ms,
+                row = {"plan": pk, "d": dd, "ms": ms, "plain_ms": plain_ms,
                        "library_ms": library_ms,
                        "bound_ms": bound["bound_ms"],
                        "bound_by": bound["bound_by"]}
@@ -305,9 +342,6 @@ def _kernel_rows(tag, plans, dev, widths, extra_check=None):
                 if main_plan[name] != pk or dd != widths[0]:
                     continue
                 err, rel_err = errs[name, pk, dd]
-                plain_ms = _time_ms(
-                    lambda: B.bsr_spmm_csr_plain(plan, inp), iters=5,
-                    warmup=1)
                 if name == "bsr_spmm_rowwalk":
                     # the walk order's worth: the same walk in row order
                     natural = dataclasses.replace(
@@ -679,6 +713,36 @@ def phase_parity(dev):
                                      if k != "forward"))
 
 
+def phase_core_numbers(base):
+    """The native core numbers against the numpy peel on every snapshot of
+    the preprocessed copy at ``base``: equal, with both times."""
+    import numpy as np
+
+    from ctgcn_torch.data.formats import (get_sp_adj_mat, read_node_list,
+                                          sorted_dir)
+    from ctgcn_torch.preprocessing import kcore
+
+    nodes = read_node_list(base / "nodes_set" / "nodes.csv")
+    seconds = {"native": 0.0, "numpy": 0.0}
+    max_core = []
+    for f in sorted_dir(base / "1.format"):
+        adj = get_sp_adj_mat(base / "1.format" / f, nodes)
+        got = {}
+        for side, fn in (("native", kcore.core_numbers),
+                         ("numpy", kcore.peel_core_numbers)):
+            t0 = time.time()
+            got[side] = fn(adj)
+            seconds[side] += time.time() - t0
+        if not np.array_equal(got["native"], got["numpy"]):
+            raise AssertionError(f"core numbers of {base.name}/{f}: native "
+                                 "and numpy differ")
+        max_core.append(int(got["native"].max()))
+    return {"check": "native core numbers equal the numpy peel",
+            "data": base.name, "snapshots": len(max_core),
+            "max_core": max_core, "native_seconds": seconds["native"],
+            "numpy_seconds": seconds["numpy"]}
+
+
 def _kernel_class(name):
     if "rowwalk" in name or "blockpar" in name:
         return "CSR SpMM kernels (ours)"
@@ -694,16 +758,24 @@ def _trainer(method, cfg, dev):
     and the ``learn_embedding`` arguments of an unexported epoch."""
     import torch
 
-    from ctgcn_torch.training.driver import build_trainer, get_data_loader
+    from ctgcn_torch.training.driver import (SUPERVISED_TYPES, build_trainer,
+                                             get_data_loader)
 
     args = dict(cfg)
     loader = get_data_loader(args)
-    trainer = build_trainer(method, args, loader, 0, args["duration"], dev,
+    # S-link-dy's last snapshot only gives edges
+    dy = args["learning_type"] == "S-link-dy"
+    time_length = min(args["duration"], loader.max_time_num - dy)
+    trainer = build_trainer(method, args, loader, 0, time_length, dev,
                             torch.Generator().manual_seed(0))
     torch.cuda.synchronize()
-    return trainer, dict(batch_size=args["batch_size"], lr=args["lr"],
-                         weight_decay=args["weight_decay"], model_file=None,
-                         export=False, verbose=False)
+    kw = dict(lr=args["lr"], weight_decay=args["weight_decay"],
+              model_file=None, export=False, verbose=False)
+    if args["learning_type"] in SUPERVISED_TYPES:
+        kw["classifier_file"] = None
+    else:
+        kw["batch_size"] = args["batch_size"]
+    return trainer, kw
 
 
 def phase_profile(path, method, cfg, dev, epochs=2):
@@ -774,10 +846,18 @@ PATHS = {
                       ("bsr_spmm_blockpar",)),
     "uci_cgcn_c": ("uci_cgcn_c", "CGCN-C", "blocks", ()),
     "uci_cgcn_s": ("uci_cgcn_s", "CGCN-S", "blocks", ()),
+    "aa_snode": ("aa_snode", "CTGCN-C", "blocks", ()),
+    "aa_sedge": ("aa_sedge", "CTGCN-C", "blocks", ()),
+    "as_ctgcn_s_slink": ("as_ctgcn_s_slink", "CTGCN-S", "ell",
+                         tuple(F32_KERNELS)),
+    "uci_slink_dy": ("uci_slink_dy", "CTGCN-C", "pallas", tuple(F32_KERNELS)),
 }
-#: the paths profiled, with their epochs under the profiler
+#: the paths profiled, with their epochs under the profiler (aa_snode's
+#: 52,000 launches an epoch take the profiler minutes to sum; aa_sedge
+#: runs the same model)
 PROFILED = {"uci_auto": 2, "uci_pallas": 2, "as_auto": 2, "as_ctgcn_s": 2,
-            "as_bf16": 2, "enron_bf16": 1, "uci_cgcn_c": 2, "uci_cgcn_s": 2}
+            "as_bf16": 2, "enron_bf16": 1, "uci_cgcn_c": 2, "uci_cgcn_s": 2,
+            "aa_snode": 1, "as_ctgcn_s_slink": 2, "uci_slink_dy": 2}
 
 
 def _write_config(path, method, pre, emb):
@@ -792,9 +872,10 @@ def _write_config(path, method, pre, emb):
 def run_path(path, cfg, method, backend, kernels, dev):
     """The embedding task of ``cfg`` through the CLI, with the launch
     counters set to 0 just before and read just after.  Checks that
-    ``backend`` ran in every window, the losses are finite and (when the
-    config exports) every embedding CSV holds every node; that each kernel
-    of ``kernels`` was launched and no other.  Returns the launch counts
+    ``backend`` ran in every window, the losses are finite, (when the
+    config exports) every embedding CSV holds every node and (for a
+    supervised type) the test accuracy and AUC lie in [0, 1]; that each
+    kernel of ``kernels`` was launched and no other.  Returns the launch counts
     and the window results."""
     import numpy as np
     import torch
@@ -838,17 +919,30 @@ def run_path(path, cfg, method, backend, kernels, dev):
                     or not np.isfinite(arr).all()):
                 raise AssertionError(f"{path}: embedding {f}: {arr.shape}")
             shapes.append(list(arr.shape))
-        if len(shapes) != emb["duration"] * len(results):
+        if len(shapes) != sum(r["time_length"] for r in results):
             raise AssertionError(f"{path}: {len(shapes)} embedding CSVs")
+    supervised = {}
+    if "acc_test" in results[0]:
+        # the supervised types' test results, and the splits' host time
+        supervised = {k: [r[k] for r in results] for k in (
+            "split_seconds", "acc_val", "best_acc_val", "acc_test",
+            "auc_test")}
+        if not all(0.0 <= r["acc_test"] <= 1.0 and 0.0 <= r["auc_test"]
+                   <= 1.0 for r in results):
+            raise AssertionError(f"{path}: test accuracy / AUC "
+                                 f"{supervised['acc_test']} / "
+                                 f"{supervised['auc_test']}")
     _phase("path", path=path, method=method, core_backend=backend,
+           learning_type=emb["learning_type"],
            matmul_precision=emb.get("matmul_precision", "highest"),
            windows=len(results), seconds=wall,
+           time_length=[r["time_length"] for r in results],
            setup_seconds=[r["setup_seconds"] for r in results],
            train_seconds=[r["cost_time"] for r in results],
            epoch_seconds=[r["epoch_seconds"] for r in results],
            export_seconds=[r["export_seconds"] for r in results],
            losses=losses, launches=launches, max_memory_allocated=peak,
-           embedding_csvs=shapes)
+           embedding_csvs=shapes, **supervised)
     return launches, results
 
 
@@ -964,6 +1058,37 @@ def phase_quality(base, device):
     return methods
 
 
+def phase_quality_snode(aa, device, path_results):
+    """aa_snode (``configs/america-air.json`` CTGCN-C under S-node, 50
+    epochs) for each seed of ``AA_SNODE_SEEDS``: seed 0 is the aa_snode
+    path's run (the config's seed), the others are trained on the
+    preprocessed America-Air copy ``aa``; the mean test accuracy must not
+    fall more than ``AA_SNODE_MARGIN`` under the JAX package's,
+    ``AA_SNODE_JAX_ACC``."""
+    import numpy as np
+
+    with open(ROOT / "configs" / "america-air.json") as fp:
+        conf = json.load(fp)
+    runs = {}
+    for seed in AA_SNODE_SEEDS:
+        if seed == conf["embedding"]["CTGCN-C"].get("seed", 0):
+            seconds, results = None, path_results
+        else:
+            seconds, results = _train(aa, f"aa_snode-s{seed}", conf, device,
+                                      learning_type="S-node", seed=seed)
+        runs[seed] = {"seconds": seconds, "epochs": len(results[0]["losses"]),
+                      "acc_test": results[0]["acc_test"],
+                      "auc_test": results[0]["auc_test"],
+                      "best_acc_val": results[0]["best_acc_val"]}
+    mean = float(np.mean([r["acc_test"] for r in runs.values()]))
+    gate = AA_SNODE_JAX_ACC - AA_SNODE_MARGIN
+    _phase("quality", path="aa_snode", runs=runs, mean_acc_test=mean,
+           jax_mean_acc_test=AA_SNODE_JAX_ACC, gate=gate)
+    if not mean >= gate:
+        raise AssertionError(f"aa_snode: mean test accuracy {mean:.4f} "
+                             f"below the gate {gate:.4f}")
+
+
 def _check_record(task, path, rows, lo, hi):
     """A record's values: ``rows`` dates, each value finite in [lo, hi]."""
     import math
@@ -982,8 +1107,8 @@ def phase_eval(uci, method, aa, device):
     """``cent_pred`` and ``sim_pred`` of ``configs/uci.json`` on
     ``method``'s UCI embeddings (all 7 snapshots); ``node_cls`` and
     ``edge_cls`` of ``configs/america-air.json`` (rep 0) on a CTGCN-C
-    trained for ``AA_EPOCHS`` epochs on a preprocessed copy of America-Air
-    at ``aa``."""
+    trained for ``AA_EPOCHS`` epochs on the preprocessed copy of
+    America-Air at ``aa``."""
     with open(ROOT / "configs" / "uci.json") as fp:
         conf = json.load(fp)
     for task, res, col_range in (
@@ -999,19 +1124,10 @@ def phase_eval(uci, method, aa, device):
                seconds=time.time() - t0, **timing, record=record,
                checked=f"7 dates, every value finite in {list(col_range)}")
 
-    src = ROOT / "data" / "america_air"
-    for folder in ("1.format", "nodes_set", "nodes_label", "edges_label"):
-        shutil.copytree(src / folder, aa / folder)
     with open(ROOT / "configs" / "america-air.json") as fp:
         conf = json.load(fp)
-    pre = dict(conf["preprocessing"]["CTGCN-C"], base_path=str(aa))
-    t0 = time.time()
-    _cli({"_path": aa / "pre.json", "preprocessing": {"CTGCN-C": pre}},
-         "preprocessing", device, "CTGCN-C")
-    pre_s = time.time() - t0
     train_s, results = _train(aa, "CTGCN-C", conf, device, epoch=AA_EPOCHS)
-    _phase("eval", data="america_air", preprocess_seconds=pre_s,
-           train_seconds=train_s,
+    _phase("eval", data="america_air", train_seconds=train_s,
            core_backend=[r["core_backend"] for r in results],
            losses=[l for r in results for l in r["losses"]])
     for task, res in (("node_cls", "nodecls_res_0"),
@@ -1096,7 +1212,8 @@ def main():
     if not ((ROOT / "ctgcn_torch" / "csrc").is_dir()
             and (ROOT / "configs" / "uci.json").is_file()
             and (ROOT / "data" / "uci" / "1.format").is_dir()
-            and (ROOT / "data" / "america_air" / "edges_label").is_dir()
+            and all((ROOT / "data" / "america_air" / f).is_dir()
+                    for f in ("nodes_label", "edges_label"))
             and all((ROOT / "data" / "as" / "1.format" / f).is_file()
                     for f in AS_SNAPSHOTS)
             and all((ROOT / "data" / "enron" / "1.format" / f).is_file()
@@ -1128,22 +1245,26 @@ def main():
     try:
         from ctgcn_torch import main as cli
 
-        # 2. preprocessing on temporary copies of data/uci and of the first
-        # AS and Enron snapshots
+        # 2. preprocessing on temporary copies of data/uci, of the first
+        # AS and Enron snapshots and of data/america_air (with its labels)
         cfgs, confs = {}, {}
-        for name, files, epochs in (("uci", None, EPOCHS),
-                                    ("as", AS_SNAPSHOTS, EPOCHS),
-                                    ("enron", ENRON_SNAPSHOTS, ENRON_EPOCHS)):
+        for name, conf_name, files, extra, epochs in (
+                ("uci", "uci", None, (), EPOCHS),
+                ("as", "as", AS_SNAPSHOTS, (), EPOCHS),
+                ("enron", "enron", ENRON_SNAPSHOTS, (), ENRON_EPOCHS),
+                ("america_air", "america-air", None,
+                 ("nodes_label", "edges_label"), AA_EPOCHS)):
             base = work / name
             src = ROOT / "data" / name
-            shutil.copytree(src / "nodes_set", base / "nodes_set")
+            for folder in ("nodes_set",) + extra:
+                shutil.copytree(src / folder, base / folder)
             if files is None:
                 shutil.copytree(src / "1.format", base / "1.format")
             else:
                 (base / "1.format").mkdir(parents=True)
                 for f in files:
                     shutil.copy(src / "1.format" / f, base / "1.format" / f)
-            with open(ROOT / "configs" / f"{name}.json") as fp:
+            with open(ROOT / "configs" / f"{conf_name}.json") as fp:
                 confs[name] = conf = json.load(fp)
             pre = dict(conf["preprocessing"]["CTGCN-C"], base_path=str(base))
             emb = dict(conf["embedding"]["CTGCN-C"], base_path=str(base),
@@ -1153,7 +1274,11 @@ def main():
             t0 = time.time()
             cli.main([f"--config={cfgs[name][0]}", "--task=preprocessing",
                       "--method=CTGCN-C"])
-            _phase("preprocess", data=name, seconds=time.time() - t0)
+            _phase("preprocess", data=name, seconds=time.time() - t0,
+                   walks="native", host_cpus=os.cpu_count(),
+                   numpy_walks_seconds_before=NUMPY_PREPROCESS_SECONDS.get(
+                       name))
+        _phase("preprocess", **phase_core_numbers(work / "uci"))
 
         def variant(name, data, method, **change):
             """A config of ``method`` from configs/<data>.json as written,
@@ -1176,6 +1301,21 @@ def main():
         for method in ("CGCN-C", "CGCN-S"):
             variant(f"uci_{method.lower().replace('-', '_')}", "uci", method,
                     end_idx=1, epoch=2)
+        # the supervised types: configs as written but the learning type
+        # (and the outputs' names, and the cuts of epochs)
+        variant("aa_snode", "america_air", "CTGCN-C", learning_type="S-node",
+                embed_folder="2.embedding/aa_snode", model_file="aa_snode")
+        variant("aa_sedge", "america_air", "CTGCN-C", learning_type="S-edge",
+                elabel_folder="edges_label", epoch=5,
+                embed_folder="2.embedding/aa_sedge", model_file="aa_sedge")
+        variant("as_ctgcn_s_slink", "as", "CTGCN-S",
+                learning_type="S-link-st", epoch=EPOCHS,
+                embed_folder="2.embedding/CTGCN-S-slink",
+                model_file="ctgcn-s-slink")
+        variant("uci_slink_dy", "uci", "CTGCN-C", learning_type="S-link-dy",
+                core_backend="pallas", epoch=EPOCHS,
+                embed_folder="2.embedding/CTGCN-C-slink-dy",
+                model_file="ctgcn-c-slink-dy")
 
         # 3. kernels at the paths' shapes, and small-model parity
         kernels = phase_kernels(cfgs["uci_pallas"][2], dev)
@@ -1213,6 +1353,7 @@ def main():
             getattr(B, name).launches = 0
         t0 = time.time()
         methods = phase_quality(work / "uci", "cuda")
+        phase_quality_snode(work / "america_air", "cuda", results["aa_snode"])
         phase_eval(work / "uci", methods[0], work / "america_air", "cuda")
         launches["evaluation"] = {name: getattr(B, name).launches
                                   for name in KERNELS}

@@ -90,15 +90,14 @@ def sorted_dir(path):
 
 def write_embedding_csv(path, arr, names, sep="\t"):
     """[N, d] float array -> CSV with a header row of column numbers and
-    the node name as the index (what ``pandas.DataFrame.to_csv`` writes).
-    ``%.9g`` round-trips float32 exactly."""
-    arr = np.asarray(arr, dtype=np.float32)
-    lines = [sep + sep.join(str(j) for j in range(arr.shape[1]))]
-    # one %-format call a row (the values as Python floats, which format as
-    # the float32 values do)
-    fmt = "%s" + sep + sep.join(["%.9g"] * arr.shape[1])
-    for name, row in zip(names, arr.tolist()):
-        lines.append(fmt % (name, *row))
+    the node name as the index, byte for byte what the JAX package's
+    ``pandas.DataFrame.to_csv`` writes for a float32 frame: each value as
+    the shortest string that reads back as the same float32 (numpy's
+    ``astype(str)``, e.g. ``1.7640524``, ``-0.0``, ``1e-05``)."""
+    cells = np.asarray(arr, dtype=np.float32).astype(str)
+    lines = [sep + sep.join(str(j) for j in range(cells.shape[1]))]
+    lines.extend(f"{name}{sep}{sep.join(row)}"
+                 for name, row in zip(names, cells.tolist()))
     with open(path, "w") as fp:
         fp.write("\n".join(lines) + "\n")
 

@@ -1,8 +1,9 @@
 # coding: utf-8
 """Window loaders (port of ``ctgcn_tpu/data/loader.py``, the parts the
 CGCN / CTGCN paths read): the k-core pyramid bank of a window on its core
-backend, the walk tables as CSR ``WalkData``, the raw adjacency, and the
-node features (file, or built from degrees for the S-variants).
+backend, the walk tables as CSR ``WalkData``, the raw adjacency and edge
+lists, the node features (file, or built from degrees for the
+S-variants), and the node and edge labels of the supervised types.
 
 Everything here is built on the host; the driver moves the results to the
 training device.
@@ -17,7 +18,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from ctgcn_torch.data.formats import get_sp_adj_mat, sorted_dir
+from ctgcn_torch.data.formats import get_sp_adj_mat, infer_names, sorted_dir
 from ctgcn_torch.losses import WalkData
 from ctgcn_torch.ops.pyramid import (attach_ell_plans, build_core_pyramid,
                                       stack_pyramids)
@@ -34,6 +35,7 @@ class DataLoader:
         self.max_time_num = max_time_num
         self.full_node_list = node_list
         self.node_num = len(node_list)
+        self.node2idx_dict = dict(zip(node_list, range(self.node_num)))
 
     def _window(self, start_idx, duration):
         return range(start_idx, min(start_idx + duration, self.max_time_num))
@@ -46,6 +48,46 @@ class DataLoader:
         return [get_sp_adj_mat(os.path.join(origin_base_path, f_list[i]),
                                self.full_node_list, sep=sep)
                 for i in self._window(start_idx, duration)]
+
+    def get_edge_list(self, origin_base_path, start_idx, duration, sep="\t"):
+        """int64 [2, E_t] (row, col) of each snapshot's symmetric
+        adjacency, both directions, in its COO order."""
+        return [np.stack([m.row, m.col]).astype(np.int64)
+                for m in self.get_scipy_adj_list(origin_base_path, start_idx,
+                                                 duration, sep=sep)]
+
+    def _label_list(self, label_base_path, start_idx, duration, sep,
+                    n_ids):
+        """Rows of the window's label files (a header row, then ``n_ids``
+        node names and a label a row) as int64 [rows, n_ids + 1] arrays of
+        node indices and label, and the number of distinct labels across
+        the window."""
+        files = sorted_dir(label_base_path)
+        out, labels_seen = [], set()
+        for i in self._window(start_idx, duration):
+            with open(os.path.join(label_base_path, files[i])) as fp:
+                rows = [line.split(sep)
+                        for line in fp.read().splitlines()[1:] if line != ""]
+            cols = [[self.node2idx_dict[v]
+                     for v in infer_names([r[j] for r in rows])]
+                    for j in range(n_ids)]
+            labels = [int(r[n_ids]) for r in rows]
+            labels_seen.update(labels)
+            out.append(np.array(cols + [labels], np.int64).T.reshape(
+                len(rows), n_ids + 1))
+        return out, len(labels_seen)
+
+    def get_node_label_list(self, nlabel_base_path, start_idx, duration,
+                            sep="\t"):
+        """Per snapshot int64 [n, 2] (node index, label), and the number
+        of classes seen in the window."""
+        return self._label_list(nlabel_base_path, start_idx, duration, sep, 1)
+
+    def get_edge_label_list(self, elabel_base_path, start_idx, duration,
+                            sep="\t"):
+        """Per snapshot int64 [e, 3] (from index, to index, label), and the
+        number of classes seen in the window."""
+        return self._label_list(elabel_base_path, start_idx, duration, sep, 2)
 
     def get_feature_list(self, feature_base_path, start_idx, duration,
                          sep="\t"):

@@ -9,7 +9,10 @@ the same name in ``ctgcn_torch.nn.core_models``.  CTGCN's per-timestep
 ``mlps``/``cdns`` leaves carry a leading [T] axis there and become one
 module per timestep here; CGCN's shared ``mlp``/``cdn`` map as they are.
 Layouts match without transposes: ``Linear.weight`` is [in, out] in both
-packages and the RNN cells use torch's gate layout in both.
+packages and the RNN cells use torch's gate layout in both.  The trees of
+the JAX heads ``MLPClassifier`` and ``EdgeClassifier`` map as they are onto
+``ctgcn_torch.nn.heads``'s (``mlp.layers.<i>.*``,
+``classifier.mlp.layers.<i>.*``).
 """
 from __future__ import annotations
 
@@ -30,8 +33,8 @@ def _flatten(tree, prefix=""):
 
 
 def params_from_numpy(tree):
-    """JAX CTGCN / CGCN parameter tree (nested dicts of arrays) ->
-    state_dict."""
+    """JAX CTGCN / CGCN / MLPClassifier / EdgeClassifier parameter tree
+    (nested dicts of arrays) -> state_dict."""
     state = {}
     for name, arr in _flatten(tree).items():
         head, _, rest = name.partition(".")

@@ -1,6 +1,7 @@
 # coding: utf-8
-"""Skip-gram negative-sampling loss, and the reconstruction loss of the
-S-variants (port of ``ctgcn_tpu/losses.py``).
+"""Skip-gram negative-sampling loss, the reconstruction loss of the
+S-variants, and the classification loss of the supervised learning types
+(port of ``ctgcn_tpu/losses.py``).
 
 The sampler and the loss arithmetic are separate functions, so a test can
 hand both packages the same indices:
@@ -122,3 +123,31 @@ def reconstruction_loss(embs, trans, batch_idx=None, batch_mask=None):
     mask = batch_mask.to(diff2.dtype)
     cnt = torch.clamp(mask.sum(), min=1) * embs.shape[-1]
     return ((diff2 * mask[None, :, None]).sum(dim=(1, 2)) / cnt).sum()
+
+
+def classification_loss(preds, labels, mask=None):
+    """Cross-entropy of [T, B, C] class logits, or binary cross-entropy of
+    [T, B] logits (``softplus(p) - p * y``), and the accuracy: each a mean
+    over a timestamp's masked-in slots (at least one counted), the losses
+    summed over T and the accuracies averaged.
+
+    Args:
+      labels: [T, B] class ids, or 0/1 for binary logits.
+      mask: optional bool [T, B] of the slots that hold an item.
+    Returns (loss, accuracy), scalar tensors; the AUC comes from the
+    logits on the host."""
+    if preds.dim() == 2:
+        y = labels.to(preds.dtype)
+        per = F.softplus(preds) - preds * y
+        correct = (preds > 0) == (y > 0.5)
+    else:
+        y = labels.long()
+        per = -F.log_softmax(preds, dim=-1).gather(-1, y[..., None])[..., 0]
+        correct = preds.argmax(dim=-1) == y
+    correct = correct.to(preds.dtype)
+    if mask is None:
+        return per.mean(dim=1).sum(), correct.mean(dim=1).mean()
+    m = mask.to(preds.dtype)
+    cnt = torch.clamp(m.sum(dim=1), min=1)
+    return ((per * m).sum(dim=1) / cnt).sum(), ((correct * m).sum(dim=1)
+                                                / cnt).mean()

@@ -4,7 +4,10 @@
     python -m ctgcn_torch.main --config=<json> --task=<task> \
         [--method=<M>] [--device=cuda|cpu]
 
-Tasks: ``preprocessing`` and ``embedding`` (CTGCN-C, U-neg), and the five
+Tasks: ``preprocessing`` (k-core pyramids and walk tables, on the native
+host-graph kernels) and ``embedding`` (CGCN-C, CGCN-S, CTGCN-C and
+CTGCN-S under the config's learning type: U-neg, U-own for the
+S-variants, S-node, S-edge, S-link-st or S-link-dy), and the five
 evaluation tasks ``link_pred``, ``node_cls``, ``edge_cls``, ``cent_pred``
 and ``sim_pred``, whose fits, metrics and centralities run on the device.
 The device defaults to ``cuda``; without a GPU the run stops unless

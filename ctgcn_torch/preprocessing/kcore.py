@@ -1,8 +1,10 @@
 # coding: utf-8
-"""K-core decomposition as a vectorized array program.
+"""K-core decomposition.
 
-Core numbers come from vectorized bucket peeling on the CSR structure, and
-each k-core subgraph is the induced weighted submatrix on
+Core numbers come from the native bucket-queue peel (``ctgcn_torch.native``,
+as the JAX package's preprocessing runs it); the vectorized numpy peel
+beside it is the reference that tests and ``chip_smoke.py`` hold it
+against.  Each k-core subgraph is the induced weighted submatrix on
 ``{v : core(v) >= k}``, so one peeling pass serves every k.  Artifacts:
 ``<core_folder>/<date>/<k>.npz`` scipy matrices over the full node list,
 file names zero-padded to the max core width.
@@ -14,6 +16,7 @@ import os
 import numpy as np
 import scipy.sparse as sp
 
+from ctgcn_torch import native
 from ctgcn_torch.data.formats import get_sp_adj_mat, read_node_list, sorted_dir
 from ctgcn_torch.utils import check_and_make_path, get_format_str
 
@@ -31,11 +34,21 @@ def _csr_rows_concat(indptr, indices, rows):
     return indices[flat]
 
 
-def core_numbers(adj) -> np.ndarray:
-    """O(E) k-core peeling by degree waves (weights ignored; isolated
-    nodes get core 0)."""
+def _structure(adj):
     A = adj.tocsr().astype(bool).astype(np.int8)
     A.eliminate_zeros()
+    return A
+
+
+def core_numbers(adj) -> np.ndarray:
+    """Exact k-core numbers by the native bucket-queue peel (weights
+    ignored; isolated nodes get core 0)."""
+    return native.core_numbers(_structure(adj))
+
+
+def peel_core_numbers(adj) -> np.ndarray:
+    """The same numbers in numpy: O(E) peeling by degree waves."""
+    A = _structure(adj)
     indptr, indices = A.indptr, A.indices
     n = A.shape[0]
     deg = np.diff(indptr).astype(np.int64)

@@ -1,13 +1,16 @@
 # coding: utf-8
-"""Random-walk structure generation, vectorized.
+"""Random-walk structure generation.
 
-All ``node_num * walk_time`` walks advance in lockstep: one vectorized
+The walks come from the native kernel (``ctgcn_torch.native``), one
+splitmix64 stream a walk from a 64-bit seed, as the JAX package's
+preprocessing draws them; the same seed gives both packages the same walks.
+A caller that passes a numpy generator gets the vectorized numpy sampler
+instead: all ``node_num * walk_time`` walks advance in lockstep, one
 inverse-CDF sample per hop over each row's CSR transition CDF (the walkers
 and the CDF entries merged in one sort, so no [walks, max degree] table is
 formed: at Enron's hub degree, 1147, that table holds 1.74 M walks × 1147
-float64 CDF values, 16 GB a hop), then a single vectorized intra-walk pair
-expansion.  Every draw comes from the
-numpy generator the caller passes, so a run is reproducible from its seed.
+float64 CDF values, 16 GB a hop).  Either way a single vectorized
+intra-walk pair expansion follows.
 
 Artifacts:
   * ``<walk_pair_folder>/<date>.npz`` -- binary symmetric co-occurrence
@@ -24,21 +27,27 @@ import os
 import numpy as np
 import scipy.sparse as sp
 
+from ctgcn_torch import native
 from ctgcn_torch.data.formats import get_sp_adj_mat, read_node_list, sorted_dir
 from ctgcn_torch.utils import check_and_make_path
 
 
-def simulate_walks(adj, walk_length, walk_time, rng, weighted=True):
+def simulate_walks(adj, walk_length, walk_time, rng=None, weighted=True,
+                   seed=0):
     """Run ``walk_time`` walks of ``walk_length + 1`` nodes from every node.
 
     A walk from an isolated node stays in place; self-pairs are discarded
     downstream, so this equals stopping the walk.
 
     Args:
-      rng: numpy ``RandomState`` or ``Generator``; one ``rng.random(n)``
-        draw per hop.
+      rng: ``None`` for the native kernel, seeded with ``seed`` (a 64-bit
+        unsigned int); else a numpy ``RandomState`` or ``Generator`` for
+        the numpy sampler, one ``rng.random(n)`` draw per hop.
     Returns int32[n_walks, walk_length + 1] node ids.
     """
+    if rng is None:
+        return native.simulate_walks(adj.tocsr(), walk_length, walk_time,
+                                     seed, weighted=weighted)
     A = adj.tocsr()
     n = A.shape[0]
     indptr = A.indptr.astype(np.int64)
@@ -129,10 +138,11 @@ def negative_sampling_list(freq, Z=1e-5):
 
 
 def random_walk(spadj, walk_dir_path, freq_dir_path, f_name, walk_length,
-                walk_time, weighted, rng):
-    """Single-snapshot walk job writing both artifacts."""
-    walks = simulate_walks(spadj, walk_length, walk_time, rng,
-                           weighted=weighted)
+                walk_time, weighted, seed):
+    """Single-snapshot walk job (native walks from ``seed``) writing both
+    artifacts."""
+    walks = simulate_walks(spadj, walk_length, walk_time, weighted=weighted,
+                           seed=seed)
     pair_mat, freq = walk_pairs_and_freq(walks, spadj.shape[0])
     base = f_name.split(".")[0]
     with open(os.path.join(freq_dir_path, base + ".json"), "w") as fp:
@@ -140,9 +150,19 @@ def random_walk(spadj, walk_dir_path, freq_dir_path, f_name, walk_length,
     sp.save_npz(os.path.join(walk_dir_path, base + ".npz"), pair_mat.tocoo())
 
 
+def snapshot_seed(seed, i):
+    """The 64-bit walk seed of snapshot ``i`` (in file order) of a run
+    seeded with ``seed``."""
+    return int(np.random.SeedSequence((seed, i)).generate_state(
+        1, np.uint64)[0])
+
+
 class WalkGenerator:
-    """Per-snapshot walk generation; snapshot ``i`` draws from
-    ``np.random.default_rng((seed, i))``."""
+    """Per-snapshot walk generation; snapshot ``i`` walks from
+    ``snapshot_seed(seed, i)``, so a run is reproducible from the config's
+    ``seed``.  The JAX package draws each snapshot's seed from the
+    unseeded global ``np.random``; its walk tree equals this one exactly
+    when it is given the same per-snapshot seeds."""
 
     def __init__(self, base_path, origin_folder, walk_pair_folder,
                  node_freq_folder, node_file, walk_time=100, walk_length=5,
@@ -170,4 +190,4 @@ class WalkGenerator:
             random_walk(spadj, self.walk_pair_base_path,
                         self.node_freq_base_path, f_name, self.walk_length,
                         self.walk_time, self.weighted,
-                        np.random.default_rng((self.seed, i)))
+                        snapshot_seed(self.seed, i))

@@ -1,16 +1,30 @@
 # coding: utf-8
 """Embedding-task driver (port of ``ctgcn_tpu/training/driver.py`` for the
-CTGCN family: CGCN-C, CGCN-S, CTGCN-C and CTGCN-S, with the U-neg and
-U-own learning types).
+CTGCN family: CGCN-C, CGCN-S, CTGCN-C and CTGCN-S, under the learning
+types U-neg, U-own, S-node, S-edge, S-link-st and S-link-dy).
 
 Per window: load the k-core pyramids (on the config's ``core_backend``,
-``"auto"`` by default, at its ``matmul_precision``), the node features
-(file features, identity, or degree features for the S-variants) and, for
-U-neg, the walk tables; build a fresh model, train it with the
-negative-sampling loss (U-neg) or the reconstruction loss (U-own), export
-the per-timestamp embedding CSVs (the S-variants export the structure
-embedding, as the JAX package does), and record the window's training
-seconds in ``<base_path>/<method>_time.csv`` after every window.
+``"auto"`` by default, at its ``matmul_precision``) and the node features
+(file features, identity, or degree features for the S-variants), build a
+fresh model, train it, export the per-timestamp embedding CSVs (the
+S-variants export the structure embedding, as the JAX package does), and
+record the window's training seconds in ``<base_path>/<method>_time.csv``
+after every window.
+
+  * U-neg: the walk tables and the negative-sampling loss; U-own (the
+    S-variants): the reconstruction loss.  ``UnsupervisedEmbedding``.
+  * S-node / S-edge: the label files, an ``MLPClassifier`` /
+    ``EdgeClassifier`` head and the cross-entropy; S-link-st / S-link-dy:
+    the window's edges with sampled non-edges, scored by the inner product
+    under the binary cross-entropy (S-link-dy predicts snapshot t's edges
+    from the embedding of t - 1, so its windows step by ``duration - 1``
+    and the last snapshot only gives edges).  The S-variants add the
+    reconstruction loss over all rows.  ``SupervisedEmbedding``.
+
+The window's numpy ``RandomState(seed)`` draws the degree features and then
+the link splits, in the order the JAX package draws them from the global
+``np.random``; the classifier's parameters come from a generator seeded
+with the window's seed + 1000.
 
 The JAX driver's memory knobs, which it reads from ``CTGCN_TPU_*``
 environment variables, reach the model as constructor arguments here:
@@ -29,18 +43,24 @@ import torch
 
 from ctgcn_torch.data.formats import read_node_list, write_time_csv
 from ctgcn_torch.data.loader import DataLoader
-from ctgcn_torch.losses import negative_sampling_loss, reconstruction_loss
+from ctgcn_torch.losses import (classification_loss, negative_sampling_loss,
+                                reconstruction_loss)
 from ctgcn_torch.nn.core_models import (ACT_BUDGET, CGCN, CORE_RNN_BUDGET,
                                         CTGCN)
+from ctgcn_torch.nn.heads import EdgeClassifier, MLPClassifier, inner_product
 from ctgcn_torch.ops.rnn import CVJP_BATCH_BUDGET
-from ctgcn_torch.training.engine import UnsupervisedEmbedding
+from ctgcn_torch.training.engine import (SupervisedEmbedding,
+                                         UnsupervisedEmbedding)
+from ctgcn_torch.training.splits import (binary_auc, build_label_splits,
+                                         build_link_splits, multiclass_auc)
 from ctgcn_torch.utils import resolve_device
 
 #: method -> model class
 PORTED_METHODS = {"CGCN-C": CGCN, "CGCN-S": CGCN, "CTGCN-C": CTGCN,
                   "CTGCN-S": CTGCN}
 S_VARIANTS = ("CGCN-S", "CTGCN-S")
-PORTED_LEARNING_TYPES = ("U-neg", "U-own")
+SUPERVISED_TYPES = ("S-node", "S-edge", "S-link-st", "S-link-dy")
+LEARNING_TYPES = ("U-neg", "U-own") + SUPERVISED_TYPES
 MATMUL_PRECISIONS = ("highest", "high", "bf16")
 
 
@@ -48,22 +68,22 @@ def _check_scope(method, args):
     if method not in PORTED_METHODS:
         raise NotImplementedError(
             f"method {method!r} is not ported yet (ROADMAP.md queue 1: "
-            "the model zoo, item 12)")
+            "the model zoo)")
     lt = args["learning_type"]
-    if lt not in PORTED_LEARNING_TYPES:
-        raise NotImplementedError(
-            f"learning_type {lt!r} is not ported yet (ROADMAP.md queue 1: "
-            "supervised types, item 10)")
+    if lt not in LEARNING_TYPES:
+        raise ValueError(f"learning_type {lt!r}, not one of "
+                         f"{LEARNING_TYPES}")
     if lt == "U-own" and method not in S_VARIANTS:
         raise ValueError(f"U-own is defined for the S-variants, not "
                          f"{method}")
     if args.get("remat_policy", "full") != "full":
         raise NotImplementedError(
-            "remat_policy 'save_spmm' is not ported yet; only 'full'")
+            "remat_policy 'save_spmm' is not ported yet; only 'full' "
+            "(ROADMAP.md queue 1: CoreDiffusion's memory knobs)")
     if args.get("n_devices", 0) > 1:
         raise NotImplementedError(
-            "multi-device runs are not ported yet (ROADMAP.md queue 1, "
-            "item 13)")
+            "multi-device runs are not ported yet (ROADMAP.md queue 1: "
+            "multi-device)")
     prec = args.get("matmul_precision", "highest")
     if prec not in MATMUL_PRECISIONS:
         raise ValueError(f"matmul_precision {prec!r}, not one of "
@@ -173,19 +193,118 @@ def _embed_trans(model, data):
     return model(data["xs"], data["adjs"])[1]
 
 
+def _supervised_forward(learning_type, s_variant):
+    """forward_fn of ``SupervisedEmbedding``: the window's embeddings (the
+    node embedding of an S-variant), then the head's logits for the
+    split's items; aux is (embeddings, structure embedding or None)."""
+    drop_last = learning_type == "S-link-dy"
+
+    def forward_fn(model, classifier, data, items):
+        res = model(data["xs"], data["adjs"])
+        embs, trans = res if s_variant else (res, None)
+        if learning_type == "S-node":
+            preds = classifier(embs, items)
+        elif learning_type == "S-edge":
+            preds = classifier(embs, items.transpose(1, 2))
+        else:
+            preds = inner_product(embs[:-1] if drop_last else embs,
+                                  items.transpose(1, 2))
+        return preds, (embs, trans)
+
+    return forward_fn
+
+
+def _supervised_loss(s_variant):
+    """loss_fn of ``SupervisedEmbedding``: the classification loss, plus
+    the reconstruction loss over all rows for an S-variant."""
+    def loss_fn(preds, labels, mask, aux):
+        loss, acc = classification_loss(preds, labels, mask=mask)
+        if s_variant:
+            loss = loss + reconstruction_loss(*aux)
+        return loss, acc
+
+    return loss_fn
+
+
+def _supervised_parts(method, args, data_loader, idx, time_length, rng,
+                      seed):
+    """(classifier, forward_fn, loss_fn, auc_fn, host splits) of the
+    config's supervised learning type for one window; the classifier's
+    parameters come from a generator seeded ``seed + 1000``, the link
+    splits from ``rng``."""
+    lt = args["learning_type"]
+    s_variant = method in S_VARIANTS
+    base_path = args["base_path"]
+    sep = args.get("file_sep", "\t")
+    ratios = (args["train_ratio"], args["val_ratio"], args["test_ratio"])
+    classifier = None
+    if lt in ("S-node", "S-edge"):
+        node = lt == "S-node"
+        folder = args["nlabel_folder" if node else "elabel_folder"]
+        get = (data_loader.get_node_label_list if node
+               else data_loader.get_edge_label_list)
+        labels, n_class = get(os.path.abspath(os.path.join(base_path,
+                                                           folder)),
+                              idx, time_length, sep=sep)
+        head = MLPClassifier if node else EdgeClassifier
+        embed_dim = args["embed_dim"]
+        classifier = head(embed_dim, args.get("cls_hid_dim", embed_dim),
+                          n_class, args.get("cls_layer_num", 1),
+                          bias=args.get("cls_bias", True),
+                          activate_type=args.get("cls_activate_type", "N"),
+                          generator=torch.Generator().manual_seed(seed
+                                                                  + 1000))
+        splits = build_label_splits(labels, *ratios, is_edge=not node)
+        auc_fn = functools.partial(multiclass_auc, n_class=n_class)
+    else:
+        edge_list = data_loader.get_edge_list(args["origin_base_path"], idx,
+                                              time_length, sep=sep)
+        splits = build_link_splits(edge_list, data_loader.node_num, *ratios,
+                                   lt, rng)
+        auc_fn = binary_auc
+    return (classifier, _supervised_forward(lt, s_variant),
+            _supervised_loss(s_variant), auc_fn, splits)
+
+
 def build_trainer(method, args, data_loader, idx, time_length, device,
-                  generator, rng=None):
+                  generator, rng=None, seed=0):
     """The window's inputs on ``device``, a fresh model drawn from
     ``generator``, and the trainer of the config's learning type over
-    them; ``rng`` (numpy ``RandomState``) draws degree features."""
+    them.  ``rng`` (numpy ``RandomState``, by default one seeded with
+    ``seed``) draws the degree features, then the link splits; ``seed`` is
+    the window's (it seeds the classifier).  A supervised trainer carries
+    the seconds its splits took to build as ``split_seconds``."""
     base_path = args["base_path"]
+    rng = rng if rng is not None else np.random.RandomState(seed)
     input_dim, pyramids, xs = get_input_data(method, idx, time_length,
                                              data_loader, args, rng=rng)
     args["input_dim"] = input_dim
     data = {"adjs": pyramids.to(device),
             "xs": None if xs is None else xs.to(device)}
     s_variant = method in S_VARIANTS
-    if args["learning_type"] == "U-neg":
+    lt = args["learning_type"]
+    common = dict(
+        base_path=base_path, origin_folder=args["origin_folder"],
+        embedding_folder=args["embed_folder"],
+        node_list=data_loader.full_node_list,
+        embed_fn=_embed_trans if s_variant else _embed, data=data,
+        device=device, model_folder=args.get("model_folder", "model"),
+        file_sep=args.get("file_sep", "\t"))
+    if lt in SUPERVISED_TYPES:
+        t0 = time.time()
+        classifier, forward_fn, loss_fn, auc_fn, splits = _supervised_parts(
+            method, args, data_loader, idx, time_length, rng, seed)
+        split_seconds = time.time() - t0
+        model = get_gnn_model(method, time_length, args, generator).to(device)
+        trainer = SupervisedEmbedding(
+            model=model,
+            classifier=None if classifier is None else classifier.to(device),
+            forward_fn=forward_fn, loss_fn=loss_fn, auc_fn=auc_fn,
+            splits={k: tuple(a.to(device) for a in v)
+                    for k, v in splits.items()}, **common)
+        trainer.split_seconds = split_seconds
+        return trainer
+    if lt == "U-neg":
         data["walk"] = data_loader.get_walk_data(
             os.path.abspath(os.path.join(base_path,
                                          args["walk_pair_folder"])),
@@ -196,27 +315,24 @@ def build_trainer(method, args, data_loader, idx, time_length, device,
     else:
         loss_fn = _recon_loss_fn
     model = get_gnn_model(method, time_length, args, generator).to(device)
-    return UnsupervisedEmbedding(
-        base_path=base_path, origin_folder=args["origin_folder"],
-        embedding_folder=args["embed_folder"],
-        node_list=data_loader.full_node_list, model=model,
-        loss_fn=loss_fn, embed_fn=_embed_trans if s_variant else _embed,
-        data=data, device=device,
-        model_folder=args.get("model_folder", "model"),
-        file_sep=args.get("file_sep", "\t"))
+    return UnsupervisedEmbedding(model=model, loss_fn=loss_fn, **common)
 
 
 def gnn_embedding(method, args, device="cuda"):
     """Run the embedding task over all windows of the config.
 
-    Returns one dict per window: ``idx``, ``setup_seconds`` (loading the
-    window and building its model, on the host clock) and what
-    ``UnsupervisedEmbedding.learn_embedding`` returns.
+    Returns one dict per window: ``idx``, ``time_length``,
+    ``setup_seconds`` (loading the window and building its model, on the
+    host clock; for the supervised types ``split_seconds`` of it built the
+    splits), ``core_backend`` and what the trainer's ``learn_embedding``
+    returns.
 
-    On the card every f32 GEMM runs in full f32 (the JAX package's
-    ``Precision.HIGHEST``): TF32 is turned off for the run and the
-    caller's setting restored after it; ``matmul_precision: "high"``
-    turns it on only around its bank GEMMs."""
+    On the card the GEMMs run in full FP32: TF32 is turned off for the run
+    and the caller's setting restored after it (``matmul_precision:
+    "high"`` turns it on only around its bank GEMMs).  That is stricter
+    than the JAX package on the TPU, which asks for ``Precision.HIGHEST``
+    only in the bank GEMMs and runs the GRU and ``Linear`` GEMMs at XLA's
+    default precision, one bf16 pass."""
     _check_scope(method, args)
     dev = resolve_device(device)
     prev_tf32 = torch.backends.cuda.matmul.allow_tf32
@@ -236,6 +352,7 @@ def _run_windows(method, args, dev):
     load_model = args.get("load_model", False)
     record_time = args.get("record_time", False)
     seed = args.get("seed", 0)
+    supervised = args["learning_type"] in SUPERVISED_TYPES
 
     data_loader = get_data_loader(args)
     max_time_num = data_loader.max_time_num
@@ -243,6 +360,14 @@ def _run_windows(method, args, dev):
         start_idx = max_time_num + start_idx
     end_idx = max_time_num + end_idx + 1 if end_idx < 0 else end_idx + 1
     step = duration
+    if args["learning_type"] == "S-link-dy":
+        # a window's last snapshot only gives the edges its embedding
+        # before predicts, and the next window starts there
+        if duration < 2 or end_idx - start_idx < 1:
+            raise ValueError(f"S-link-dy needs duration >= 2 (got "
+                             f"{duration}) and a snapshot to train on")
+        end_idx -= 1
+        step = duration - 1
 
     t_start = time.time()
     time_list, results = [], []
@@ -250,27 +375,37 @@ def _run_windows(method, args, dev):
           f"duration = {duration}")
     print(f"start {method} embedding! (ctgcn_torch on {dev})")
     gen = torch.Generator().manual_seed(seed)
-    # degree features: the JAX driver draws from the unseeded global
-    # np.random; here one stream from the config's seed
+    # degree features and link splits: the JAX driver draws them from the
+    # unseeded global np.random; here one stream from the config's seed
     rng = np.random.RandomState(seed)
     for widx, idx in enumerate(range(start_idx, end_idx, step)):
         print(f"idx = {idx}, duration = {duration}")
         time_length = min(idx + duration, end_idx) - idx
         t_setup = time.time()
         trainer = build_trainer(method, args, data_loader, idx, time_length,
-                                dev, gen, rng=rng)
+                                dev, gen, rng=rng, seed=seed + widx)
         setup_seconds = time.time() - t_setup
         # every window overwrites the same model file; only the last
         # window's save is kept unless the run reloads models
         is_last = idx + step >= end_idx
-        res = trainer.learn_embedding(
-            epoch=args["epoch"], batch_size=args["batch_size"], lr=args["lr"],
-            start_idx=idx, weight_decay=args.get("weight_decay", 0.0),
-            model_file=model_file if (is_last or load_model) else None,
-            load_model=load_model, shuffle=args.get("shuffle", True),
-            export=args.get("export", True), seed=seed + widx)
+        keep = is_last or load_model
+        common = dict(epoch=args["epoch"], lr=args["lr"], start_idx=idx,
+                      weight_decay=args.get("weight_decay", 0.0),
+                      model_file=model_file if keep else None,
+                      load_model=load_model, export=args.get("export", True))
+        if supervised:
+            res = trainer.learn_embedding(
+                classifier_file=args.get("cls_file") if keep else None,
+                **common)
+            res["split_seconds"] = trainer.split_seconds
+        else:
+            res = trainer.learn_embedding(
+                batch_size=args["batch_size"],
+                shuffle=args.get("shuffle", True), seed=seed + widx,
+                **common)
         time_list.append(res["cost_time"])
-        results.append({"idx": idx, "setup_seconds": setup_seconds,
+        results.append({"idx": idx, "time_length": time_length,
+                        "setup_seconds": setup_seconds,
                         "core_backend": trainer.data["adjs"].backend, **res})
         if record_time:
             write_time_csv(os.path.join(base_path, method + "_time.csv"),

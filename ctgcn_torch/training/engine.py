@@ -1,11 +1,15 @@
 # coding: utf-8
-"""Unsupervised training engine (port of ``ctgcn_tpu/training/engine.py``,
-the U-neg trainer).
+"""Training engines (port of ``ctgcn_tpu/training/engine.py``).
 
-Every epoch splits the nodes into batches; each batch re-runs the whole
-window forward and adds its loss gradient to the parameters' ``.grad``,
-and one optimizer step follows the epoch (gradient accumulation, as the
-JAX engine's batch scan does).
+``UnsupervisedEmbedding`` (U-neg, U-own): every epoch splits the nodes
+into batches; each batch re-runs the whole window forward and adds its
+loss gradient to the parameters' ``.grad``, and one optimizer step follows
+the epoch (gradient accumulation, as the JAX engine's batch scan does).
+
+``SupervisedEmbedding`` (S-node, S-edge, S-link-st, S-link-dy): every
+epoch is one full-batch step of the model and its classifier over the
+train split, then a forward over the validation split; the parameters of
+the best validation accuracy are kept, saved, tested and exported.
 
 The optimizer is ``torch.optim.Adam(lr, weight_decay=wd)``: L2 added to
 the gradient before the moment updates, eps 1e-8 -- the same update as
@@ -14,6 +18,7 @@ scale(-lr))``.  Parameters are saved with ``torch.save(state_dict)``.
 """
 from __future__ import annotations
 
+import copy
 import os
 import time
 
@@ -45,20 +50,19 @@ def make_optimizer(params, lr, weight_decay=0.0):
                             eps=1e-8)
 
 
-class UnsupervisedEmbedding:
-    """U-neg trainer with embedding CSV export.
+class BaseEmbedding:
+    """What both trainers share: the artifact paths, the window's inputs
+    and the embedding CSV export.
 
     Args:
       model: ``nn.Module`` on ``device``.
-      loss_fn: (model, data, batch_idx[B], batch_mask[B], generator) ->
-        scalar tensor.
       embed_fn: (model, data) -> [T, N, d] embeddings for export.
       data: the window's inputs on ``device``.
     """
 
     def __init__(self, base_path, origin_folder, embedding_folder, node_list,
-                 model, loss_fn, embed_fn, data, device,
-                 model_folder="model", file_sep="\t"):
+                 model, embed_fn, data, device, model_folder="model",
+                 file_sep="\t"):
         self.origin_base_path = os.path.abspath(
             os.path.join(base_path, origin_folder))
         self.embedding_base_path = os.path.abspath(
@@ -66,7 +70,6 @@ class UnsupervisedEmbedding:
         self.model_base_path = os.path.abspath(
             os.path.join(base_path, model_folder))
         self.model = model
-        self.loss_fn = loss_fn
         self.embed_fn = embed_fn
         self.data = data
         self.device = torch.device(device)
@@ -92,6 +95,24 @@ class UnsupervisedEmbedding:
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+
+class UnsupervisedEmbedding(BaseEmbedding):
+    """U-neg / U-own trainer with embedding CSV export.
+
+    Args:
+      loss_fn: (model, data, batch_idx[B], batch_mask[B], generator) ->
+        scalar tensor.
+      The others as ``BaseEmbedding``'s.
+    """
+
+    def __init__(self, base_path, origin_folder, embedding_folder, node_list,
+                 model, loss_fn, embed_fn, data, device,
+                 model_folder="model", file_sep="\t"):
+        super().__init__(base_path, origin_folder, embedding_folder,
+                         node_list, model, embed_fn, data, device,
+                         model_folder=model_folder, file_sep=file_sep)
+        self.loss_fn = loss_fn
 
     def learn_embedding(self, epoch=50, batch_size=1024, lr=1e-3,
                         start_idx=0, weight_decay=0.0, model_file="ctgcn",
@@ -146,4 +167,128 @@ class UnsupervisedEmbedding:
         self.model = model
         return {"cost_time": cost_time, "losses": losses,
                 "epoch_seconds": epoch_seconds,
+                "export_seconds": time.time() - t_export}
+
+
+class SupervisedEmbedding(BaseEmbedding):
+    """S-node / S-edge / S-link trainer with embedding CSV export.
+
+    Args:
+      classifier: the head (``nn.Module`` on ``device``), or ``None`` for
+        the link types, which score edges by the inner product.
+      forward_fn: (model, classifier, data, items) -> (logits, aux), the
+        items of one split as ``splits`` gives them.
+      loss_fn: (logits, labels, mask, aux) -> (loss, accuracy) tensors.
+      auc_fn: (logits, labels, mask) -> float, on the host.
+      splits: {"train" | "val" | "test": (items, labels, mask)} on
+        ``device`` (``training.splits``).
+      The others as ``BaseEmbedding``'s.
+    """
+
+    def __init__(self, base_path, origin_folder, embedding_folder, node_list,
+                 model, classifier, forward_fn, loss_fn, embed_fn, auc_fn,
+                 data, splits, device, model_folder="model", file_sep="\t"):
+        super().__init__(base_path, origin_folder, embedding_folder,
+                         node_list, model, embed_fn, data, device,
+                         model_folder=model_folder, file_sep=file_sep)
+        self.classifier = classifier
+        self.forward_fn = forward_fn
+        self.loss_fn = loss_fn
+        self.auc_fn = auc_fn
+        self.splits = splits
+
+    def _modules(self):
+        return [m for m in (self.model, self.classifier) if m is not None]
+
+    def _state(self):
+        """Copies of the parameters (the live tensors change in place with
+        every optimizer step)."""
+        return [copy.deepcopy(m.state_dict()) for m in self._modules()]
+
+    def _run(self, split):
+        items, labels, mask = self.splits[split]
+        preds, aux = self.forward_fn(self.model, self.classifier, self.data,
+                                     items)
+        loss, acc = self.loss_fn(preds, labels, mask, aux)
+        return loss, acc, preds
+
+    def learn_embedding(self, epoch=50, lr=1e-3, start_idx=0,
+                        weight_decay=0.0, model_file="ctgcn",
+                        classifier_file="ctgcn_cls", load_model=False,
+                        export=True, verbose=True):
+        """Train, keep the best-on-validation parameters (the parameters
+        before training when no validation epoch runs), save them, test
+        them and export their embeddings.  Returns a dict: ``cost_time``
+        (seconds of training and test), per epoch ``losses`` (train),
+        ``epoch_seconds`` (the train step and, from the second epoch, the
+        validation forward) and ``acc_val`` (from the second epoch),
+        ``best_acc_val``, ``acc_test``, ``auc_test``, ``loss_test`` and
+        ``export_seconds`` (embedding export)."""
+        model, cls = self.model, self.classifier
+        model_path = os.path.join(self.model_base_path, model_file or "")
+        cls_path = os.path.join(self.model_base_path, classifier_file or "")
+        if load_model and model_file and os.path.exists(model_path):
+            model.load_state_dict(torch.load(model_path,
+                                             map_location=self.device))
+            if (cls is not None and classifier_file
+                    and os.path.exists(cls_path)):
+                cls.load_state_dict(torch.load(cls_path,
+                                               map_location=self.device))
+        st = time.time()
+        params = [p for m in self._modules() for p in m.parameters()
+                  if p.requires_grad]
+        optimizer = make_optimizer(params, lr, weight_decay)
+        best_acc, best = -1.0, self._state()
+        losses, acc_vals, epoch_seconds = [], [], []
+        for e in range(epoch):
+            t_e = time.time()
+            optimizer.zero_grad(set_to_none=False)
+            loss, acc, _ = self._run("train")
+            loss.backward()
+            optimizer.step()
+            losses.append(float(loss.detach()))
+            if e == 0:
+                self._sync()
+                epoch_seconds.append(time.time() - t_e)
+                if verbose:
+                    print(f"Epoch: 1 loss_train: {losses[-1]:.4f}",
+                          flush=True)
+                continue
+            with torch.no_grad():
+                loss_v, acc_v, preds_v = self._run("val")
+            acc_vals.append(float(acc_v))
+            if acc_vals[-1] > best_acc:
+                best_acc, best = acc_vals[-1], self._state()
+            if verbose:
+                _, labels_v, mask_v = self.splits["val"]
+                print(f"Epoch: {e + 1} loss_train: {losses[-1]:.4f} "
+                      f"acc_train: {float(acc):.4f} "
+                      f"loss_val: {float(loss_v):.4f} "
+                      f"acc_val: {acc_vals[-1]:.4f} auc_val: "
+                      f"{self.auc_fn(preds_v, labels_v, mask_v):.4f}",
+                      flush=True)
+            self._sync()
+            epoch_seconds.append(time.time() - t_e)
+        for m, state in zip(self._modules(), best):
+            m.load_state_dict(state)
+        if model_file:
+            torch.save(model.state_dict(), model_path)
+        if classifier_file and cls is not None:
+            torch.save(cls.state_dict(), cls_path)
+        with torch.no_grad():
+            loss_te, acc_te, preds_te = self._run("test")
+        _, labels_te, mask_te = self.splits["test"]
+        auc_te = self.auc_fn(preds_te, labels_te, mask_te)
+        print(f"Test set results: loss= {float(loss_te):.4f} "
+              f"accuracy= {float(acc_te):.4f} auc= {auc_te:.4f}", flush=True)
+        cost_time = time.time() - st
+        t_export = time.time()
+        if export:
+            with torch.no_grad():
+                output = self.embed_fn(model, self.data)
+            self.save_embedding(output, start_idx)
+        return {"cost_time": cost_time, "losses": losses,
+                "epoch_seconds": epoch_seconds, "acc_val": acc_vals,
+                "best_acc_val": best_acc, "acc_test": float(acc_te),
+                "auc_test": auc_te, "loss_test": float(loss_te),
                 "export_seconds": time.time() - t_export}

@@ -2,7 +2,8 @@
 """``python -m ctgcn_torch.main`` end to end on the CPU: the preprocessing
 and embedding tasks of CTGCN-C (U-neg, BSR backend, and the default
 ``"auto"`` backend, at each ``matmul_precision``), CGCN-C, CGCN-S and
-CTGCN-S on a small generated dataset, one epoch.  The embedding and time
+CTGCN-S on a small generated dataset, one epoch, and the supervised
+learning types, two epochs.  The embedding and time
 CSVs must read the way the JAX package's evaluators read them (pandas,
 tab-separated, node name as the index)."""
 import json
@@ -112,7 +113,6 @@ def test_default_device_without_gpu_raises(dataset):
 @pytest.mark.parametrize("change, error", [
     ({"remat_policy": "save_spmm"}, NotImplementedError),
     ({"n_devices": 2}, NotImplementedError),
-    ({"learning_type": "S-node"}, NotImplementedError),
     ({"matmul_precision": "fp8"}, ValueError),
 ])
 def test_unported_options_raise(dataset, tmp_path, change, error):
@@ -162,6 +162,60 @@ def test_precisions_and_methods_run(dataset, trained, tmp_path, method,
     assert files == [f"2010-0{t + 1}.csv" for t in range(SNAPS)]
     for f in files:
         arr = pd.read_csv(out / f, sep="\t", index_col=0).loc[names].values
+        assert arr.shape == (N, 6) and np.isfinite(arr).all()
+
+
+@pytest.mark.parametrize("method, lt", [
+    ("CTGCN-C", "S-node"), ("CTGCN-C", "S-edge"), ("CTGCN-S", "S-link-st"),
+    ("CTGCN-C", "S-link-dy")])
+def test_supervised_types_run(dataset, trained, tmp_path, method, lt):
+    """The supervised learning types as ``configs/america-air.json`` gives
+    their keys, with ``learning_type`` changed, narrowed to test size, two
+    epochs: finite losses, test accuracy and AUC in [0, 1], the model and
+    (S-node, S-edge) classifier files, and one embedding CSV per
+    snapshot.  S-link-dy (duration 4 here) skips the last snapshot, which
+    only gives edges to predict, so its one window holds 3 snapshots."""
+    base, _, names, emb = dataset
+    rng = np.random.default_rng(1)
+    for folder, cols in (("nodes_label", 1), ("edges_label", 2)):
+        (base / folder).mkdir(exist_ok=True)
+        for t in range(SNAPS):
+            rows = "".join(
+                "\t".join([*(f"u{i}" for i in rng.integers(0, N, cols)),
+                           str(rng.integers(0, 3))]) + "\n"
+                for _ in range(N))
+            (base / folder / f"{t}.csv").write_text(
+                ("node\tlabel\n" if cols == 1 else
+                 "from_id\tto_id\tlabel\n") + rows)
+    with open(ROOT / "configs" / "america-air.json") as fp:
+        entry = dict(json.load(fp)["embedding"][method])
+    entry.update(base_path=str(base), learning_type=lt, epoch=2, hid_dim=12,
+                 embed_dim=6, duration=4 if lt == "S-link-dy" else 3,
+                 elabel_folder="edges_label",
+                 core_folder=emb["core_folder"],
+                 embed_folder=f"2.embedding/{tmp_path.name}",
+                 model_file=f"{tmp_path.name}_m",
+                 cls_file=f"{tmp_path.name}_c")
+    path = tmp_path / "cfg.json"
+    path.write_text(json.dumps({"embedding": {method: entry}}))
+    results = cli.main([f"--config={path}", "--task=embedding",
+                        f"--method={method}", "--device=cpu"])
+    assert [(r["idx"], r["time_length"]) for r in results] == (
+        [(0, 3)] if lt == "S-link-dy" else [(0, 3), (3, 1)])
+    for r in results:
+        assert len(r["losses"]) == 2 and np.isfinite(r["losses"]).all()
+        assert 0.0 <= r["acc_test"] <= 1.0
+        assert np.isnan(r["auc_test"]) or 0.0 <= r["auc_test"] <= 1.0
+    model_dir = base / entry["model_folder"]
+    assert (model_dir / entry["model_file"]).exists()
+    assert (model_dir / entry["cls_file"]).exists() == (
+        lt in ("S-node", "S-edge"))
+    files = sorted(os.listdir(base / entry["embed_folder"]))
+    exported = SNAPS - (lt == "S-link-dy")
+    assert files == [f"2010-0{t + 1}.csv" for t in range(exported)]
+    for f in files:
+        arr = pd.read_csv(base / entry["embed_folder"] / f, sep="\t",
+                          index_col=0).loc[names].values
         assert arr.shape == (N, 6) and np.isfinite(arr).all()
 
 

@@ -19,6 +19,7 @@ from ctgcn_torch.data.loader import DataLoader as TDataLoader
 from ctgcn_torch.preprocessing import kcore as tk
 from ctgcn_torch.preprocessing import walks as tw
 from ctgcn_tpu.data import formats as jf
+from ctgcn_tpu import native as jn
 from ctgcn_tpu.data.loader import DataLoader as JDataLoader
 from ctgcn_tpu.preprocessing import kcore as jk
 from ctgcn_tpu.preprocessing import walks as jw
@@ -144,12 +145,14 @@ def toy_tree(tmp_path_factory):
 
 
 def test_walk_artifacts_are_consistent(toy_tree):
-    """The written pair matrix and frequency list are what the port's
-    sampler gives for snapshot i from ``default_rng((seed, i))``."""
+    """The written pair matrix and frequency list are what the JAX
+    package's native sampler gives for snapshot i from the port's seed of
+    (seed, i)."""
     base, n = toy_tree
     names = tf.read_node_list(str(base / "nodes_set" / "nodes.csv"))
     adj = tf.get_sp_adj_mat(str(base / "1.format" / "2001-02.csv"), names)
-    walks = tw.simulate_walks(adj, 5, 4, np.random.default_rng((1, 1)))
+    walks = jn.simulate_walks(adj.tocsr(), 5, 4,
+                              seed=tw.snapshot_seed(1, 1))
     pairs, freq = tw.walk_pairs_and_freq(walks, n)
     _same_sparse(sp.load_npz(base / "walks" / "2001-02.npz"), pairs)
     with open(base / "freq" / "2001-02.json") as fp:
