@@ -19,6 +19,8 @@ into embedding CSVs read the same as the JAX package's.
 """
 from __future__ import annotations
 
+import concurrent.futures
+import multiprocessing
 import os
 
 import numpy as np
@@ -88,18 +90,67 @@ def sorted_dir(path):
     return sorted(os.listdir(path))
 
 
+#: rows of an embedding CSV formatted at a time, and the rows of one task
+#: of ``write_embedding_csvs``'s worker processes
+CHUNK_ROWS = 8192
+#: below this many rows in all, ``write_embedding_csvs`` formats in this
+#: process: starting the workers costs more than they win
+PARALLEL_MIN_ROWS = 65536
+
+
+def _header(d, sep):
+    return sep + sep.join(str(j) for j in range(d)) + "\n"
+
+
+def format_embedding_rows(arr, names, sep="\t"):
+    """Rows of an embedding CSV, each ending in a newline: the node name,
+    then each value as the shortest string that reads back as the same
+    float32 (numpy's ``astype(str)``, e.g. ``1.7640524``, ``-0.0``,
+    ``1e-05``), what ``pandas.DataFrame.to_csv`` writes for a float32
+    frame."""
+    cells = np.asarray(arr, dtype=np.float32).astype(str)
+    return "".join(f"{name}{sep}{sep.join(row)}\n"
+                   for name, row in zip(names, cells.tolist()))
+
+
 def write_embedding_csv(path, arr, names, sep="\t"):
     """[N, d] float array -> CSV with a header row of column numbers and
     the node name as the index, byte for byte what the JAX package's
-    ``pandas.DataFrame.to_csv`` writes for a float32 frame: each value as
-    the shortest string that reads back as the same float32 (numpy's
-    ``astype(str)``, e.g. ``1.7640524``, ``-0.0``, ``1e-05``)."""
-    cells = np.asarray(arr, dtype=np.float32).astype(str)
-    lines = [sep + sep.join(str(j) for j in range(cells.shape[1]))]
-    lines.extend(f"{name}{sep}{sep.join(row)}"
-                 for name, row in zip(names, cells.tolist()))
+    ``pandas.DataFrame.to_csv`` writes for a float32 frame
+    (:func:`format_embedding_rows`)."""
     with open(path, "w") as fp:
-        fp.write("\n".join(lines) + "\n")
+        fp.write(_header(arr.shape[1], sep))
+        for s in range(0, arr.shape[0], CHUNK_ROWS):
+            fp.write(format_embedding_rows(arr[s:s + CHUNK_ROWS],
+                                           names[s:s + CHUNK_ROWS], sep))
+
+
+def write_embedding_csvs(paths, arrays, names, sep="\t"):
+    """One embedding CSV per path, the bytes :func:`write_embedding_csv`
+    writes.  With ``PARALLEL_MIN_ROWS`` rows or more in all, worker
+    processes (``spawn``, up to ``os.cpu_count()``) format the rows,
+    ``CHUNK_ROWS`` of one array a task, and this process writes the pieces
+    in order: the shortest-repr formatting costs about 0.1 ms a row of 128
+    values, so one Enron-sized CSV (87,036 rows) takes seconds alone.
+    ``arrays``: numpy [N, d] each, never device tensors."""
+    n = sum(a.shape[0] for a in arrays)
+    workers = min(os.cpu_count() or 1, -(-n // CHUNK_ROWS))
+    if n < PARALLEL_MIN_ROWS or workers < 2:
+        for path, arr in zip(paths, arrays):
+            write_embedding_csv(path, arr, names, sep=sep)
+        return
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(workers,
+                                                mp_context=ctx) as pool:
+        pieces = [[pool.submit(format_embedding_rows, arr[s:s + CHUNK_ROWS],
+                               names[s:s + CHUNK_ROWS], sep)
+                   for s in range(0, arr.shape[0], CHUNK_ROWS)]
+                  for arr in arrays]
+        for path, arr, futures in zip(paths, arrays, pieces):
+            with open(path, "w") as fp:
+                fp.write(_header(arr.shape[1], sep))
+                for fut in futures:
+                    fp.write(fut.result())
 
 
 def read_embedding_csv(path, sep="\t", dtype=np.float32):

@@ -25,7 +25,7 @@ import time
 import numpy as np
 import torch
 
-from ctgcn_torch.data.formats import write_embedding_csv
+from ctgcn_torch.data.formats import write_embedding_csvs
 from ctgcn_torch.utils import check_and_make_path
 
 
@@ -82,15 +82,16 @@ class BaseEmbedding:
 
     def save_embedding(self, output, start_idx):
         """output [T, N, d] (or [N, d]) -> one CSV per timestamp, named
-        after the snapshot file, node names as the index."""
+        after the snapshot file, node names as the index (formatted in
+        worker processes when large: ``write_embedding_csvs``)."""
         arr = output.detach().float().cpu().numpy()
         if arr.ndim == 2:
             arr = arr[None]
-        for i in range(arr.shape[0]):
-            timestamp = self.timestamp_list[start_idx + i].split(".")[0]
-            write_embedding_csv(
-                os.path.join(self.embedding_base_path, timestamp + ".csv"),
-                arr[i], self.full_node_list, sep=self.file_sep)
+        paths = [os.path.join(self.embedding_base_path,
+                              self.timestamp_list[start_idx + i].split(".")[0]
+                              + ".csv") for i in range(arr.shape[0])]
+        write_embedding_csvs(paths, list(arr), self.full_node_list,
+                             sep=self.file_sep)
 
     def _sync(self):
         if self.device.type == "cuda":

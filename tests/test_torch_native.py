@@ -200,3 +200,23 @@ def test_embedding_csv_bytes_equal_jax(tmp_path):
     names_back, back = tf.read_embedding_csv(tmp_path / "port.csv")
     assert names_back == names
     np.testing.assert_array_equal(back.view(np.uint32), arr.view(np.uint32))
+
+
+def test_embedding_csvs_from_workers_equal_the_writer(tmp_path,
+                                                      monkeypatch):
+    """``write_embedding_csvs`` in worker processes, several tasks per
+    array, writes the bytes ``write_embedding_csv`` writes."""
+    rng = np.random.default_rng(8)
+    arrays = [(rng.standard_normal((40, 9))
+               * 10.0 ** rng.integers(-11, 12, (40, 9))).astype(np.float32)
+              for _ in range(3)]
+    names = [f"u{i}" for i in range(40)]
+    for t, arr in enumerate(arrays):
+        tf.write_embedding_csv(tmp_path / f"ref{t}.csv", arr, names)
+    monkeypatch.setattr(tf, "PARALLEL_MIN_ROWS", 0)
+    monkeypatch.setattr(tf, "CHUNK_ROWS", 16)
+    tf.write_embedding_csvs([tmp_path / f"par{t}.csv" for t in range(3)],
+                            arrays, names)
+    for t in range(3):
+        assert ((tmp_path / f"par{t}.csv").read_bytes()
+                == (tmp_path / f"ref{t}.csv").read_bytes())
