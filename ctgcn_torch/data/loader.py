@@ -1,9 +1,11 @@
 # coding: utf-8
 """Window loaders (port of ``ctgcn_tpu/data/loader.py``, the parts the
-CGCN / CTGCN paths read): the k-core pyramid bank of a window on its core
-backend, the walk tables as CSR ``WalkData``, the raw adjacency and edge
-lists, the node features (file, or built from degrees for the
-S-variants), and the node and edge labels of the supervised types.
+CGCN / CTGCN paths and the zoo's GCN / GIN read): the k-core pyramid bank
+of a window on its core backend, the walk tables as CSR ``WalkData``, the
+adjacency (raw or normalized, as scipy matrices or ``SparseGraph``s with
+the kernels' plans) and edge lists, the node features (file, or built
+from degrees for the S-variants), and the node and edge labels of the
+supervised types.
 
 Everything here is built on the host; the driver moves the results to the
 training device.
@@ -20,11 +22,14 @@ import torch
 
 from ctgcn_torch.data.formats import get_sp_adj_mat, infer_names, sorted_dir
 from ctgcn_torch.losses import WalkData
+from ctgcn_torch.ops.bsr_spmm import build_csr_plan
 from ctgcn_torch.ops.pyramid import (attach_ell_plans, build_core_pyramid,
                                       stack_pyramids)
+from ctgcn_torch.ops.sparse import from_scipy, normalize_scipy_adj
 from ctgcn_torch.utils import pad_bucket
 
 CORE_BACKENDS = ("auto", "dense", "blocks", "ell", "pallas", "segment")
+ADJ_BACKENDS = ("auto", "ell", "segment")
 DEGREE_FEATURES = ("gaussian", "one-hot", "adj", "combine")
 
 
@@ -41,13 +46,49 @@ class DataLoader:
         return range(start_idx, min(start_idx + duration, self.max_time_num))
 
     def get_scipy_adj_list(self, origin_base_path, start_idx, duration,
-                           sep="\t"):
-        """The raw symmetric adjacency (scipy COO) of each snapshot of the
-        window."""
+                           sep="\t", normalize=False, row_norm=False,
+                           add_eye=False):
+        """The symmetric adjacency (scipy) of each snapshot of the window:
+        raw, plus I with ``add_eye``, then D^-1 A (``row_norm``) or
+        D^-1/2 A D^-1/2 with ``normalize``."""
         f_list = sorted_dir(origin_base_path)
-        return [get_sp_adj_mat(os.path.join(origin_base_path, f_list[i]),
-                               self.full_node_list, sep=sep)
-                for i in self._window(start_idx, duration)]
+        out = []
+        for i in self._window(start_idx, duration):
+            mat = get_sp_adj_mat(os.path.join(origin_base_path, f_list[i]),
+                                 self.full_node_list, sep=sep)
+            if add_eye:
+                mat = mat + sp.eye(mat.shape[0])
+            if normalize:
+                mat = normalize_scipy_adj(mat, row_norm=row_norm)
+            out.append(mat)
+        return out
+
+    #: ``adj_backend: "auto"`` attaches the kernels' plans to a graph of at
+    #: least this many nodes; below it the segment SpMM is fast enough to
+    #: skip the plans' build (the JAX package's threshold)
+    ELL_AUTO_NODES = 16384
+
+    def get_date_adj_list(self, origin_base_path, start_idx, duration,
+                          sep="\t", normalize=False, row_norm=False,
+                          add_eye=False, adj_backend="auto"):
+        """The window's adjacency (``get_scipy_adj_list``) as one host
+        ``SparseGraph`` per snapshot.  ``adj_backend``: ``"ell"`` gives each
+        graph the ``CsrPlan`` of its matrix and of its transpose (the CUDA
+        kernels' inputs; the JAX package's ELL plans), ``"segment"`` none,
+        ``"auto"`` plans from ``ELL_AUTO_NODES`` nodes on."""
+        if adj_backend not in ADJ_BACKENDS:
+            raise ValueError(f"adj_backend {adj_backend!r}, not one of "
+                             f"{ADJ_BACKENDS}")
+        mats = self.get_scipy_adj_list(origin_base_path, start_idx, duration,
+                                       sep=sep, normalize=normalize,
+                                       row_norm=row_norm, add_eye=add_eye)
+        graphs = [from_scipy(m) for m in mats]
+        if adj_backend == "ell" or (adj_backend == "auto" and
+                                    self.node_num >= self.ELL_AUTO_NODES):
+            graphs = [dataclasses.replace(g, plan_fwd=build_csr_plan(m),
+                                          plan_t=build_csr_plan(m.T))
+                      for g, m in zip(graphs, mats)]
+        return tuple(graphs)
 
     def get_edge_list(self, origin_base_path, start_idx, duration, sep="\t"):
         """int64 [2, E_t] (row, col) of each snapshot's symmetric

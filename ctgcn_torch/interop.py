@@ -12,7 +12,11 @@ Layouts match without transposes: ``Linear.weight`` is [in, out] in both
 packages and the RNN cells use torch's gate layout in both.  The trees of
 the JAX heads ``MLPClassifier`` and ``EdgeClassifier`` map as they are onto
 ``ctgcn_torch.nn.heads``'s (``mlp.layers.<i>.*``,
-``classifier.mlp.layers.<i>.*``).
+``classifier.mlp.layers.<i>.*``), and so do the zoo's ``GCN``
+(``gc1.*``, ``gc2.*``) and ``GIN`` (``linear.*``,
+``mlps.<l>.layers.<i>.*``, ``mlps.<l>.norms.<i>.*``, ``norms.<l>.*``,
+``eps``) onto ``ctgcn_torch.nn.gcn`` and ``ctgcn_torch.nn.gin``: GIN's
+``mlps`` is a tuple of layers, not a leaf with a [T] axis.
 """
 from __future__ import annotations
 
@@ -33,12 +37,12 @@ def _flatten(tree, prefix=""):
 
 
 def params_from_numpy(tree):
-    """JAX CTGCN / CGCN / MLPClassifier / EdgeClassifier parameter tree
-    (nested dicts of arrays) -> state_dict."""
+    """JAX CTGCN / CGCN / MLPClassifier / EdgeClassifier / GCN / GIN
+    parameter tree (nested dicts of arrays) -> state_dict."""
     state = {}
     for name, arr in _flatten(tree).items():
         head, _, rest = name.partition(".")
-        if head in ("mlps", "cdns"):
+        if head in ("mlps", "cdns") and not rest.split(".")[0].isdigit():
             for t in range(arr.shape[0]):
                 state[f"{head}.{t}.{rest}"] = torch.tensor(
                     arr[t], dtype=torch.float32)

@@ -1,0 +1,71 @@
+# coding: utf-8
+"""GCN (Kipf & Welling), the zoo's GCN and TgGCN (port of
+``GraphConvolution`` and ``GCN`` in ``ctgcn_tpu/nn/gcn.py``).
+
+The convolution is ``spmm(adj, x @ W) + b``; with identity features the
+support is ``W`` itself.  One set of parameters serves every snapshot of
+the window.  ``GraphConvolution`` draws U(-1/sqrt(out_dim), 1/sqrt(out_dim))
+for weight and bias: out_dim, unlike ``torch.nn.Linear``.  Dropout draws
+its mask from the ``generator`` passed in (the engine's), and is off
+without one (the export).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from ctgcn_torch.ops.spmm import spmm
+
+
+def _dropout(x, rate, generator):
+    """Inverted dropout: keep each entry with probability 1 - rate, scaled
+    by 1 / (1 - rate); nothing without a generator or at rate 0."""
+    if generator is None or not rate:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+        < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+class GraphConvolution(nn.Module):
+    def __init__(self, input_dim, output_dim, bias=True, generator=None):
+        super().__init__()
+        stdv = 1.0 / math.sqrt(output_dim)
+
+        def uniform(*shape):
+            return nn.Parameter(
+                (torch.rand(*shape, generator=generator) * 2 - 1) * stdv)
+
+        self.weight = uniform(input_dim, output_dim)
+        self.bias = uniform(output_dim) if bias else None
+
+    def forward(self, x, adj):
+        """x [N, in] or None (identity features) -> [N, out]."""
+        support = self.weight if x is None else x @ self.weight
+        out = spmm(adj, support)
+        return out if self.bias is None else out + self.bias
+
+
+class GCN(nn.Module):
+    """Two graph convolutions, ReLU and dropout between them."""
+
+    def __init__(self, input_dim, hidden_dim, output_dim, dropout=0.5,
+                 bias=True, generator=None):
+        super().__init__()
+        self.gc1 = GraphConvolution(input_dim, hidden_dim, bias, generator)
+        self.gc2 = GraphConvolution(hidden_dim, output_dim, bias, generator)
+        self.dropout = dropout if dropout is not None else 0.0
+
+    def single(self, x, adj, generator=None):
+        h = F.relu(self.gc1(x, adj))
+        h = _dropout(h, self.dropout, generator)
+        return self.gc2(h, adj)
+
+    def forward(self, xs, adjs, generator=None):
+        """xs [T, N, in] or None; adjs: T ``SparseGraph``s -> [T, N, out]."""
+        return torch.stack([
+            self.single(None if xs is None else xs[t], adj, generator)
+            for t, adj in enumerate(adjs)])

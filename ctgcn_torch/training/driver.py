@@ -1,7 +1,18 @@
 # coding: utf-8
 """Embedding-task driver (port of ``ctgcn_tpu/training/driver.py`` for the
 CTGCN family: CGCN-C, CGCN-S, CTGCN-C and CTGCN-S, under the learning
-types U-neg, U-own, S-node, S-edge, S-link-st and S-link-dy).
+types U-neg, U-own, S-node, S-edge, S-link-st and S-link-dy; and for the
+model zoo's first slice: GCN, TgGCN, GIN and TgGIN under U-neg).
+
+The zoo's window is its adjacency, one ``SparseGraph`` a snapshot, with
+the kernels' plans at ``ELL_AUTO_NODES`` nodes and more (``adj_backend``),
+normalized as the JAX driver normalizes it: D^-1 (A + I) for GCN; the raw
+weighted A for TgGCN; A + I for GIN and TgGIN when ``learn_eps`` is false
+(every GIN config; TgGIN's configs give no ``learn_eps``, so it is learnt
+and A stays raw).  ``pooling_type`` only decides whether the neighbor
+table is built: the JAX driver does not pass it to the model, which pools
+by sum.  Dropout draws its masks from the engine's generator, before the
+U-neg sampler's draws; the export runs without dropout.
 
 Per window: load the k-core pyramids (on the config's ``core_backend``,
 ``"auto"`` by default, at its ``matmul_precision``) and the node features
@@ -47,7 +58,10 @@ from ctgcn_torch.losses import (classification_loss, negative_sampling_loss,
                                 reconstruction_loss)
 from ctgcn_torch.nn.core_models import (ACT_BUDGET, CGCN, CORE_RNN_BUDGET,
                                         CTGCN)
+from ctgcn_torch.nn.gcn import GCN
+from ctgcn_torch.nn.gin import GIN
 from ctgcn_torch.nn.heads import EdgeClassifier, MLPClassifier, inner_product
+from ctgcn_torch.ops.neighbors import neighbor_table_from_scipy
 from ctgcn_torch.ops.rnn import CVJP_BATCH_BUDGET
 from ctgcn_torch.training.engine import (SupervisedEmbedding,
                                          UnsupervisedEmbedding)
@@ -57,7 +71,9 @@ from ctgcn_torch.utils import resolve_device
 
 #: method -> model class
 PORTED_METHODS = {"CGCN-C": CGCN, "CGCN-S": CGCN, "CTGCN-C": CTGCN,
-                  "CTGCN-S": CTGCN}
+                  "CTGCN-S": CTGCN, "GCN": GCN, "TgGCN": GCN, "GIN": GIN,
+                  "TgGIN": GIN}
+ZOO_METHODS = ("GCN", "TgGCN", "GIN", "TgGIN")
 S_VARIANTS = ("CGCN-S", "CTGCN-S")
 SUPERVISED_TYPES = ("S-node", "S-edge", "S-link-st", "S-link-dy")
 LEARNING_TYPES = ("U-neg", "U-own") + SUPERVISED_TYPES
@@ -76,6 +92,10 @@ def _check_scope(method, args):
     if lt == "U-own" and method not in S_VARIANTS:
         raise ValueError(f"U-own is defined for the S-variants, not "
                          f"{method}")
+    if method in ZOO_METHODS and lt != "U-neg":
+        raise NotImplementedError(
+            f"{method} under {lt!r} is not ported yet; the zoo trains "
+            "U-neg (ROADMAP.md queue 1: the model zoo)")
     if args.get("remat_policy", "full") != "full":
         raise NotImplementedError(
             "remat_policy 'save_spmm' is not ported yet; only 'full' "
@@ -116,58 +136,144 @@ def get_data_loader(args):
     return DataLoader(node_list, max_time_num)
 
 
+def _zoo_adjacency(method, idx, time_length, data_loader, args):
+    """The zoo's window: its adjacency as the JAX driver normalizes it per
+    method, and GIN's neighbor table when its config asks for max
+    pooling."""
+    if method in ("GCN", "GAT", "GCRN"):
+        normalize, row_norm, add_eye = True, True, True
+    elif method == "EvolveGCN":
+        normalize, row_norm, add_eye = True, False, True
+    else:
+        normalize, row_norm, add_eye = False, False, False
+    is_gin = method in ("GIN", "TgGIN")
+    # GIN pools a node with its neighbours (+I) unless it learns eps
+    gin_add_eye = is_gin and not args.get("learn_eps", True)
+    sep = args.get("file_sep", "\t")
+    adjs = data_loader.get_date_adj_list(
+        args["origin_base_path"], idx, time_length, sep=sep,
+        normalize=normalize, row_norm=row_norm,
+        add_eye=add_eye or gin_add_eye,
+        adj_backend=args.get("adj_backend", "auto"))
+    neighbor_data = None
+    if is_gin and args.get("pooling_type", "sum") == "max":
+        neighbor_data = neighbor_table_from_scipy(
+            data_loader.get_scipy_adj_list(args["origin_base_path"], idx,
+                                           time_length, sep=sep))
+    return adjs, neighbor_data
+
+
 def get_input_data(method, idx, time_length, data_loader: DataLoader, args,
                    rng=None):
-    """(input_dim, stacked CorePyramid, xs) for one window on the host.
+    """(input_dim, data) for one window on the host: ``data["adjs"]`` is
+    the stacked ``CorePyramid`` of the family, or the zoo's ``SparseGraph``
+    per snapshot (with ``data["neighbor_data"]``), and ``data["xs"]`` the
+    features.
 
-    ``matmul_precision`` sets the bank: "bf16" a bf16 dense bank / bf16
-    blocks / bf16 ELL gathers, "high" 3xTF32 GEMMs on an f32 bank.  xs is
-    None (identity features, never materialized), the files under
+    ``matmul_precision`` sets the family's bank: "bf16" a bf16 dense bank
+    / bf16 blocks / bf16 ELL gathers, "high" 3xTF32 GEMMs on an f32 bank.
+    xs is None (identity features, never materialized), the files under
     ``nfeature_folder``, or, for CGCN-S / CTGCN-S without them, degree
     features drawn from ``rng`` (a numpy ``RandomState``)."""
-    prec = args.get("matmul_precision", "highest")
-    pyramids = data_loader.get_core_adj_list(
-        args["core_base_path"], idx, time_length,
-        max_core=args.get("max_core", -1),
-        core_backend=args.get("core_backend", "auto"),
-        dense_budget_bytes=args.get("dense_budget_bytes", 4 << 30),
-        dense_dtype=torch.bfloat16 if prec == "bf16" else None,
-        dense_prec="high" if prec == "high" else "highest")
+    data = {}
+    if method in ZOO_METHODS:
+        data["adjs"], data["neighbor_data"] = _zoo_adjacency(
+            method, idx, time_length, data_loader, args)
+    else:
+        prec = args.get("matmul_precision", "highest")
+        data["adjs"] = data_loader.get_core_adj_list(
+            args["core_base_path"], idx, time_length,
+            max_core=args.get("max_core", -1),
+            core_backend=args.get("core_backend", "auto"),
+            dense_budget_bytes=args.get("dense_budget_bytes", 4 << 30),
+            dense_dtype=torch.bfloat16 if prec == "bf16" else None,
+            dense_prec="high" if prec == "high" else "highest")
     sep = args.get("file_sep", "\t")
     if method in S_VARIANTS and args.get("nfeature_path") is None:
-        xs, input_dim = data_loader.get_degree_feature_list(
+        data["xs"], input_dim = data_loader.get_degree_feature_list(
             args["origin_base_path"], idx, time_length, sep=sep,
             init_type=args["init_type"], std=args.get("std", 1e-4), rng=rng)
     else:
-        xs, input_dim = data_loader.get_feature_list(
+        data["xs"], input_dim = data_loader.get_feature_list(
             args.get("nfeature_path"), idx, time_length, sep=sep)
-    return input_dim, pyramids, xs
+    return input_dim, data
+
+
+def _data_to(data, device):
+    """The window's inputs on ``device``."""
+    out = {}
+    for key, val in data.items():
+        if isinstance(val, (tuple, list)):
+            out[key] = tuple(v.to(device) for v in val)
+        else:
+            out[key] = None if val is None else val.to(device)
+    return out
+
+
+def _adj_backend(adjs):
+    """The window's backend: the pyramid's core backend, or a zoo
+    adjacency's "ell" / "segment"."""
+    return adjs[0].backend if isinstance(adjs, tuple) else adjs.backend
 
 
 def get_gnn_model(method, time_length, args, generator):
-    """A fresh CGCN or CTGCN for one window, parameters drawn from
+    """A fresh model of ``method`` for one window, parameters drawn from
     ``generator``."""
+    common = dict(bias=args.get("bias", True), generator=generator)
+    dims = (args["input_dim"], args["hid_dim"], args["embed_dim"])
+    if PORTED_METHODS[method] is GCN:
+        return GCN(*dims, dropout=args.get("dropout", 0.0), **common)
+    if PORTED_METHODS[method] is GIN:
+        # the JAX driver passes no pooling_type: the model pools by sum
+        return GIN(*dims, layer_num=args.get("layer_num", 2),
+                   mlp_layer_num=args.get("mlp_layer_num", 2),
+                   learn_eps=args.get("learn_eps", True),
+                   dropout=args.get("dropout", 0.0), **common)
     kw = dict(trans_num=args["trans_layer_num"],
               diffusion_num=args["diffusion_layer_num"],
-              bias=args.get("bias", True),
               rnn_type=args.get("rnn_type", "GRU"),
               model_type=args["model_type"],
               trans_activate_type=args.get("trans_activate_type", "L"),
-              generator=generator, act_budget=ACT_BUDGET,
+              act_budget=ACT_BUDGET,
               layer_remat=bool(args.get("layer_remat", False)),
               cvjp_batch_budget=CVJP_BATCH_BUDGET,
-              core_rnn_budget=CORE_RNN_BUDGET)
+              core_rnn_budget=CORE_RNN_BUDGET, **common)
     if PORTED_METHODS[method] is CTGCN:
         kw["duration"] = time_length
-    return PORTED_METHODS[method](args["input_dim"], args["hid_dim"],
-                                  args["embed_dim"], **kw)
+    return PORTED_METHODS[method](*dims, **kw)
+
+
+def _family_forward(model, data, generator=None):
+    """CGCN / CTGCN: no dropout, so nothing is drawn."""
+    del generator
+    return model(data["xs"], data["adjs"])
+
+
+def _gcn_forward(model, data, generator=None):
+    return model(data["xs"], data["adjs"], generator=generator)
+
+
+def _gin_forward(model, data, generator=None):
+    return model(data["xs"], data["adjs"], data["neighbor_data"],
+                 generator=generator)
+
+
+def make_forward(method):
+    """(model, data, generator=None) -> embeddings of ``method``; the zoo
+    draws its dropout masks from ``generator``, none without one."""
+    if PORTED_METHODS[method] is GCN:
+        return _gcn_forward
+    if PORTED_METHODS[method] is GIN:
+        return _gin_forward
+    return _family_forward
 
 
 @functools.lru_cache(maxsize=None)
-def _uneg_loss_fn(take_first, neg_num, Q):
-    """U-neg on the node embedding (``res[0]`` of an S-variant)."""
+def _uneg_loss_fn(fwd, take_first, neg_num, Q):
+    """U-neg on the node embedding (``res[0]`` of an S-variant); the
+    forward's dropout draws from the generator first, then the sampler."""
     def loss_fn(model, data, b_idx, b_mask, generator):
-        res = model(data["xs"], data["adjs"])
+        res = fwd(model, data, generator)
         return negative_sampling_loss(res[0] if take_first else res, b_idx,
                                       b_mask, data["walk"], generator,
                                       neg_num=neg_num, Q=Q)
@@ -180,11 +286,6 @@ def _recon_loss_fn(model, data, b_idx, b_mask, generator):
     del generator
     embs, trans = model(data["xs"], data["adjs"])
     return reconstruction_loss(embs, trans, b_idx, b_mask)
-
-
-def _embed(model, data):
-    """The exported embedding: the model's output."""
-    return model(data["xs"], data["adjs"])
 
 
 def _embed_trans(model, data):
@@ -276,18 +377,18 @@ def build_trainer(method, args, data_loader, idx, time_length, device,
     the seconds its splits took to build as ``split_seconds``."""
     base_path = args["base_path"]
     rng = rng if rng is not None else np.random.RandomState(seed)
-    input_dim, pyramids, xs = get_input_data(method, idx, time_length,
-                                             data_loader, args, rng=rng)
+    input_dim, data = get_input_data(method, idx, time_length, data_loader,
+                                     args, rng=rng)
     args["input_dim"] = input_dim
-    data = {"adjs": pyramids.to(device),
-            "xs": None if xs is None else xs.to(device)}
+    data = _data_to(data, device)
     s_variant = method in S_VARIANTS
     lt = args["learning_type"]
+    fwd = make_forward(method)
     common = dict(
         base_path=base_path, origin_folder=args["origin_folder"],
         embedding_folder=args["embed_folder"],
         node_list=data_loader.full_node_list,
-        embed_fn=_embed_trans if s_variant else _embed, data=data,
+        embed_fn=_embed_trans if s_variant else fwd, data=data,
         device=device, model_folder=args.get("model_folder", "model"),
         file_sep=args.get("file_sep", "\t"))
     if lt in SUPERVISED_TYPES:
@@ -311,7 +412,7 @@ def build_trainer(method, args, data_loader, idx, time_length, device,
             os.path.abspath(os.path.join(base_path,
                                          args["node_freq_folder"])),
             idx, time_length).to(device)
-        loss_fn = _uneg_loss_fn(s_variant, args["neg_num"], args["Q"])
+        loss_fn = _uneg_loss_fn(fwd, s_variant, args["neg_num"], args["Q"])
     else:
         loss_fn = _recon_loss_fn
     model = get_gnn_model(method, time_length, args, generator).to(device)
@@ -406,7 +507,8 @@ def _run_windows(method, args, dev):
         time_list.append(res["cost_time"])
         results.append({"idx": idx, "time_length": time_length,
                         "setup_seconds": setup_seconds,
-                        "core_backend": trainer.data["adjs"].backend, **res})
+                        "core_backend": _adj_backend(trainer.data["adjs"]),
+                        **res})
         if record_time:
             write_time_csv(os.path.join(base_path, method + "_time.csv"),
                            time_list)
