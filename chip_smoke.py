@@ -76,8 +76,8 @@ Phases, one line each:
   4. paths      each path with the launch counters set to 0 just before it
                 and read just after (``PATHS``: the kernels each must launch,
                 every other must not), and Enron's bf16 / "highest" loss gap;
-     profile    an epoch's device time by kernel class (``torch.profiler``)
-                on each path of ``PROFILED``;
+     profile    an epoch's device time by kernel class (``torch.profiler``,
+                device activity only) on each path of ``PROFILED``;
   5. quality    the UCI Had AUC gates, seeds 0 and 1 each, scored by the
                 port's ``link_pred`` over edge-split reps 0-2 (mean Had AUC
                 of the last 4 dates): CTGCN-C as configured but for 10
@@ -783,8 +783,10 @@ def phase_profile(path, method, cfg, dev, epochs=2):
     window's setup (plans, walk tables, model, all moved to the card), then
     the trainer after one warm-up epoch, ``epochs`` epochs timed on the
     host clock, then ``epochs`` more under ``torch.profiler`` for the
-    device time by kernel class.  The idle share is 1 - device busy time /
-    the unprofiled epoch time."""
+    device time by kernel class.  The profiler records the device's
+    activity only: with the host's too, summing the events of the
+    launch-heavy paths (Enron, America-Air) took it over a minute a path.
+    The idle share is 1 - device busy time / the unprofiled epoch time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -795,8 +797,7 @@ def phase_profile(path, method, cfg, dev, epochs=2):
     # the epoch's wall time without the profiler's host overhead
     epoch_ms = 1e3 * sum(
         trainer.learn_embedding(epoch=epochs, **kw)["epoch_seconds"]) / epochs
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         trainer.learn_embedding(epoch=epochs, **kw)
         torch.cuda.synchronize()
