@@ -46,15 +46,29 @@ kernel against its plain PyTorch version:
   * uci_slink_dy  ``configs/uci.json`` CTGCN-C with ``"S-link-dy"`` on BSR
                 plans (``core_backend: "pallas"``), 3 epochs: one window of
                 6 snapshots whose embeddings predict the next snapshot's
-                edges.
+                edges;
+  * enron_gcn   ``configs/enron.json`` GCN as written (hid 500, embed 128,
+                dropout 0.5, batch 32768) on window 0 (snapshot 000, D^-1
+                (A + I)) of the preprocessed Enron copy, 3 epochs: at
+                87,036 nodes ``adj_backend: "auto"`` gives the graph the
+                kernels' plans, whose hub row (degree 1,147) sends both
+                directions to the block-parallel kernel;
+  * math_gin    ``configs/math.json`` GIN as written (``learn_eps: false``,
+                so A + I; 2 layers of a 2-layer MLP) on a preprocessed copy
+                of Math snapshot 000 (24,740 nodes, longest row 226), 3
+                epochs: the row walk in both directions;
+  * uci_tggcn, as_tggin  ``configs/uci.json`` TgGCN (the raw A) and
+                ``configs/as.json`` TgGIN (learnt eps, the raw A) on window
+                0, 3 epochs: below 16,384 nodes the segment SpMM, no kernel
+                of ours.
 
 Phases, one line each:
 
   1. build      the CUDA kernels from ``ctgcn_torch/csrc`` (nvcc, sm_90a);
   2. preprocess k-core pyramids and walk tables through ``ctgcn_torch.main``
                 on the native host-graph kernels (UCI, the AS and the Enron
-                snapshots, then America-Air), and the native core numbers
-                against the numpy peel on every UCI snapshot;
+                snapshots, America-Air, Math snapshot 000), and the native
+                core numbers against the numpy peel on every UCI snapshot;
   3. kernels    each f32 kernel on the UCI pallas plans (snapshot 2004-05,
                 both directions, d = 512 and 128: ``block_spmm`` pads hid
                 500 and embed 128 to multiples of 128) against both plain
@@ -70,9 +84,15 @@ Phases, one line each:
                 against its plain version; its time beside the f32 kernel's
                 on the same plan and width, ``torch.sparse.mm``'s and the
                 bound;
+     kernels_zoo  each f32 kernel on the zoo's plans of snapshot 000 (Enron
+                under GCN's D^-1 (A + I), Math under GIN's A + I), both
+                directions, d = 500 and 128, against the CSR plain version,
+                then timed beside it, ``torch.sparse.mm`` and the bound;
      parity     small CTGCN-C models on BSR and on delta-ELL plans, forward
                 and gradients, kernels on the GPU against the plain versions
                 on the CPU, and one on f32 blocks at ``"high"`` (3xTF32);
+                small GCN (on the block-parallel kernel) and GIN (on the
+                row walk) models the same way;
   4. paths      each path with the launch counters set to 0 just before it
                 and read just after (``PATHS``: the kernels each must launch,
                 every other must not), and Enron's bf16 / "highest" loss gap;
@@ -119,6 +139,8 @@ AS_SNAPSHOTS = tuple(f"{i:03d}.csv" for i in range(5))
 ENRON_SNAPSHOTS = tuple(f"{i:03d}.csv" for i in range(5))
 ENRON_EPOCHS = 2
 ENRON_SNAPSHOT = 4
+#: the Math snapshot of the GIN path (window 0 of configs/math.json)
+MATH_SNAPSHOTS = ("000.csv",)
 #: bf16 kernel with bf16 out vs its plain version: within one bf16 ulp of
 #: the plain value (at most 2^-7 of it) plus ATOL_REL * max|plain|
 BF16_ULP = 2.0 ** -7
@@ -258,11 +280,14 @@ def _bound(plan, d, x_bytes=4, out_bytes=4):
     }
 
 
-def _check_close(name, got, ref, rtol=RTOL, atol_rel=ATOL_REL):
+def _check_close(name, got, ref, rtol=RTOL, atol_rel=ATOL_REL, scale=None):
+    """|got - ref| <= rtol * |ref| + atol_rel * scale, ``scale`` max|ref|
+    unless given."""
     import torch
 
     err = (got - ref).abs()
-    tol = rtol * ref.abs() + atol_rel * float(ref.abs().max())
+    scale = float(ref.abs().max()) if scale is None else scale
+    tol = rtol * ref.abs() + atol_rel * scale
     if not torch.isfinite(got).all() or bool((err > tol).any()):
         raise AssertionError(f"{name}: max abs err {float(err.max()):.3e} "
                              f"over tolerance (rtol {rtol}, atol "
@@ -297,8 +322,11 @@ def _kernel_rows(tag, plans, dev, widths, extra_check=None):
     gen = torch.Generator(device=dev).manual_seed(0)
     inputs = {k: torch.randn(p.n_cols, max(widths), device=dev,
                              generator=gen) for k, p in plans.items()}
-    # the plan each kernel gets on the path
-    main_plan = {B.dispatch(p).__name__: k for k, p in plans.items()}
+    # the plan each kernel gets on the path (the first that dispatch gives
+    # it)
+    main_plan = {}
+    for k, p in plans.items():
+        main_plan.setdefault(B.dispatch(p).__name__, k)
     if set(main_plan) != set(F32_KERNELS):
         raise AssertionError(f"{tag}: the plans do not reach both kernels "
                              f"({main_plan})")
@@ -473,6 +501,44 @@ def phase_kernels_ell(cfg, dev):
     return results, plans
 
 
+def phase_kernels_zoo(cfgs, dev):
+    """Both f32 kernels on the zoo's plans of snapshot 000 as the driver
+    builds them (``get_input_data``): Enron under GCN's D^-1 (A + I) and
+    Math under GIN's A + I, each direction, at d = 500 and 128 (hid 500 and
+    embed 128; ``ell_spmm`` pads to a multiple of 4).  ``dispatch`` must
+    give Enron's plans the block-parallel kernel and Math's the row walk,
+    which the enron_gcn and math_gin paths then launch."""
+    from ctgcn_torch.ops import bsr_spmm as B
+    from ctgcn_torch.training.driver import get_data_loader, get_input_data
+
+    plans = {}
+    for data, (cfg, method) in cfgs.items():
+        args = dict(cfg)
+        loader = get_data_loader(args)
+        t0 = time.time()
+        _, window = get_input_data(method, 0, 1, loader, args)
+        built_s = time.time() - t0
+        graph = window["adjs"][0]
+        if graph.backend != "ell":
+            raise AssertionError(f"{data} {method}: adj_backend auto gave "
+                                 f"{graph.backend}, not the plans")
+        fwd, tr = graph.plan_fwd, graph.plan_t
+        _phase("kernels_zoo", data=data, method=method,
+               window_built_seconds=built_s, n_nodes=fwd.n_rows,
+               nnz=fwd.nnz, max_row_nnz_fwd=fwd.max_row_nnz,
+               max_row_nnz_t=tr.max_row_nnz,
+               dispatch=[B.dispatch(p).__name__ for p in (fwd, tr)])
+        plans[f"{data}_forward"] = fwd.to(dev)
+        plans[f"{data}_transpose"] = tr.to(dev)
+    want = {"enron_forward": "bsr_spmm_blockpar",
+            "math_forward": "bsr_spmm_rowwalk"}
+    got = {k: B.dispatch(plans[k]).__name__ for k in want}
+    if got != want:
+        raise AssertionError(f"dispatch gives {got} on the zoo's plans")
+    widths = _spmm_widths(cfgs["enron"][0], B.D_ALIGN)
+    return _kernel_rows("kernels_zoo", plans, dev, widths)
+
+
 def _check_bf16(name, got, ref_f32, out_dtype):
     """A bf16 kernel's output against its plain version's f32 sum: a bf16
     output within one bf16 ulp of the plain value (the plain version
@@ -627,18 +693,27 @@ def phase_kernels_bf16(cfg, as_plans, dev):
     return results
 
 
+def _parity_adjacency(rng, n, hub):
+    """A sparse random symmetric graph on n nodes whose node 0 has ``hub``
+    extra neighbours."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    dense = (rng.random((n, n)) < 0.002) * rng.random((n, n))
+    dense[0, rng.choice(np.arange(1, n), hub, replace=False)] = 1.0
+    return sp.csr_matrix(np.triu(dense, 1) + np.triu(dense, 1).T)
+
+
 def _parity_window(n, T, hub, seed=0):
-    """T snapshots of a sparse random graph on n nodes whose node 0 has
-    ``hub`` extra neighbours, as three nested cores (degree >= 4, 2, 1)."""
+    """T snapshots of ``_parity_adjacency`` as three nested cores (degree
+    >= 4, 2, 1)."""
     import numpy as np
     import scipy.sparse as sp
 
     rng = np.random.default_rng(seed)
     per_snap = []
     for _ in range(T):
-        dense = (rng.random((n, n)) < 0.002) * rng.random((n, n))
-        dense[0, rng.choice(np.arange(1, n), hub, replace=False)] = 1.0
-        a = sp.csr_matrix(np.triu(dense, 1) + np.triu(dense, 1).T)
+        a = _parity_adjacency(rng, n, hub)
         deg = np.asarray((a != 0).sum(1)).ravel()
         per_snap.append([sp.csr_matrix(a.multiply(np.outer(deg >= k,
                                                            deg >= k)))
@@ -711,6 +786,70 @@ def phase_parity(dev):
                hid=hid, max_abs_err_forward=errs["forward"],
                max_abs_err_grads=max(v for k, v in errs.items()
                                      if k != "forward"))
+
+
+def phase_parity_zoo(dev):
+    """Small GCN and GIN (N = 1800, T = 2, hid 500, embed 64, dropout off),
+    forward and all parameter gradients with the kernels on the GPU against
+    the plain versions on the CPU, on graphs that carry their plans as the
+    zoo's loader gives them: GCN on D^-1 (A + I) of a graph whose node 0
+    has degree 300 (both directions on the block-parallel kernel), GIN on
+    A + I of one without a hub (both on the row walk)."""
+    import dataclasses
+
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    from ctgcn_torch.nn.gcn import GCN
+    from ctgcn_torch.nn.gin import GIN
+    from ctgcn_torch.ops import bsr_spmm as B
+    from ctgcn_torch.ops.sparse import from_scipy, normalize_scipy_adj
+
+    n, T, hid, out_dim = 1800, 2, 500, 64
+    gen = torch.Generator().manual_seed(0)
+    models = {
+        "gcn": (300, "bsr_spmm_blockpar",
+                lambda a: normalize_scipy_adj(a + sp.eye(n), row_norm=True),
+                GCN(n, hid, out_dim, dropout=0.5, generator=gen)),
+        "gin": (0, "bsr_spmm_rowwalk", lambda a: (a + sp.eye(n)).tocoo(),
+                GIN(n, hid, out_dim, 2, 2, learn_eps=False, dropout=0.5,
+                    generator=gen)),
+    }
+    for name, (hub, kernel, adj_of, model) in models.items():
+        rng = np.random.default_rng(1)
+        graphs = []
+        for _ in range(T):
+            m = adj_of(_parity_adjacency(rng, n, hub))
+            graphs.append(dataclasses.replace(
+                from_scipy(m), plan_fwd=B.build_csr_plan(m),
+                plan_t=B.build_csr_plan(m.T)))
+        chosen = {B.dispatch(g.plan_fwd).__name__ for g in graphs} | {
+            B.dispatch(g.plan_t).__name__ for g in graphs}
+        if chosen != {kernel}:
+            raise AssertionError(f"the {name} parity model reaches {chosen}, "
+                                 f"not {kernel}")
+        res = []
+        for d in (torch.device("cpu"), dev):
+            mod = model.to(d)
+            mod.zero_grad(set_to_none=True)
+            y = mod(None, tuple(g.to(d) for g in graphs))
+            torch.tanh(y).square().sum().backward()
+            res.append((y.detach().cpu(),
+                        {k: p.grad.detach().cpu()
+                         for k, p in mod.named_parameters()
+                         if p.grad is not None}))
+        (yc, gc), (yg, gg) = res
+        tol = {"rtol": PARITY_TOL, "atol_rel": PARITY_TOL}
+        err_f = _check_close(f"parity {name} forward", yg, yc, **tol)
+        # against the model's largest gradient: a bias before a BatchNorm
+        # has a zero gradient but for rounding
+        scale = max(float(v.abs().max()) for v in gc.values())
+        err_g = max(_check_close(f"parity {name} grad {k}", gg[k], gc[k],
+                                 scale=scale, **tol) for k in gc)
+        _phase("parity", model=name, kernel=kernel, tolerance=PARITY_TOL,
+               n=n, T=T, hid=hid, max_abs_err_forward=err_f,
+               max_abs_err_grads=err_g)
 
 
 def phase_core_numbers(base):
@@ -834,8 +973,9 @@ def phase_profile(path, method, cfg, dev, epochs=2):
                         for k, v in top])
 
 
-#: path -> (config, method, the core backend "auto" or the config must
-#: give, the kernels it must launch: every other kernel must not)
+#: path -> (config, method, the core backend (the zoo's: the adjacency
+#: backend) "auto" or the config must give, the kernels it must launch:
+#: every other kernel must not)
 PATHS = {
     "uci_auto": ("uci", "CTGCN-C", "blocks", ()),
     "uci_pallas": ("uci_pallas", "CTGCN-C", "pallas", tuple(F32_KERNELS)),
@@ -852,13 +992,18 @@ PATHS = {
     "as_ctgcn_s_slink": ("as_ctgcn_s_slink", "CTGCN-S", "ell",
                          tuple(F32_KERNELS)),
     "uci_slink_dy": ("uci_slink_dy", "CTGCN-C", "pallas", tuple(F32_KERNELS)),
+    "enron_gcn": ("enron_gcn", "GCN", "ell", ("bsr_spmm_blockpar",)),
+    "math_gin": ("math_gin", "GIN", "ell", ("bsr_spmm_rowwalk",)),
+    "uci_tggcn": ("uci_tggcn", "TgGCN", "segment", ()),
+    "as_tggin": ("as_tggin", "TgGIN", "segment", ()),
 }
 #: the paths profiled, with their epochs under the profiler (aa_snode's
 #: 52,000 launches an epoch take the profiler minutes to sum; aa_sedge
 #: runs the same model)
 PROFILED = {"uci_auto": 2, "uci_pallas": 2, "as_auto": 2, "as_ctgcn_s": 2,
             "as_bf16": 2, "enron_bf16": 1, "uci_cgcn_c": 2, "uci_cgcn_s": 2,
-            "aa_snode": 1, "as_ctgcn_s_slink": 2, "uci_slink_dy": 2}
+            "aa_snode": 1, "as_ctgcn_s_slink": 2, "uci_slink_dy": 2,
+            "enron_gcn": 2, "math_gin": 2}
 
 
 def _write_config(path, method, pre, emb):
@@ -1218,7 +1363,9 @@ def main():
             and all((ROOT / "data" / "as" / "1.format" / f).is_file()
                     for f in AS_SNAPSHOTS)
             and all((ROOT / "data" / "enron" / "1.format" / f).is_file()
-                    for f in ENRON_SNAPSHOTS)):
+                    for f in ENRON_SNAPSHOTS)
+            and all((ROOT / "data" / "math" / "1.format" / f).is_file()
+                    for f in MATH_SNAPSHOTS)):
         return _fail(f"{ROOT} is not a checkout of the repository")
     t_start = time.time()
     sys.path.insert(0, str(ROOT))
@@ -1247,14 +1394,17 @@ def main():
         from ctgcn_torch import main as cli
 
         # 2. preprocessing on temporary copies of data/uci, of the first
-        # AS and Enron snapshots and of data/america_air (with its labels)
+        # AS and Enron snapshots, of data/america_air (with its labels) and
+        # of Math snapshot 000 (its CTGCN-C entry writes the walk tables
+        # that its GIN entry reads)
         cfgs, confs = {}, {}
         for name, conf_name, files, extra, epochs in (
                 ("uci", "uci", None, (), EPOCHS),
                 ("as", "as", AS_SNAPSHOTS, (), EPOCHS),
                 ("enron", "enron", ENRON_SNAPSHOTS, (), ENRON_EPOCHS),
                 ("america_air", "america-air", None,
-                 ("nodes_label", "edges_label"), AA_EPOCHS)):
+                 ("nodes_label", "edges_label"), AA_EPOCHS),
+                ("math", "math", MATH_SNAPSHOTS, (), EPOCHS)):
             base = work / name
             src = ROOT / "data" / name
             for folder in ("nodes_set",) + extra:
@@ -1317,13 +1467,23 @@ def main():
                 core_backend="pallas", epoch=EPOCHS,
                 embed_folder="2.embedding/CTGCN-C-slink-dy",
                 model_file="ctgcn-c-slink-dy")
+        # the zoo: configs as written, one window of one snapshot
+        for name, data, method in (("enron_gcn", "enron", "GCN"),
+                                   ("math_gin", "math", "GIN"),
+                                   ("uci_tggcn", "uci", "TgGCN"),
+                                   ("as_tggin", "as", "TgGIN")):
+            variant(name, data, method, end_idx=0, epoch=EPOCHS)
 
         # 3. kernels at the paths' shapes, and small-model parity
         kernels = phase_kernels(cfgs["uci_pallas"][2], dev)
         kernels_ell, as_plans = phase_kernels_ell(cfgs["as"][2], dev)
         kernels_bf16 = phase_kernels_bf16(cfgs["enron"][2], as_plans, dev)
         del as_plans
+        kernels_zoo = phase_kernels_zoo(
+            {"enron": (cfgs["enron_gcn"][2], "GCN"),
+             "math": (cfgs["math_gin"][2], "GIN")}, dev)
         phase_parity(dev)
+        phase_parity_zoo(dev)
 
         # 4. the paths, counters set to 0 just before and read just after
         launches, results = {}, {}
@@ -1369,9 +1529,10 @@ def main():
     for name in KERNELS:
         by_path = {p: n[name] for p, n in launches.items()}
         if name in F32_KERNELS:
-            rows = {**kernels[name], "ell_as": kernels_ell[name]}
+            rows = {**kernels[name], "ell_as": kernels_ell[name],
+                    "zoo": kernels_zoo[name]}
             status = ("matches its plain versions, launched on the pallas "
-                      "and ELL paths")
+                      "and ELL paths and on the zoo's plans")
         else:
             rows = kernels_bf16[name]
             status = ("matches its plain version (bf16 and f32 out), "

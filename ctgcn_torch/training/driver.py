@@ -140,20 +140,16 @@ def _zoo_adjacency(method, idx, time_length, data_loader, args):
     """The zoo's window: its adjacency as the JAX driver normalizes it per
     method, and GIN's neighbor table when its config asks for max
     pooling."""
-    if method in ("GCN", "GAT", "GCRN"):
-        normalize, row_norm, add_eye = True, True, True
-    elif method == "EvolveGCN":
-        normalize, row_norm, add_eye = True, False, True
-    else:
-        normalize, row_norm, add_eye = False, False, False
+    # of the ported methods the JAX driver normalizes only GCN, to
+    # D^-1 (A + I); GIN pools a node with its neighbours (+I) unless it
+    # learns eps
+    gcn = method == "GCN"
     is_gin = method in ("GIN", "TgGIN")
-    # GIN pools a node with its neighbours (+I) unless it learns eps
-    gin_add_eye = is_gin and not args.get("learn_eps", True)
     sep = args.get("file_sep", "\t")
     adjs = data_loader.get_date_adj_list(
-        args["origin_base_path"], idx, time_length, sep=sep,
-        normalize=normalize, row_norm=row_norm,
-        add_eye=add_eye or gin_add_eye,
+        args["origin_base_path"], idx, time_length, sep=sep, normalize=gcn,
+        row_norm=gcn,
+        add_eye=gcn or (is_gin and not args.get("learn_eps", True)),
         adj_backend=args.get("adj_backend", "auto"))
     neighbor_data = None
     if is_gin and args.get("pooling_type", "sum") == "max":
