@@ -60,13 +60,6 @@ class SparseGraph:
             else self.plan_fwd.to(device),
             plan_t=None if self.plan_t is None else self.plan_t.to(device))
 
-    def transpose(self) -> "SparseGraph":
-        """Rows and columns swapped (no longer sorted by row; the plans
-        swap too)."""
-        return SparseGraph(rows=self.cols, cols=self.rows, vals=self.vals,
-                           n_rows=self.n_cols, n_cols=self.n_rows,
-                           plan_fwd=self.plan_t, plan_t=self.plan_fwd)
-
 
 def from_coo(rows, cols, vals, shape):
     """SparseGraph from host COO arrays, sorted by (row, col)."""
