@@ -60,7 +60,21 @@ kernel against its plain PyTorch version:
   * uci_tggcn, as_tggin  ``configs/uci.json`` TgGCN (the raw A) and
                 ``configs/as.json`` TgGIN (learnt eps, the raw A) on window
                 0, 3 epochs: below 16,384 nodes the segment SpMM, no kernel
-                of ours.
+                of ours;
+  * enron_gat   ``configs/enron.json`` GAT as written (head_num 1, alpha
+                0.2, dropout 0.5, batch 32768) on Enron snapshot 000, 3
+                epochs: the attention values of D^-1 (A + I)'s structure
+                (hub row 1,148) go through ``ell_spmm_ev`` on the
+                block-parallel kernel, both directions;
+  * math_tggat  ``configs/math.json`` TgGAT (the raw A, default alpha and
+                head_num) on Math snapshot 000, 3 epochs: the row walk,
+                both directions;
+  * enron_sage  ``configs/enron.json`` SAGE as written (``num_sample:
+                null``, so every neighbour; sum pooling) on Enron snapshot
+                000 (a neighbour table of 87,036 x 1,147), 3 epochs, no
+                kernel of ours;
+  * as_tgsage   ``configs/as.json`` TgSAGE (5 neighbours sampled, sum
+                pooling) on window 0, 3 epochs, no kernel of ours.
 
 Phases, one line each:
 
@@ -88,11 +102,21 @@ Phases, one line each:
                 under GCN's D^-1 (A + I), Math under GIN's A + I), both
                 directions, d = 500 and 128, against the CSR plain version,
                 then timed beside it, ``torch.sparse.mm`` and the bound;
+                then with edge values given per call (``ell_spmm_ev``'s
+                product) on GAT's plans of Enron 000 and TgGAT's of Math
+                000, random positive values, against ``spmm_ev`` and the
+                CSR plain version, timed beside them, the value gather, the
+                SDDMM of the values' gradient and ``torch.sparse.mm`` on
+                the same values;
      parity     small CTGCN-C models on BSR and on delta-ELL plans, forward
                 and gradients, kernels on the GPU against the plain versions
                 on the CPU, and one on f32 blocks at ``"high"`` (3xTF32);
                 small GCN (on the block-parallel kernel) and GIN (on the
-                row walk) models the same way;
+                row walk) models the same way, a small 2-head GAT on each
+                kernel (values and gradients through ``ell_spmm_ev``, so
+                ``W`` and ``a`` take both d(vals) and d(x); against the
+                CPU in float64) and a small SAGE with ``num_sample`` above
+                its largest degree;
   4. paths      each path with the launch counters set to 0 just before it
                 and read just after (``PATHS``: the kernels each must launch,
                 every other must not), and Enron's bf16 / "highest" loss gap;
@@ -247,30 +271,32 @@ def _time_ms_cold(fn, dev, iters=10):
     return total / iters
 
 
-def _plan_csr(plan):
+def _plan_csr(plan, vals=None):
     """The plan's matrix as a torch sparse CSR tensor on its device (the
-    library yardstick's input), from the plan's own CSR arrays."""
+    library yardstick's input), from the plan's own CSR arrays (``vals``
+    in place of its values when given)."""
     import torch
 
-    return torch.sparse_csr_tensor(plan.csr_ptr.long(), plan.csr_col.long(),
-                                   plan.csr_val, (plan.n_rows, plan.n_cols),
-                                   check_invariants=False)
+    return torch.sparse_csr_tensor(
+        plan.csr_ptr.long(), plan.csr_col.long(),
+        plan.csr_val if vals is None else vals, (plan.n_rows, plan.n_cols),
+        check_invariants=False)
 
 
-def _bound(plan, d, x_bytes=4, out_bytes=4):
+def _bound(plan, d, x_bytes=4, out_bytes=4, extra_bytes=0):
     """Least time for ``out = A @ x`` with ``plan`` at width d: the larger
     of the bytes the product must move (A's values, column indices and row
     pointers, the rows of x that A's columns name, and out, each once;
-    ``x_bytes`` / ``out_bytes`` per element: 2 for bf16) over the HBM rate
-    and its 2 * nnz * d FLOPs over the FP32 peak (the kernels multiply in
-    f32 FFMA).  Rows of x that no nonzero names need not be read: in a
-    pyramid transpose that is most of g, whose rows for empty slot rows
-    are never used."""
+    ``x_bytes`` / ``out_bytes`` per element: 2 for bf16; plus
+    ``extra_bytes``) over the HBM rate and its 2 * nnz * d FLOPs over the
+    FP32 peak (the kernels multiply in f32 FFMA).  Rows of x that no
+    nonzero names need not be read: in a pyramid transpose that is most of
+    g, whose rows for empty slot rows are never used."""
     import torch
 
     x_rows = int(torch.unique(plan.csr_col).numel())
     flops = 2.0 * plan.nnz * d
-    bytes_ = (plan.nnz * 8 + (plan.n_rows + 1) * 4
+    bytes_ = (plan.nnz * 8 + (plan.n_rows + 1) * 4 + extra_bytes
               + x_rows * d * x_bytes + plan.n_rows * d * out_bytes)
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, bytes_ / PEAK_HBM_BYTES
     return {
@@ -309,15 +335,21 @@ def _spmm_widths(cfg, align):
                  for k in ("hid_dim", "embed_dim"))
 
 
-def _kernel_rows(tag, plans, dev, widths, extra_check=None):
+def _kernel_rows(tag, plans, dev, widths, extra_check=None, vals=None):
     """Each kernel on each of ``plans`` (name -> device plan) at each of
     ``widths`` against the CSR plain version (and ``extra_check``), then
     each kernel's time on every plan at every width beside the plain
-    version's, the library call's and the bound.  Returns the row of each
-    kernel on the plan ``dispatch`` gives it, at the first width."""
+    version's, the library call's and the bound.  With ``vals`` (name ->
+    f32 values in plan order) the kernels, the plain version and the
+    library read those in place of the plans' values, and the bound adds
+    4 bytes a nonzero for reading them.  Returns the row of each kernel on
+    the plan ``dispatch`` gives it, at the first width."""
     import torch
 
     from ctgcn_torch.ops import bsr_spmm as B
+
+    def v_of(pk):
+        return () if vals is None else (vals[pk],)
 
     gen = torch.Generator(device=dev).manual_seed(0)
     inputs = {k: torch.randn(p.n_cols, max(widths), device=dev,
@@ -336,8 +368,8 @@ def _kernel_rows(tag, plans, dev, widths, extra_check=None):
         for pk, plan in plans.items():
             for dd in widths:
                 inp = inputs[pk][:, :dd].contiguous()
-                got = kern(plan, inp)
-                ref = B.bsr_spmm_csr_plain(plan, inp)
+                got = kern(plan, inp, *v_of(pk))
+                ref = B.bsr_spmm_csr_plain(plan, inp, *v_of(pk))
                 err = _check_close(f"{tag} {name} {pk} d={dd}", got, ref)
                 errs[name, pk, dd] = (err, err / float(ref.abs().max()))
                 if extra_check is not None:
@@ -349,19 +381,20 @@ def _kernel_rows(tag, plans, dev, widths, extra_check=None):
     results = {}
     times = {name: [] for name in F32_KERNELS}
     for pk, plan in plans.items():
-        csr = _plan_csr(plan)
+        v = v_of(pk)
+        csr = _plan_csr(plan, *v)
         for dd in widths:
             inp = inputs[pk][:, :dd].contiguous()
-            bound = _bound(plan, dd)
+            bound = _bound(plan, dd, extra_bytes=4 * plan.nnz if v else 0)
             library_ms = _time_ms(lambda: torch.sparse.mm(csr, inp))
             _check_close(f"{tag} torch.sparse.mm {pk} d={dd}",
                          torch.sparse.mm(csr, inp),
-                         B.bsr_spmm_csr_plain(plan, inp))
-            plain_ms = _time_ms(lambda: B.bsr_spmm_csr_plain(plan, inp),
+                         B.bsr_spmm_csr_plain(plan, inp, *v))
+            plain_ms = _time_ms(lambda: B.bsr_spmm_csr_plain(plan, inp, *v),
                                 iters=5, warmup=1)
             for name in F32_KERNELS:
                 kern = getattr(B, name)
-                ms = _time_ms(lambda: kern(plan, inp))
+                ms = _time_ms(lambda: kern(plan, inp, *v))
                 row = {"plan": pk, "d": dd, "ms": ms, "plain_ms": plain_ms,
                        "library_ms": library_ms,
                        "bound_ms": bound["bound_ms"],
@@ -376,7 +409,7 @@ def _kernel_rows(tag, plans, dev, widths, extra_check=None):
                         plan, row_order=torch.arange(
                             plan.n_rows, dtype=torch.int32, device=dev))
                     extra = {"ms_natural_row_order": _time_ms(
-                        lambda: kern(natural, inp))}
+                        lambda: kern(natural, inp, *v))}
                 else:
                     extra = {}
                 results[name] = {
@@ -386,7 +419,7 @@ def _kernel_rows(tag, plans, dev, widths, extra_check=None):
                     "bound_ms": bound["bound_ms"],
                     "bound_by": bound["bound_by"],
                     "library_ms": library_ms,
-                    "ms_cold_l2": _time_ms_cold(lambda: kern(plan, inp),
+                    "ms_cold_l2": _time_ms_cold(lambda: kern(plan, inp, *v),
                                                 dev), **extra}
                 _phase(tag, kernel=name, **results[name],
                        max_rel_err=rel_err,
@@ -537,6 +570,93 @@ def phase_kernels_zoo(cfgs, dev):
         raise AssertionError(f"dispatch gives {got} on the zoo's plans")
     widths = _spmm_widths(cfgs["enron"][0], B.D_ALIGN)
     return _kernel_rows("kernels_zoo", plans, dev, widths)
+
+
+def phase_kernels_zoo_ev(cfgs, dev):
+    """Both f32 kernels with edge values given per call (the product of
+    ``ell_spmm_ev``) on the ``EvPlan`` pairs of snapshot 000 as the driver
+    builds them: Enron under GAT (D^-1 (A + I)'s structure, hub row 1,148:
+    the block-parallel kernel) and Math under TgGAT (the raw A: the row
+    walk), each direction, at d = 500 and 128, with random positive
+    values: against the CSR plain version fed the values in plan order and
+    against the segment ``spmm_ev`` fed them in edge order; then timed
+    beside them and ``torch.sparse.mm`` on the same values.  Also the
+    other pieces of an ``ell_spmm_ev`` call on each plan: the gather of
+    the values into plan order, the whole forward, and the SDDMM of the
+    values' gradient (``g[row] . x[col]``)."""
+    import torch
+
+    from ctgcn_torch.ops import bsr_spmm as B
+    from ctgcn_torch.ops.ell import ell_spmm_ev
+    from ctgcn_torch.ops.spmm import spmm_ev
+    from ctgcn_torch.training.driver import get_data_loader, get_input_data
+
+    plans, edge_vals, pairs = {}, {}, {}
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for data, (cfg, method) in cfgs.items():
+        args = dict(cfg)
+        loader = get_data_loader(args)
+        t0 = time.time()
+        _, window = get_input_data(method, 0, 1, loader, args)
+        built_s = time.time() - t0
+        graph = window["adjs"][0]
+        if graph.plan_ev_fwd is None:
+            raise AssertionError(f"{data} {method}: no EvPlan pair")
+        fwd, tr = graph.plan_ev_fwd.to(dev), graph.plan_ev_t.to(dev)
+        _phase("kernels_zoo_ev", data=data, method=method,
+               window_built_seconds=built_s, n_nodes=fwd.n_rows,
+               nnz=fwd.nnz, max_row_nnz_fwd=fwd.max_row_nnz,
+               max_row_nnz_t=tr.max_row_nnz,
+               dispatch=[B.dispatch(p).__name__ for p in (fwd, tr)])
+        vals = torch.rand(fwd.nnz, device=dev, generator=gen) + 0.1
+        pairs[data] = (fwd, tr, vals)
+        for direction, plan in (("forward", fwd), ("transpose", tr)):
+            plans[f"{data}_{direction}"] = plan
+            edge_vals[f"{data}_{direction}"] = vals
+    want = {"enron_forward": "bsr_spmm_blockpar",
+            "enron_transpose": "bsr_spmm_blockpar",
+            "math_forward": "bsr_spmm_rowwalk",
+            "math_transpose": "bsr_spmm_rowwalk"}
+    got = {k: B.dispatch(plans[k]).__name__ for k in want}
+    if got != want:
+        raise AssertionError(f"dispatch gives {got} on the EvPlans")
+    plan_vals = {k: edge_vals[k][p.csr_eid].contiguous()
+                 for k, p in plans.items()}
+
+    def segment_check(what, kern, pk, inp, got, ref):
+        plan = plans[pk]
+        _check_close(f"{what} vs spmm_ev", got,
+                     spmm_ev(plan.flat_rows, plan.flat_cols, edge_vals[pk],
+                             inp, plan.n_rows))
+
+    widths = _spmm_widths(cfgs["enron"][0], B.D_ALIGN)
+    results = _kernel_rows("kernels_zoo_ev", plans, dev, widths,
+                           segment_check, vals=plan_vals)
+    # the rest of an ell_spmm_ev call, on the forward plans (the
+    # transpose's gather is the backward's)
+    pieces = []
+    for pk, plan in plans.items():
+        fwd, tr, vals = pairs[pk.split("_")[0]]
+        for dd in widths:
+            x = torch.randn(plan.n_cols, dd, device=dev, generator=gen)
+            g = torch.randn(plan.n_rows, dd, device=dev, generator=gen)
+            with torch.no_grad():
+                row = {
+                    "plan": pk, "d": dd, "nnz": plan.nnz,
+                    "gather_ms": _time_ms(lambda: vals[plan.csr_eid]),
+                    "sddmm_ms": _time_ms(lambda: (
+                        g[plan.flat_rows] * x[plan.flat_cols]).sum(-1)),
+                    "spmm_ev_plain_ms": _time_ms(lambda: spmm_ev(
+                        plan.flat_rows, plan.flat_cols, vals, x,
+                        plan.n_rows), iters=5, warmup=1)}
+                if pk.endswith("forward"):
+                    row["ell_spmm_ev_forward_ms"] = _time_ms(
+                        lambda: ell_spmm_ev(fwd, tr, vals, x))
+            pieces.append(row)
+            _phase("kernels_zoo_ev", **row)
+    for name in F32_KERNELS:
+        results[name]["pieces"] = pieces
+    return results
 
 
 def _check_bf16(name, got, ref_f32, out_dtype):
@@ -829,27 +949,121 @@ def phase_parity_zoo(dev):
         if chosen != {kernel}:
             raise AssertionError(f"the {name} parity model reaches {chosen}, "
                                  f"not {kernel}")
-        res = []
-        for d in (torch.device("cpu"), dev):
-            mod = model.to(d)
-            mod.zero_grad(set_to_none=True)
-            y = mod(None, tuple(g.to(d) for g in graphs))
-            torch.tanh(y).square().sum().backward()
-            res.append((y.detach().cpu(),
-                        {k: p.grad.detach().cpu()
-                         for k, p in mod.named_parameters()
-                         if p.grad is not None}))
-        (yc, gc), (yg, gg) = res
-        tol = {"rtol": PARITY_TOL, "atol_rel": PARITY_TOL}
-        err_f = _check_close(f"parity {name} forward", yg, yc, **tol)
-        # against the model's largest gradient: a bias before a BatchNorm
-        # has a zero gradient but for rounding
-        scale = max(float(v.abs().max()) for v in gc.values())
-        err_g = max(_check_close(f"parity {name} grad {k}", gg[k], gc[k],
-                                 scale=scale, **tol) for k in gc)
-        _phase("parity", model=name, kernel=kernel, tolerance=PARITY_TOL,
-               n=n, T=T, hid=hid, max_abs_err_forward=err_f,
-               max_abs_err_grads=err_g)
+        _cpu_against_card(name, model,
+                          lambda d: tuple(g.to(d) for g in graphs), dev,
+                          kernel=kernel, n=n, T=T, hid=hid)
+
+
+def _tanh_square(y):
+    import torch
+
+    return torch.tanh(y).square().sum()
+
+
+def _cpu_against_card(name, model, inputs_on, dev, loss=_tanh_square,
+                      cpu_dtype=None, **fields):
+    """Forward and every parameter gradient of ``loss(y)`` (by default
+    sum(tanh(y)^2)) for ``model(None, inputs_on(device))`` on the CPU and
+    on the card, within PARITY_TOL: the outputs of their largest, each
+    gradient of the model's largest gradient (a bias before a BatchNorm
+    has a zero gradient but for rounding).  ``cpu_dtype`` float64 runs
+    the CPU side in float64 (the card's stays float32)."""
+    import torch
+
+    res = []
+    for d in (torch.device("cpu"), dev):
+        mod = model.to(d, dtype=cpu_dtype if d.type == "cpu" and cpu_dtype
+                       else torch.float32)
+        mod.zero_grad(set_to_none=True)
+        y = mod(None, inputs_on(d))
+        loss(y).backward()
+        res.append((y.detach().cpu(),
+                    {k: p.grad.detach().cpu()
+                     for k, p in mod.named_parameters()
+                     if p.grad is not None}))
+    (yc, gc), (yg, gg) = res
+    if set(gc) != set(gg) or not gc:
+        raise AssertionError(f"parity {name}: gradients of {sorted(gc)} on "
+                             f"the CPU, {sorted(gg)} on the card")
+    tol = {"rtol": PARITY_TOL, "atol_rel": PARITY_TOL}
+    err_f = _check_close(f"parity {name} forward", yg, yc, **tol)
+    scale = max(float(v.abs().max()) for v in gc.values())
+    err_g = max(_check_close(f"parity {name} grad {k}", gg[k], gc[k],
+                             scale=scale, **tol) for k in gc)
+    _phase("parity", model=name, tolerance=PARITY_TOL,
+           max_abs_err_forward=err_f, max_abs_err_grads=err_g,
+           grads=sorted(gc), **fields)
+
+
+def phase_parity_attn(dev):
+    """A small GAT (2 heads, N = 1800, T = 2, hid 500, embed 64, dropout
+    off) on the kernels through ``ell_spmm_ev``, forward and gradients of
+    W and a (so through d(vals) and d(x)), on the card against the CPU:
+    on D^-1 (A + I) of a graph whose node 0 has degree 300 (the
+    block-parallel kernel) and of one without a hub (the row walk).  Then
+    a small SAGE (sum pooling, dropout off) at ``num_sample`` above the
+    largest degree, where every node takes all its neighbours and the
+    draw is deterministic.
+
+    GAT's loss is sum(y * w) for a fixed normal w, and its CPU side runs
+    in float64 through the segment ``spmm_ev`` (the plain version of the
+    edge-value product).  Its outputs are log-probabilities near
+    -log(64), where tanh saturates: under sum(tanh(y)^2) its gradients
+    fall to about 1e-3 with an f32 rounding noise of 4e-7.  And at the
+    hub node its gradients are ill-conditioned in f32: the card's lay
+    9.0e-4 from the CPU's f32 ones (a largest gradient of 4.2) and 1.1e-6
+    from the CPU's float64 ones (NVIDIA H100 80GB HBM3, 700 W)."""
+    import dataclasses
+
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    from ctgcn_torch.nn.gat import GAT
+    from ctgcn_torch.nn.sage import SAGE
+    from ctgcn_torch.ops import bsr_spmm as B
+    from ctgcn_torch.ops.ell import build_ev_plans
+    from ctgcn_torch.ops.neighbors import neighbor_table_from_scipy
+    from ctgcn_torch.ops.sparse import from_scipy, normalize_scipy_adj
+
+    n, T, hid, out_dim = 1800, 2, 500, 64
+    gen = torch.Generator().manual_seed(0)
+    for name, hub, kernel in (("gat_hub", 300, "bsr_spmm_blockpar"),
+                              ("gat", 0, "bsr_spmm_rowwalk")):
+        rng = np.random.default_rng(2)
+        graphs = []
+        for _ in range(T):
+            m = normalize_scipy_adj(_parity_adjacency(rng, n, hub)
+                                    + sp.eye(n), row_norm=True)
+            g = from_scipy(m)
+            fwd, tr = build_ev_plans(g.rows.numpy(), g.cols.numpy(), n, n)
+            graphs.append(dataclasses.replace(g, plan_ev_fwd=fwd,
+                                              plan_ev_t=tr))
+        chosen = {B.dispatch(p).__name__ for g in graphs
+                  for p in (g.plan_ev_fwd, g.plan_ev_t)}
+        if chosen != {kernel}:
+            raise AssertionError(f"the {name} parity model reaches "
+                                 f"{chosen}, not {kernel}")
+        model = GAT(n, hid, out_dim, dropout=0.5, head_num=2,
+                    generator=gen)
+        w = torch.randn(T, n, out_dim, generator=gen, dtype=torch.float64)
+        segment = tuple(dataclasses.replace(g, plan_ev_fwd=None,
+                                            plan_ev_t=None) for g in graphs)
+        _cpu_against_card(
+            name, model,
+            lambda d: segment if d.type == "cpu" else tuple(
+                g.to(d) for g in graphs), dev,
+            loss=lambda y: (y * w.to(y.device, y.dtype)).sum(),
+            cpu_dtype=torch.float64, kernel=kernel, n=n, T=T, hid=hid,
+            heads=2, loss_fn="sum(y * w), w normal",
+            cpu="float64, segment spmm_ev")
+    rng = np.random.default_rng(3)
+    nbr, deg = neighbor_table_from_scipy(
+        [_parity_adjacency(rng, n, 40) for _ in range(T)])
+    model = SAGE(n, hid, out_dim, num_sample=int(deg.max()) + 1,
+                 dropout=0.0, generator=gen)
+    _cpu_against_card("sage", model, lambda d: (nbr.to(d), deg.to(d)), dev,
+                      n=n, T=T, hid=hid, num_sample=int(deg.max()) + 1)
 
 
 def phase_core_numbers(base):
@@ -996,6 +1210,10 @@ PATHS = {
     "math_gin": ("math_gin", "GIN", "ell", ("bsr_spmm_rowwalk",)),
     "uci_tggcn": ("uci_tggcn", "TgGCN", "segment", ()),
     "as_tggin": ("as_tggin", "TgGIN", "segment", ()),
+    "enron_gat": ("enron_gat", "GAT", "ell", ("bsr_spmm_blockpar",)),
+    "math_tggat": ("math_tggat", "TgGAT", "ell", ("bsr_spmm_rowwalk",)),
+    "enron_sage": ("enron_sage", "SAGE", "ell", ()),
+    "as_tgsage": ("as_tgsage", "TgSAGE", "segment", ()),
 }
 #: the paths profiled, with their epochs under the profiler (aa_snode's
 #: 52,000 launches an epoch take the profiler minutes to sum; aa_sedge
@@ -1003,7 +1221,7 @@ PATHS = {
 PROFILED = {"uci_auto": 2, "uci_pallas": 2, "as_auto": 2, "as_ctgcn_s": 2,
             "as_bf16": 2, "enron_bf16": 1, "uci_cgcn_c": 2, "uci_cgcn_s": 2,
             "aa_snode": 1, "as_ctgcn_s_slink": 2, "uci_slink_dy": 2,
-            "enron_gcn": 2, "math_gin": 2}
+            "enron_gcn": 2, "math_gin": 2, "enron_gat": 2, "enron_sage": 2}
 
 
 def _write_config(path, method, pre, emb):
@@ -1471,7 +1689,11 @@ def main():
         for name, data, method in (("enron_gcn", "enron", "GCN"),
                                    ("math_gin", "math", "GIN"),
                                    ("uci_tggcn", "uci", "TgGCN"),
-                                   ("as_tggin", "as", "TgGIN")):
+                                   ("as_tggin", "as", "TgGIN"),
+                                   ("enron_gat", "enron", "GAT"),
+                                   ("math_tggat", "math", "TgGAT"),
+                                   ("enron_sage", "enron", "SAGE"),
+                                   ("as_tgsage", "as", "TgSAGE")):
             variant(name, data, method, end_idx=0, epoch=EPOCHS)
 
         # 3. kernels at the paths' shapes, and small-model parity
@@ -1482,8 +1704,12 @@ def main():
         kernels_zoo = phase_kernels_zoo(
             {"enron": (cfgs["enron_gcn"][2], "GCN"),
              "math": (cfgs["math_gin"][2], "GIN")}, dev)
+        kernels_zoo_ev = phase_kernels_zoo_ev(
+            {"enron": (cfgs["enron_gat"][2], "GAT"),
+             "math": (cfgs["math_tggat"][2], "TgGAT")}, dev)
         phase_parity(dev)
         phase_parity_zoo(dev)
+        phase_parity_attn(dev)
 
         # 4. the paths, counters set to 0 just before and read just after
         launches, results = {}, {}
@@ -1530,9 +1756,10 @@ def main():
         by_path = {p: n[name] for p, n in launches.items()}
         if name in F32_KERNELS:
             rows = {**kernels[name], "ell_as": kernels_ell[name],
-                    "zoo": kernels_zoo[name]}
+                    "zoo": kernels_zoo[name], "zoo_ev": kernels_zoo_ev[name]}
             status = ("matches its plain versions, launched on the pallas "
-                      "and ELL paths and on the zoo's plans")
+                      "and ELL paths and on the zoo's plans, with the "
+                      "plans' values and with GAT's per-step values")
         else:
             rows = kernels_bf16[name]
             status = ("matches its plain version (bf16 and f32 out), "

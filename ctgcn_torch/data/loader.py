@@ -1,11 +1,11 @@
 # coding: utf-8
 """Window loaders (port of ``ctgcn_tpu/data/loader.py``, the parts the
-CGCN / CTGCN paths and the zoo's GCN / GIN read): the k-core pyramid bank
-of a window on its core backend, the walk tables as CSR ``WalkData``, the
-adjacency (raw or normalized, as scipy matrices or ``SparseGraph``s with
-the kernels' plans) and edge lists, the node features (file, or built
-from degrees for the S-variants), and the node and edge labels of the
-supervised types.
+CGCN / CTGCN paths and the zoo's GCN, GIN, GAT and SAGE read): the k-core
+pyramid bank of a window on its core backend, the walk tables as CSR
+``WalkData``, the adjacency (raw or normalized, as scipy matrices or
+``SparseGraph``s with the kernels' plans) and edge lists, the node
+features (file, or built from degrees for the S-variants), and the node
+and edge labels of the supervised types.
 
 Everything here is built on the host; the driver moves the results to the
 training device.
@@ -23,6 +23,7 @@ import torch
 from ctgcn_torch.data.formats import get_sp_adj_mat, infer_names, sorted_dir
 from ctgcn_torch.losses import WalkData
 from ctgcn_torch.ops.bsr_spmm import build_csr_plan
+from ctgcn_torch.ops.ell import build_ev_plans
 from ctgcn_torch.ops.pyramid import (attach_ell_plans, build_core_pyramid,
                                       stack_pyramids)
 from ctgcn_torch.ops.sparse import from_scipy, normalize_scipy_adj
@@ -74,8 +75,10 @@ class DataLoader:
         """The window's adjacency (``get_scipy_adj_list``) as one host
         ``SparseGraph`` per snapshot.  ``adj_backend``: ``"ell"`` gives each
         graph the ``CsrPlan`` of its matrix and of its transpose (the CUDA
-        kernels' inputs; the JAX package's ELL plans), ``"segment"`` none,
-        ``"auto"`` plans from ``ELL_AUTO_NODES`` nodes on."""
+        kernels' inputs; the JAX package's ELL plans) and the ``EvPlan``
+        pair of its structure (for edge values computed per step; the JAX
+        package's ELL-ev plans), ``"segment"`` none, ``"auto"`` plans from
+        ``ELL_AUTO_NODES`` nodes on."""
         if adj_backend not in ADJ_BACKENDS:
             raise ValueError(f"adj_backend {adj_backend!r}, not one of "
                              f"{ADJ_BACKENDS}")
@@ -85,9 +88,14 @@ class DataLoader:
         graphs = [from_scipy(m) for m in mats]
         if adj_backend == "ell" or (adj_backend == "auto" and
                                     self.node_num >= self.ELL_AUTO_NODES):
-            graphs = [dataclasses.replace(g, plan_fwd=build_csr_plan(m),
-                                          plan_t=build_csr_plan(m.T))
-                      for g, m in zip(graphs, mats)]
+            planned = []
+            for g, m in zip(graphs, mats):
+                ev_fwd, ev_t = build_ev_plans(g.rows.numpy(), g.cols.numpy(),
+                                              g.n_rows, g.n_cols)
+                planned.append(dataclasses.replace(
+                    g, plan_fwd=build_csr_plan(m), plan_t=build_csr_plan(m.T),
+                    plan_ev_fwd=ev_fwd, plan_ev_t=ev_t))
+            graphs = planned
         return tuple(graphs)
 
     def get_edge_list(self, origin_base_path, start_idx, duration, sep="\t"):

@@ -16,7 +16,11 @@ the JAX heads ``MLPClassifier`` and ``EdgeClassifier`` map as they are onto
 (``gc1.*``, ``gc2.*``) and ``GIN`` (``linear.*``,
 ``mlps.<l>.layers.<i>.*``, ``mlps.<l>.norms.<i>.*``, ``norms.<l>.*``,
 ``eps``) onto ``ctgcn_torch.nn.gcn`` and ``ctgcn_torch.nn.gin``: GIN's
-``mlps`` is a tuple of layers, not a leaf with a [T] axis.
+``mlps`` is a tuple of layers, not a leaf with a [T] axis.  The zoo's
+``GAT`` (``attentions.<i>.W``, ``attentions.<i>.a``, ``out_att.W``,
+``out_att.a``) and ``SAGE`` (``linear.*``, ``sage1.linear.*``,
+``sage2.linear.*``) map as they are onto ``ctgcn_torch.nn.gat`` and
+``ctgcn_torch.nn.sage``.
 """
 from __future__ import annotations
 
@@ -37,8 +41,8 @@ def _flatten(tree, prefix=""):
 
 
 def params_from_numpy(tree):
-    """JAX CTGCN / CGCN / MLPClassifier / EdgeClassifier / GCN / GIN
-    parameter tree (nested dicts of arrays) -> state_dict."""
+    """JAX CTGCN / CGCN / MLPClassifier / EdgeClassifier / GCN / GIN / GAT
+    / SAGE parameter tree (nested dicts of arrays) -> state_dict."""
     state = {}
     for name, arr in _flatten(tree).items():
         head, _, rest = name.partition(".")

@@ -21,6 +21,11 @@ plan's CSR; on a CUDA tensor it launches the kernel (built from
 launches in ``.launches``.  ``bsr_spmm_plain`` multiplies the dense blocks
 and is a second, independent oracle.
 
+The f32 wrappers also take the values as an argument (``vals``, one f32
+per nonzero in plan order) in place of the plan's ``csr_val``: the edge
+values that a model computes every step (GAT's attention, through
+``ell.ell_spmm_ev``) reach the kernels that way, on a plan built once.
+
 Each kernel has an f32 wrapper and a bf16 one (``*_bf16``: x in bf16, out
 in bf16 or f32), the counterpart of the JAX package's bf16 gathers
 (``ell_spmm(..., bf16=True)``); ``bsr_spmm_csr_plain_bf16`` is their plain
@@ -267,7 +272,8 @@ def build_pyramid_plans(slot_mats, n_nodes, num_slots, block=BLOCK):
 # the kernels: plain versions and wrappers
 # ---------------------------------------------------------------------------
 
-def _check(plan: CsrPlan, x: torch.Tensor, dtype=torch.float32):
+def _check(plan: CsrPlan, x: torch.Tensor, dtype=torch.float32,
+           vals=None):
     align = D_ALIGN_BF16 if dtype == torch.bfloat16 else D_ALIGN
     if x.dtype != dtype or x.dim() != 2 or not x.is_contiguous():
         raise ValueError(f"x must be a contiguous {dtype} [n_cols, d] tensor")
@@ -282,6 +288,11 @@ def _check(plan: CsrPlan, x: torch.Tensor, dtype=torch.float32):
         if t.device != x.device or t.dtype != want or not t.is_contiguous():
             raise ValueError(f"plan.{name} must be a contiguous {want} "
                              f"tensor on {x.device}")
+    if vals is not None and (
+            vals.dtype != torch.float32 or vals.shape != (plan.nnz,)
+            or not vals.is_contiguous() or vals.device != x.device):
+        raise ValueError(f"vals must be a contiguous float32 [{plan.nnz}] "
+                         f"tensor on {x.device}")
     # the kernels move x and out 16 bytes at a time
     if x.device.type == "cuda" and x.data_ptr() % 16:
         raise ValueError("x must be 16-byte aligned")
@@ -298,13 +309,14 @@ def _rows(plan: CsrPlan, device):
         torch.arange(plan.n_rows, device=device), plan.csr_ptr.diff())
 
 
-def bsr_spmm_csr_plain(plan: CsrPlan, x):
+def bsr_spmm_csr_plain(plan: CsrPlan, x, vals=None):
     """Plain version of both kernels over the arrays they read, ``A @ x``:
     gather ``x[col] * val`` per nonzero and add it into its row (rows from
-    ``csr_ptr``)."""
+    ``csr_ptr``); ``vals`` in place of ``csr_val`` when given."""
+    vals = plan.csr_val if vals is None else vals
     out = x.new_zeros(plan.n_rows, x.shape[1])
     out.index_add_(0, _rows(plan, x.device),
-                   x[plan.csr_col.long()] * plan.csr_val[:, None])
+                   x[plan.csr_col.long()] * vals[:, None])
     return out
 
 
@@ -347,20 +359,22 @@ def _raise_on(rc, name):
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
 
 
-def _launch(name, plan: CsrPlan, x, out_dtype, *extra):
+def _launch(name, plan: CsrPlan, x, out_dtype, *extra, vals=None):
     """Launch C entry point ``name`` on ``plan`` and x (CUDA): the row
     walk's arguments, or the block-parallel kernel's with its scratch;
-    ``extra`` goes before the stream (the bf16 entry points' out_f32)."""
+    ``extra`` goes before the stream (the bf16 entry points' out_f32).
+    The kernel reads ``vals`` in place of ``plan.csr_val`` when given."""
     from ctgcn_torch.ops.cuda_build import load_kernels
 
     lib = load_kernels()
+    val_ptr = (plan.csr_val if vals is None else vals).data_ptr()
     d = x.shape[1]
     out = torch.empty(plan.n_rows, d, device=x.device, dtype=out_dtype)
     with torch.cuda.device(x.device):
         if name.startswith("bsr_spmm_rowwalk"):
             rc = getattr(lib, name)(
                 plan.csr_ptr.data_ptr(), plan.csr_col.data_ptr(),
-                plan.csr_val.data_ptr(), plan.row_order.data_ptr(),
+                val_ptr, plan.row_order.data_ptr(),
                 x.data_ptr(), out.data_ptr(), plan.n_rows, d, *extra,
                 _stream(x))
         else:
@@ -369,14 +383,15 @@ def _launch(name, plan: CsrPlan, x, out_dtype, *extra):
                                   device=x.device)
             rc = getattr(lib, name)(
                 plan.csr_ptr.data_ptr(), plan.csr_row.data_ptr(),
-                plan.csr_col.data_ptr(), plan.csr_val.data_ptr(),
+                plan.csr_col.data_ptr(), val_ptr,
                 x.data_ptr(), scratch.data_ptr(), out.data_ptr(),
                 plan.n_rows, plan.nnz, CHUNK, d, *extra, _stream(x))
     _raise_on(rc, name)
     return out
 
 
-def bsr_spmm_rowwalk(plan: CsrPlan, x: torch.Tensor) -> torch.Tensor:
+def bsr_spmm_rowwalk(plan: CsrPlan, x: torch.Tensor,
+                     vals: torch.Tensor | None = None) -> torch.Tensor:
     """``A @ x`` by the row-walk kernel (counterpart of ``_spmm_kernel``,
     ``ctgcn_tpu/ops/pallas_spmm.py:97``).
 
@@ -389,12 +404,13 @@ def bsr_spmm_rowwalk(plan: CsrPlan, x: torch.Tensor) -> torch.Tensor:
     L1.  A row stays on one SM, so plans with long rows are slow here
     (``dispatch`` sends them to ``bsr_spmm_blockpar``).
 
-    x: contiguous f32 [n_cols, d], d a multiple of 4 -> f32 [n_rows, d].
+    x: contiguous f32 [n_cols, d], d a multiple of 4 -> f32 [n_rows, d];
+    vals: optional contiguous f32 [nnz] in place of ``plan.csr_val``.
     """
-    _check(plan, x)
+    _check(plan, x, vals=vals)
     if x.device.type == "cpu":
-        return bsr_spmm_csr_plain(plan, x)
-    out = _launch("bsr_spmm_rowwalk", plan, x, torch.float32)
+        return bsr_spmm_csr_plain(plan, x, vals)
+    out = _launch("bsr_spmm_rowwalk", plan, x, torch.float32, vals=vals)
     bsr_spmm_rowwalk.launches += 1
     return out
 
@@ -402,7 +418,8 @@ def bsr_spmm_rowwalk(plan: CsrPlan, x: torch.Tensor) -> torch.Tensor:
 bsr_spmm_rowwalk.launches = 0
 
 
-def bsr_spmm_blockpar(plan: CsrPlan, x: torch.Tensor) -> torch.Tensor:
+def bsr_spmm_blockpar(plan: CsrPlan, x: torch.Tensor,
+                      vals: torch.Tensor | None = None) -> torch.Tensor:
     """``A @ x`` by the block-parallel kernel (counterpart of
     ``_spmm_v2_kernel``, ``ctgcn_tpu/ops/pallas_spmm.py:146``).
 
@@ -417,12 +434,13 @@ def bsr_spmm_blockpar(plan: CsrPlan, x: torch.Tensor) -> torch.Tensor:
     programmatic dependent launch that starts in pass 1's last wave.
     Bound by bytes, like the row walk.
 
-    x: contiguous f32 [n_cols, d], d a multiple of 4 -> f32 [n_rows, d].
+    x: contiguous f32 [n_cols, d], d a multiple of 4 -> f32 [n_rows, d];
+    vals: optional contiguous f32 [nnz] in place of ``plan.csr_val``.
     """
-    _check(plan, x)
+    _check(plan, x, vals=vals)
     if x.device.type == "cpu":
-        return bsr_spmm_csr_plain(plan, x)
-    out = _launch("bsr_spmm_blockpar", plan, x, torch.float32)
+        return bsr_spmm_csr_plain(plan, x, vals)
+    out = _launch("bsr_spmm_blockpar", plan, x, torch.float32, vals=vals)
     bsr_spmm_blockpar.launches += 1
     return out
 

@@ -26,10 +26,19 @@ kernels' bf16 instantiations.  They run on the two existing kernels through
 transpose with hub rows on ``bsr_spmm_blockpar``.  The forward plan's walk
 order puts a node's K slot rows side by side, as the BSR pyramid plans do.
 No plan builds 128x128 blocks: at 60k nodes that bank would be mostly
-zeros.  ``ell_spmm_ev`` (edge values that change every step, the GAT
-aggregation) comes with the model zoo.
+zeros.
+
+``ell_spmm_ev`` (port of ``ell_spmm_ev`` and ``build_ell_ev_plans`` in
+``ctgcn_tpu/ops/ell.py``) multiplies by edge values that change every
+step, GAT's attention.  Its plans are ``EvPlan``s: a ``CsrPlan`` of the
+graph's structure that also names each nonzero's edge id (the JAX
+package's ``eids`` in its ELL-ev buckets), built once from ``edge id + 1``
+over the structure, never from the matrix's values.  Each call gathers
+the values into plan order and hands them to the same two kernels.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import scipy.sparse as sp
@@ -37,7 +46,8 @@ import torch
 from torch.nn import functional as F
 
 from ctgcn_torch.ops.bsr_spmm import (D_ALIGN, D_ALIGN_BF16, CsrPlan,
-                                      build_csr_plan, csr_spmm, dispatch)
+                                      _kernel_input, build_csr_plan, csr_spmm,
+                                      dispatch)
 
 
 def _slot_matrix(rows, cols, vals, valid, n_nodes, delta):
@@ -133,4 +143,80 @@ def ell_spmm(fwd_plan: CsrPlan, t_plan: CsrPlan, x, bf16=False):
         out = _CsrSpmmBf16.apply(xp.float(), fwd_plan, t_plan)
     else:
         out = csr_spmm(fwd_plan, t_plan, xp)
+    return out[:, :d] if pad else out
+
+
+@dataclasses.dataclass(frozen=True)
+class EvPlan(CsrPlan):
+    """A ``CsrPlan`` of a graph's structure (``csr_val`` all ones) for
+    edge values given per call.
+
+    csr_eid:    int64[nnz] the edge id (position in the graph's COO) of
+                each nonzero, in plan order.
+    flat_rows:  int64[P] the graph's COO rows, in edge order ...
+    flat_cols:  int64[P] ... and columns (swapped in a transpose plan).
+    """
+
+    csr_eid: torch.Tensor
+    flat_rows: torch.Tensor
+    flat_cols: torch.Tensor
+
+
+def build_ev_plan(rows, cols, n_rows, n_cols) -> EvPlan:
+    """``EvPlan`` (host tensors) of the COO structure (rows, cols): the CSR
+    of ``edge id + 1`` over it gives each nonzero's edge id.  The edges
+    must be distinct."""
+    rows = np.asarray(rows, dtype=np.int64)
+    cols = np.asarray(cols, dtype=np.int64)
+    eids = sp.csr_matrix((np.arange(1, rows.shape[0] + 1), (rows, cols)),
+                         shape=(n_rows, n_cols))
+    eids.sort_indices()
+    if eids.nnz != rows.shape[0]:
+        raise ValueError("build_ev_plan: repeated (row, col) edges")
+    structure = build_csr_plan(sp.csr_matrix(
+        (np.ones(eids.nnz), eids.indices, eids.indptr), shape=eids.shape))
+    return EvPlan(**vars(structure),
+                  csr_eid=torch.from_numpy(eids.data - 1),
+                  flat_rows=torch.from_numpy(rows),
+                  flat_cols=torch.from_numpy(cols))
+
+
+def build_ev_plans(rows, cols, n_rows, n_cols):
+    """(forward, transpose) ``EvPlan``s; both index the same edge order."""
+    return (build_ev_plan(rows, cols, n_rows, n_cols),
+            build_ev_plan(cols, rows, n_cols, n_rows))
+
+
+class _EllSpmmEv(torch.autograd.Function):
+    """The JAX custom VJP of ``ell_spmm_ev`` (``_ev_fwd`` / ``_ev_bwd``):
+    d(vals) is the SDDMM ``g[row] . x[col]`` in edge order, d(x) the
+    transpose plan's product, each only when asked for."""
+
+    @staticmethod
+    def forward(ctx, vals, x, fwd_plan, t_plan):
+        ctx.plans = (fwd_plan, t_plan)
+        ctx.save_for_backward(vals, x)
+        return dispatch(fwd_plan)(fwd_plan, x, vals[fwd_plan.csr_eid])
+
+    @staticmethod
+    def backward(ctx, g):
+        fwd_plan, t_plan = ctx.plans
+        vals, x = ctx.saved_tensors
+        g = _kernel_input(g)
+        dvals = dx = None
+        if ctx.needs_input_grad[0]:
+            dvals = (g[fwd_plan.flat_rows] * x[fwd_plan.flat_cols]).sum(-1)
+        if ctx.needs_input_grad[1]:
+            dx = dispatch(t_plan)(t_plan, g, vals[t_plan.csr_eid])
+        return dvals, dx, None, None
+
+
+def ell_spmm_ev(fwd_plan: EvPlan, t_plan: EvPlan, vals, x):
+    """``A(vals) @ x`` ([R, C] @ [C, d] -> [R, d]) on the kernels, for
+    f32 edge values ``vals`` [P] in the plans' edge order; differentiable
+    in vals and in x.  d is zero-padded inside to a multiple of 4."""
+    d = x.shape[1]
+    pad = -d % D_ALIGN
+    xp = F.pad(x, (0, pad)) if pad else x
+    out = _EllSpmmEv.apply(vals.float(), _kernel_input(xp), fwd_plan, t_plan)
     return out[:, :d] if pad else out

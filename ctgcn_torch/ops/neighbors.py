@@ -1,11 +1,11 @@
 # coding: utf-8
-"""Padded neighbor tables and GIN's max pooling (port of
-``neighbor_table_from_scipy`` and ``masked_max_pool`` in
-``ctgcn_tpu/ops/neighbors.py``).
+"""Padded neighbor tables, SAGE's neighbour sampling and GIN's max
+pooling (port of ``neighbor_table_from_scipy``, ``sample_neighbors`` and
+``masked_max_pool`` in ``ctgcn_tpu/ops/neighbors.py``).
 
 A window's neighbor lists are one padded [T, N, max_deg] table and a
-degree vector, built once on the host; pooling is a gather and a masked
-max.
+degree vector, built once on the host; sampling is a top-k over random
+keys, pooling a gather and a masked max.
 """
 from __future__ import annotations
 
@@ -29,6 +29,33 @@ def neighbor_table_from_scipy(mats):
         slot = np.arange(c.nnz) - np.repeat(c.indptr[:-1], d)
         nbr[t, np.repeat(np.arange(n), d), slot] = c.indices
     return torch.from_numpy(nbr), torch.from_numpy(deg)
+
+
+def sample_neighbors(nbr_t, deg_t, num_sample, generator):
+    """Per-node neighbour sample of one snapshot's table: all neighbours
+    when deg < num_sample (strictly), else ``num_sample`` distinct ones,
+    uniformly without replacement: the top k of uniform keys from
+    ``generator`` over the valid slots.  That is the JAX package's Gumbel
+    top-k, since the Gumbel transform keeps the keys' order; the two
+    frameworks' numbers differ, their distributions do not.
+
+    Returns (idx [N, S] of ``nbr_t``'s dtype, mask bool [N, S]); the mask
+    is false on the padding of short rows and on isolated nodes."""
+    n, d = nbr_t.shape
+    dev = nbr_t.device
+    slots = torch.arange(num_sample, device=dev)[None, :]
+    deg = deg_t[:, None]
+    take_all = deg < num_sample
+    keys = torch.rand((n, d), generator=generator, device=dev)
+    valid = torch.arange(d, device=dev)[None, :] < deg
+    top = torch.topk(keys.masked_fill(~valid, -1.0), min(num_sample, d),
+                     dim=1).indices
+    if top.shape[1] < num_sample:       # the table is narrower than S
+        top = torch.nn.functional.pad(top, (0, num_sample - top.shape[1]))
+    j = torch.where(take_all, slots.clamp_max(d - 1), top)
+    idx = torch.gather(nbr_t, 1, j)
+    mask = torch.where(take_all, slots < deg, True) & (deg > 0)
+    return idx, mask
 
 
 def masked_max_pool(x, nbr_t, deg_t):

@@ -1,6 +1,7 @@
 # coding: utf-8
-"""Sparse-dense matmul of the model zoo (port of ``spmm``, ``spmm_t`` and
-``set_default_backend`` in ``ctgcn_tpu/ops/spmm.py``).
+"""Sparse-dense matmul of the model zoo (port of ``spmm``, ``spmm_t``,
+``sddmm``, ``spmm_ev`` and ``set_default_backend`` in
+``ctgcn_tpu/ops/spmm.py``).
 
 ``spmm(g, x)`` takes a graph's plan pair first (the CUDA kernels through
 ``ell_spmm``), then the backend asked for, else the default:
@@ -9,6 +10,10 @@
     rows (the JAX gather + ``segment_sum``), differentiable by autograd;
   * ``pallas``: ``spmm_pallas``, plans built for the call, on the kernels;
   * ``dense``: the densified matrix times x.
+
+``spmm_ev`` is the segment form with edge values given apart from the
+graph, differentiable in the values and in x (GAT's attention on graphs
+without plans); ``sddmm`` is the per-edge ``<a[row], b[col]>``.
 """
 from __future__ import annotations
 
@@ -29,9 +34,19 @@ def set_default_backend(name: str):
     _DEFAULT_BACKEND = name
 
 
-def _segment(rows, cols, vals, x, n_out):
-    out = x.new_zeros(n_out, x.shape[1])
+def spmm_ev(rows, cols, vals, x, n_rows):
+    """``A(vals) @ x`` for the COO structure (rows, cols) and edge values
+    ``vals``: a gather of ``x[col] * val`` and ``index_add_`` into the
+    rows.  Autograd gives d(vals) as the SDDMM of the cotangent with x and
+    d(x) as ``A^T`` times the cotangent."""
+    out = x.new_zeros(n_rows, x.shape[1])
     return out.index_add_(0, rows, x[cols] * vals[:, None])
+
+
+def sddmm(g: SparseGraph, a: torch.Tensor, b: torch.Tensor):
+    """Sampled dense-dense matmul: ``<a[row], b[col]>`` for every edge of
+    ``g``, in ``g``'s edge order -> [nnz]."""
+    return (a[g.rows] * b[g.cols]).sum(-1)
 
 
 def spmm(g: SparseGraph, x: torch.Tensor, backend: str | None = None):
@@ -40,7 +55,7 @@ def spmm(g: SparseGraph, x: torch.Tensor, backend: str | None = None):
         return ell_spmm(g.plan_fwd, g.plan_t, x)
     backend = backend or _DEFAULT_BACKEND
     if backend == "segment":
-        return _segment(g.rows, g.cols, g.vals, x, g.n_rows)
+        return spmm_ev(g.rows, g.cols, g.vals, x, g.n_rows)
     if backend == "pallas":
         return spmm_pallas(g, x)
     if backend == "dense":
@@ -63,4 +78,4 @@ def spmm_t(g: SparseGraph, x: torch.Tensor):
     """``A^T @ x`` without building the transpose."""
     if g.plan_t is not None:
         return ell_spmm(g.plan_t, g.plan_fwd, x)
-    return _segment(g.cols, g.rows, g.vals, x, g.n_cols)
+    return spmm_ev(g.cols, g.rows, g.vals, x, g.n_cols)

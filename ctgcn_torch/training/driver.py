@@ -2,17 +2,24 @@
 """Embedding-task driver (port of ``ctgcn_tpu/training/driver.py`` for the
 CTGCN family: CGCN-C, CGCN-S, CTGCN-C and CTGCN-S, under the learning
 types U-neg, U-own, S-node, S-edge, S-link-st and S-link-dy; and for the
-model zoo's first slice: GCN, TgGCN, GIN and TgGIN under U-neg).
+model zoo's GCN, TgGCN, GIN, TgGIN, GAT, TgGAT, SAGE and TgSAGE under
+U-neg).
 
 The zoo's window is its adjacency, one ``SparseGraph`` a snapshot, with
 the kernels' plans at ``ELL_AUTO_NODES`` nodes and more (``adj_backend``),
-normalized as the JAX driver normalizes it: D^-1 (A + I) for GCN; the raw
-weighted A for TgGCN; A + I for GIN and TgGIN when ``learn_eps`` is false
-(every GIN config; TgGIN's configs give no ``learn_eps``, so it is learnt
-and A stays raw).  ``pooling_type`` only decides whether the neighbor
-table is built: the JAX driver does not pass it to the model, which pools
-by sum.  Dropout draws its masks from the engine's generator, before the
-U-neg sampler's draws; the export runs without dropout.
+normalized as the JAX driver normalizes it: D^-1 (A + I) for GCN and GAT
+(GAT reads only the structure, so for it that means self-loops); the raw
+weighted A for TgGCN, TgGAT, SAGE and TgSAGE; A + I for GIN and TgGIN
+when ``learn_eps`` is false (every GIN config; TgGIN's configs give no
+``learn_eps``, so it is learnt and A stays raw).  SAGE and TgSAGE sample
+from the neighbour table of the raw adjacency; GIN's ``pooling_type``
+only decides whether that table is built: the JAX driver does not pass it
+to GIN, which pools by sum.  SAGE's ``num_sample`` defaults to 5, but
+every config's SAGE entry sets it to null, which pools over all
+neighbours; TgSAGE's entries do not set it.  Dropout (and SAGE's
+sampling) draws from the engine's generator, before the U-neg sampler's
+draws; the export runs GCN, GIN and GAT without dropout, and SAGE with a
+generator seeded 0, as the JAX model draws from ``jax.random.key(0)``.
 
 Per window: load the k-core pyramids (on the config's ``core_backend``,
 ``"auto"`` by default, at its ``matmul_precision``) and the node features
@@ -58,9 +65,11 @@ from ctgcn_torch.losses import (classification_loss, negative_sampling_loss,
                                 reconstruction_loss)
 from ctgcn_torch.nn.core_models import (ACT_BUDGET, CGCN, CORE_RNN_BUDGET,
                                         CTGCN)
+from ctgcn_torch.nn.gat import GAT
 from ctgcn_torch.nn.gcn import GCN
 from ctgcn_torch.nn.gin import GIN
 from ctgcn_torch.nn.heads import EdgeClassifier, MLPClassifier, inner_product
+from ctgcn_torch.nn.sage import SAGE
 from ctgcn_torch.ops.neighbors import neighbor_table_from_scipy
 from ctgcn_torch.ops.rnn import CVJP_BATCH_BUDGET
 from ctgcn_torch.training.engine import (SupervisedEmbedding,
@@ -72,8 +81,10 @@ from ctgcn_torch.utils import resolve_device
 #: method -> model class
 PORTED_METHODS = {"CGCN-C": CGCN, "CGCN-S": CGCN, "CTGCN-C": CTGCN,
                   "CTGCN-S": CTGCN, "GCN": GCN, "TgGCN": GCN, "GIN": GIN,
-                  "TgGIN": GIN}
-ZOO_METHODS = ("GCN", "TgGCN", "GIN", "TgGIN")
+                  "TgGIN": GIN, "GAT": GAT, "TgGAT": GAT, "SAGE": SAGE,
+                  "TgSAGE": SAGE}
+ZOO_METHODS = ("GCN", "TgGCN", "GIN", "TgGIN", "GAT", "TgGAT", "SAGE",
+               "TgSAGE")
 S_VARIANTS = ("CGCN-S", "CTGCN-S")
 SUPERVISED_TYPES = ("S-node", "S-edge", "S-link-st", "S-link-dy")
 LEARNING_TYPES = ("U-neg", "U-own") + SUPERVISED_TYPES
@@ -138,21 +149,22 @@ def get_data_loader(args):
 
 def _zoo_adjacency(method, idx, time_length, data_loader, args):
     """The zoo's window: its adjacency as the JAX driver normalizes it per
-    method, and GIN's neighbor table when its config asks for max
-    pooling."""
-    # of the ported methods the JAX driver normalizes only GCN, to
+    method, and the neighbor table for SAGE and for GIN when its config
+    asks for max pooling."""
+    # of the ported methods the JAX driver normalizes only GCN and GAT, to
     # D^-1 (A + I); GIN pools a node with its neighbours (+I) unless it
     # learns eps
-    gcn = method == "GCN"
+    norm = method in ("GCN", "GAT")
     is_gin = method in ("GIN", "TgGIN")
     sep = args.get("file_sep", "\t")
     adjs = data_loader.get_date_adj_list(
-        args["origin_base_path"], idx, time_length, sep=sep, normalize=gcn,
-        row_norm=gcn,
-        add_eye=gcn or (is_gin and not args.get("learn_eps", True)),
+        args["origin_base_path"], idx, time_length, sep=sep, normalize=norm,
+        row_norm=norm,
+        add_eye=norm or (is_gin and not args.get("learn_eps", True)),
         adj_backend=args.get("adj_backend", "auto"))
     neighbor_data = None
-    if is_gin and args.get("pooling_type", "sum") == "max":
+    if PORTED_METHODS[method] is SAGE or (
+            is_gin and args.get("pooling_type", "sum") == "max"):
         neighbor_data = neighbor_table_from_scipy(
             data_loader.get_scipy_adj_list(args["origin_base_path"], idx,
                                            time_length, sep=sep))
@@ -225,6 +237,17 @@ def get_gnn_model(method, time_length, args, generator):
                    mlp_layer_num=args.get("mlp_layer_num", 2),
                    learn_eps=args.get("learn_eps", True),
                    dropout=args.get("dropout", 0.0), **common)
+    if PORTED_METHODS[method] is GAT:
+        return GAT(*dims, dropout=args.get("dropout", 0.0),
+                   alpha=args.get("alpha", 0.2),
+                   head_num=args.get("head_num", 1),
+                   learning_type=args.get("learning_type", "U-neg"),
+                   generator=generator)
+    if PORTED_METHODS[method] is SAGE:
+        # a config's "num_sample": null stays None: all neighbours
+        return SAGE(*dims, num_sample=args.get("num_sample", 5),
+                    pooling_type=args.get("pooling_type", "sum"),
+                    dropout=args.get("dropout", 0.0), **common)
     kw = dict(trans_num=args["trans_layer_num"],
               diffusion_num=args["diffusion_layer_num"],
               rnn_type=args.get("rnn_type", "GRU"),
@@ -245,7 +268,8 @@ def _family_forward(model, data, generator=None):
     return model(data["xs"], data["adjs"])
 
 
-def _gcn_forward(model, data, generator=None):
+def _adj_forward(model, data, generator=None):
+    """GCN and GAT: the model over the window's adjacency."""
     return model(data["xs"], data["adjs"], generator=generator)
 
 
@@ -254,13 +278,22 @@ def _gin_forward(model, data, generator=None):
                  generator=generator)
 
 
+def _sage_forward(model, data, generator=None):
+    return model(data["xs"], data["neighbor_data"], generator=generator)
+
+
 def make_forward(method):
     """(model, data, generator=None) -> embeddings of ``method``; the zoo
-    draws its dropout masks from ``generator``, none without one."""
-    if PORTED_METHODS[method] is GCN:
-        return _gcn_forward
-    if PORTED_METHODS[method] is GIN:
+    draws its dropout masks (and SAGE its samples) from ``generator``:
+    without one GCN, GIN and GAT drop nothing, and SAGE draws from a
+    generator seeded 0."""
+    cls = PORTED_METHODS[method]
+    if cls in (GCN, GAT):
+        return _adj_forward
+    if cls is GIN:
         return _gin_forward
+    if cls is SAGE:
+        return _sage_forward
     return _family_forward
 
 

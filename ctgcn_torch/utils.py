@@ -49,7 +49,8 @@ NON_GNN_METHODS = ("DynGEM", "DynAE", "DynRNN", "DynAERNN", "TIMERS")
 def get_supported_methods():
     """Every method name the JAX package's CLI accepts.  The port runs the
     CTGCN family (CGCN-C, CGCN-S, CTGCN-C, CTGCN-S) and, of the zoo, GCN,
-    TgGCN, GIN and TgGIN (``training.driver.PORTED_METHODS``); it raises
+    TgGCN, GIN, TgGIN, GAT, TgGAT, SAGE and TgSAGE
+    (``training.driver.PORTED_METHODS``); it raises
     ``NotImplementedError`` for the others."""
     return dict.fromkeys(
         NON_GNN_METHODS + STATIC_GNN_METHODS + DYNAMIC_GNN_METHODS, 1)

@@ -17,6 +17,9 @@ which both packages read).
     draws) within 1e-5 and its gradients as above.
   * The CLI runs each method and exports its CSVs; unported zoo methods
     and learning types raise.
+  * The dataset fixture and the driver and CLI checks serve the zoo's
+    later slices too (``tests/test_torch_gat.py``,
+    ``tests/test_torch_sage.py``).
   * Dropout: keep rate 0.5 +- 0.01 over 10^5 draws, kept values doubled.
   * Training statistics: GCN with dropout 0.5 under U-neg, 5 epochs, from
     the same initial parameters in both packages, seeds 0-2: the mean
@@ -61,6 +64,8 @@ ROOT = Path(__file__).resolve().parent.parent
 N, T, HID, EMB, FEAT = 120, 2, 12, 6, 10
 FWD_TOL, GRAD_TOL = 1e-5, 1e-4
 METHODS = ("GCN", "TgGCN", "GIN", "TgGIN")
+#: every zoo method the port runs, as the dataset fixture configures them
+ZOO = METHODS + ("GAT", "TgGAT", "SAGE", "TgSAGE")
 
 
 @pytest.fixture(scope="module")
@@ -90,7 +95,7 @@ def dataset(tmp_path_factory):
                    record_time=False,
                    walk_pair_folder="CTGCN/ctgcn_walk_pairs",
                    node_freq_folder="CTGCN/ctgcn_node_freq")
-           for m in METHODS}
+           for m in ZOO}
     cfg = base / "cfg.json"
     cfg.write_text(json.dumps({"preprocessing": {"CTGCN-C": pre},
                                "embedding": emb}))
@@ -246,6 +251,22 @@ def test_driver_window_and_loss_equal_jax(dataset, method, change):
     (``learn_eps: false``), TgGIN the raw A with a learnt eps; GIN's
     ``pooling_type: "max"`` builds the neighbor table but the model pools
     by sum."""
+    _driver_window_and_loss(dataset, method, change)
+
+
+#: the adjacency each zoo method gets, from the raw dense A
+ADJACENCY = {
+    "GCN": lambda a: (a + np.eye(N)) / (a + np.eye(N)).sum(1, keepdims=True),
+    "TgGCN": lambda a: a, "GIN": lambda a: a + np.eye(N),
+    "TgGIN": lambda a: a}
+ADJACENCY.update(GAT=ADJACENCY["GCN"], TgGAT=ADJACENCY["TgGCN"],
+                 SAGE=ADJACENCY["TgGCN"], TgSAGE=ADJACENCY["TgGCN"])
+
+
+def _driver_window_and_loss(dataset, method, change):
+    """The body of the driver checks: inputs and adjacency against the JAX
+    driver's and ``ADJACENCY``, the neighbor table where the JAX driver
+    builds one, then the U-neg loss and its gradients."""
     _, _, emb = dataset
     conf = dict(emb[method], dropout=0.0, **change)
     jargs, targs = dict(conf), dict(conf)
@@ -259,20 +280,20 @@ def test_driver_window_and_loss_equal_jax(dataset, method, change):
     raw = tl.get_scipy_adj_list(targs["origin_base_path"], 0, T)
     for t, g in enumerate(data["adjs"]):
         assert g.backend == ("ell" if plans else "segment")
+        assert (g.plan_ev_fwd is not None) is plans
         jg = JS.SparseGraph(rows=jadjs.rows[t], cols=jadjs.cols[t],
                             vals=jadjs.vals[t], n_rows=N, n_cols=N)
         dense = TS.to_dense(g).numpy()
         np.testing.assert_allclose(dense, np.asarray(JS.to_dense(jg)),
                                    rtol=1e-7, atol=1e-7)
-        a = raw[t].toarray()
-        want = {"GCN": (a + np.eye(N)) / (a + np.eye(N)).sum(1, keepdims=True),
-                "TgGCN": a, "GIN": a + np.eye(N), "TgGIN": a}[method]
+        want = ADJACENCY[method](raw[t].toarray())
         np.testing.assert_allclose(dense, want, rtol=1e-6, atol=1e-7)
     jnd = jargs.pop("_neighbor_data", None)
     assert (jnd is None) is (data["neighbor_data"] is None)
     if jnd is not None:
-        np.testing.assert_array_equal(data["neighbor_data"][1].numpy(),
-                                      np.asarray(jnd[1]))
+        for k in (0, 1):
+            np.testing.assert_array_equal(data["neighbor_data"][k].numpy(),
+                                          np.asarray(jnd[k]))
 
     jmodel = JD.get_gnn_model(method, T, jargs, jax.random.key(5))
     tmodel = _load(TD.get_gnn_model(method, T, targs,
@@ -307,6 +328,11 @@ def test_cli_runs_each_method(dataset, tmp_path, method):
     """``--task=embedding`` as the config gives it (duration 1, so two
     windows), one epoch on the CPU: finite losses, the segment SpMM below
     ``ELL_AUTO_NODES``, one CSV per snapshot, the model file."""
+    _cli_run(dataset, tmp_path, method)
+
+
+def _cli_run(dataset, tmp_path, method):
+    """The body of the CLI checks, for any method of ``ZOO``."""
     base, names, emb = dataset
     conf = dict(emb[method], embed_folder=f"2.embedding/{method}-cli",
                 model_file=f"{method}-cli")
@@ -323,7 +349,7 @@ def test_cli_runs_each_method(dataset, tmp_path, method):
 
 
 @pytest.mark.parametrize("method, change", [
-    ("GAT", {}), ("GCRN", {}), ("GCN", {"learning_type": "S-node"})])
+    ("EvolveGCN", {}), ("GCRN", {}), ("GCN", {"learning_type": "S-node"})])
 def test_unported_zoo_raises(dataset, tmp_path, method, change):
     _, _, emb = dataset
     path = tmp_path / "cfg.json"
