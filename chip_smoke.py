@@ -104,10 +104,11 @@ Phases, one line each:
                 then timed beside it, ``torch.sparse.mm`` and the bound;
                 then with edge values given per call (``ell_spmm_ev``'s
                 product) on GAT's plans of Enron 000 and TgGAT's of Math
-                000, random positive values, against ``spmm_ev`` and the
-                CSR plain version, timed beside them, the value gather, the
-                SDDMM of the values' gradient and ``torch.sparse.mm`` on
-                the same values;
+                000, random positive values, at d = 500, 128 and GAT's
+                row sum (4), against ``spmm_ev`` and the CSR plain
+                version, timed beside them and ``torch.sparse.mm`` on the
+                same values, with the value gather and the SDDMM of the
+                values' gradient beside their bounds;
      parity     small CTGCN-C models on BSR and on delta-ELL plans, forward
                 and gradients, kernels on the GPU against the plain versions
                 on the CPU, and one on f32 blocks at ``"high"`` (3xTF32);
@@ -283,20 +284,20 @@ def _plan_csr(plan, vals=None):
         check_invariants=False)
 
 
-def _bound(plan, d, x_bytes=4, out_bytes=4, extra_bytes=0):
+def _bound(plan, d, x_bytes=4, out_bytes=4):
     """Least time for ``out = A @ x`` with ``plan`` at width d: the larger
     of the bytes the product must move (A's values, column indices and row
     pointers, the rows of x that A's columns name, and out, each once;
-    ``x_bytes`` / ``out_bytes`` per element: 2 for bf16; plus
-    ``extra_bytes``) over the HBM rate and its 2 * nnz * d FLOPs over the
-    FP32 peak (the kernels multiply in f32 FFMA).  Rows of x that no
-    nonzero names need not be read: in a pyramid transpose that is most of
-    g, whose rows for empty slot rows are never used."""
+    ``x_bytes`` / ``out_bytes`` per element: 2 for bf16) over the HBM rate
+    and its 2 * nnz * d FLOPs over the FP32 peak (the kernels multiply in
+    f32 FFMA).  Rows of x that no nonzero names need not be read: in a
+    pyramid transpose that is most of g, whose rows for empty slot rows
+    are never used."""
     import torch
 
     x_rows = int(torch.unique(plan.csr_col).numel())
     flops = 2.0 * plan.nnz * d
-    bytes_ = (plan.nnz * 8 + (plan.n_rows + 1) * 4 + extra_bytes
+    bytes_ = (plan.nnz * 8 + (plan.n_rows + 1) * 4
               + x_rows * d * x_bytes + plan.n_rows * d * out_bytes)
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, bytes_ / PEAK_HBM_BYTES
     return {
@@ -341,8 +342,8 @@ def _kernel_rows(tag, plans, dev, widths, extra_check=None, vals=None):
     each kernel's time on every plan at every width beside the plain
     version's, the library call's and the bound.  With ``vals`` (name ->
     f32 values in plan order) the kernels, the plain version and the
-    library read those in place of the plans' values, and the bound adds
-    4 bytes a nonzero for reading them.  Returns the row of each kernel on
+    library read those in place of the plans' values (the same bytes, so
+    the same bound).  Returns the row of each kernel on
     the plan ``dispatch`` gives it, at the first width."""
     import torch
 
@@ -385,7 +386,7 @@ def _kernel_rows(tag, plans, dev, widths, extra_check=None, vals=None):
         csr = _plan_csr(plan, *v)
         for dd in widths:
             inp = inputs[pk][:, :dd].contiguous()
-            bound = _bound(plan, dd, extra_bytes=4 * plan.nnz if v else 0)
+            bound = _bound(plan, dd)
             library_ms = _time_ms(lambda: torch.sparse.mm(csr, inp))
             _check_close(f"{tag} torch.sparse.mm {pk} d={dd}",
                          torch.sparse.mm(csr, inp),
@@ -575,23 +576,25 @@ def phase_kernels_zoo(cfgs, dev):
 def phase_kernels_zoo_ev(cfgs, dev):
     """Both f32 kernels with edge values given per call (the product of
     ``ell_spmm_ev``) on the ``EvPlan`` pairs of snapshot 000 as the driver
-    builds them: Enron under GAT (D^-1 (A + I)'s structure, hub row 1,148:
-    the block-parallel kernel) and Math under TgGAT (the raw A: the row
-    walk), each direction, at d = 500 and 128, with random positive
-    values: against the CSR plain version fed the values in plan order and
-    against the segment ``spmm_ev`` fed them in edge order; then timed
-    beside them and ``torch.sparse.mm`` on the same values.  Also the
-    other pieces of an ``ell_spmm_ev`` call on each plan: the gather of
-    the values into plan order, the whole forward, and the SDDMM of the
-    values' gradient (``g[row] . x[col]``)."""
+    builds them: Enron under GAT (D^-1 (A + I), hub row 1,148: the
+    block-parallel kernel) and Math under TgGAT (the raw A: the row walk),
+    each direction, at d = 500 and 128 and at GAT's row sum (a ones
+    column, padded to 4), with random positive values: against the CSR
+    plain version fed the values in plan order and against the segment
+    ``spmm_ev`` fed them in edge order; then timed beside them and
+    ``torch.sparse.mm`` on the same values.  Also the other pieces of an
+    ``ell_spmm_ev`` call, each beside its bound: the gather of the values
+    into plan order (on each plan: the forward's, and the transpose's for
+    d(x)), and on the forward plans the SDDMM of d(vals)
+    (``g[row] . x[col]``) and the whole forward."""
     import torch
 
     from ctgcn_torch.ops import bsr_spmm as B
-    from ctgcn_torch.ops.ell import ell_spmm_ev
-    from ctgcn_torch.ops.spmm import spmm_ev
+    from ctgcn_torch.ops.ell import EvPlan, ell_spmm_ev
+    from ctgcn_torch.ops.spmm import sddmm, spmm_ev
     from ctgcn_torch.training.driver import get_data_loader, get_input_data
 
-    plans, edge_vals, pairs = {}, {}, {}
+    plans, edge_vals, graphs, coo = {}, {}, {}, {}
     gen = torch.Generator(device=dev).manual_seed(3)
     for data, (cfg, method) in cfgs.items():
         args = dict(cfg)
@@ -600,19 +603,23 @@ def phase_kernels_zoo_ev(cfgs, dev):
         _, window = get_input_data(method, 0, 1, loader, args)
         built_s = time.time() - t0
         graph = window["adjs"][0]
-        if graph.plan_ev_fwd is None:
+        if not isinstance(graph.plan_fwd, EvPlan):
             raise AssertionError(f"{data} {method}: no EvPlan pair")
-        fwd, tr = graph.plan_ev_fwd.to(dev), graph.plan_ev_t.to(dev)
+        graph = graph.to(dev)
+        fwd, tr = graph.plan_fwd, graph.plan_t
         _phase("kernels_zoo_ev", data=data, method=method,
                window_built_seconds=built_s, n_nodes=fwd.n_rows,
                nnz=fwd.nnz, max_row_nnz_fwd=fwd.max_row_nnz,
                max_row_nnz_t=tr.max_row_nnz,
                dispatch=[B.dispatch(p).__name__ for p in (fwd, tr)])
         vals = torch.rand(fwd.nnz, device=dev, generator=gen) + 0.1
-        pairs[data] = (fwd, tr, vals)
-        for direction, plan in (("forward", fwd), ("transpose", tr)):
+        graphs[data] = (graph, vals)
+        for direction, plan, rc in (
+                ("forward", fwd, (graph.rows, graph.cols)),
+                ("transpose", tr, (graph.cols, graph.rows))):
             plans[f"{data}_{direction}"] = plan
             edge_vals[f"{data}_{direction}"] = vals
+            coo[f"{data}_{direction}"] = rc
     want = {"enron_forward": "bsr_spmm_blockpar",
             "enron_transpose": "bsr_spmm_blockpar",
             "math_forward": "bsr_spmm_rowwalk",
@@ -624,34 +631,46 @@ def phase_kernels_zoo_ev(cfgs, dev):
                  for k, p in plans.items()}
 
     def segment_check(what, kern, pk, inp, got, ref):
-        plan = plans[pk]
         _check_close(f"{what} vs spmm_ev", got,
-                     spmm_ev(plan.flat_rows, plan.flat_cols, edge_vals[pk],
-                             inp, plan.n_rows))
+                     spmm_ev(*coo[pk], edge_vals[pk], inp,
+                             plans[pk].n_rows))
 
-    widths = _spmm_widths(cfgs["enron"][0], B.D_ALIGN)
+    # the layers' widths, then the row sum's
+    widths = _spmm_widths(cfgs["enron"][0], B.D_ALIGN) + (B.D_ALIGN,)
     results = _kernel_rows("kernels_zoo_ev", plans, dev, widths,
                            segment_check, vals=plan_vals)
-    # the rest of an ell_spmm_ev call, on the forward plans (the
-    # transpose's gather is the backward's)
     pieces = []
     for pk, plan in plans.items():
-        fwd, tr, vals = pairs[pk.split("_")[0]]
+        graph, vals = graphs[pk.split("_")[0]]
+        rows, cols = coo[pk]
+        # eid (int64) and the values read, the values in plan order written
+        row = {"plan": pk, "nnz": plan.nnz,
+               "gather_ms": _time_ms(lambda: vals[plan.csr_eid]),
+               "gather_bound_ms": 16 * plan.nnz / PEAK_HBM_BYTES * 1e3}
+        pieces.append(row)
+        _phase("kernels_zoo_ev", **row)
         for dd in widths:
             x = torch.randn(plan.n_cols, dd, device=dev, generator=gen)
             g = torch.randn(plan.n_rows, dd, device=dev, generator=gen)
             with torch.no_grad():
-                row = {
-                    "plan": pk, "d": dd, "nnz": plan.nnz,
-                    "gather_ms": _time_ms(lambda: vals[plan.csr_eid]),
-                    "sddmm_ms": _time_ms(lambda: (
-                        g[plan.flat_rows] * x[plan.flat_cols]).sum(-1)),
-                    "spmm_ev_plain_ms": _time_ms(lambda: spmm_ev(
-                        plan.flat_rows, plan.flat_cols, vals, x,
-                        plan.n_rows), iters=5, warmup=1)}
+                row = {"plan": pk, "d": dd, "nnz": plan.nnz,
+                       "spmm_ev_plain_ms": _time_ms(lambda: spmm_ev(
+                           rows, cols, vals, x, plan.n_rows),
+                           iters=5, warmup=1)}
                 if pk.endswith("forward"):
-                    row["ell_spmm_ev_forward_ms"] = _time_ms(
-                        lambda: ell_spmm_ev(fwd, tr, vals, x))
+                    # rows and cols (int64), the g and x rows they name,
+                    # one f32 an edge written; 2 d FLOPs an edge
+                    sddmm_bytes = (
+                        16 * plan.nnz + 4 * plan.nnz + 4 * dd * (
+                            int(torch.unique(rows).numel())
+                            + int(torch.unique(cols).numel())))
+                    row.update(
+                        sddmm_ms=_time_ms(lambda: sddmm(graph, g, x)),
+                        sddmm_bound_ms=max(
+                            sddmm_bytes / PEAK_HBM_BYTES,
+                            2.0 * plan.nnz * dd / PEAK_FP32_FLOPS) * 1e3,
+                        ell_spmm_ev_forward_ms=_time_ms(
+                            lambda: ell_spmm_ev(graph, vals, x)))
             pieces.append(row)
             _phase("kernels_zoo_ev", **row)
     for name in F32_KERNELS:
@@ -1036,19 +1055,18 @@ def phase_parity_attn(dev):
             m = normalize_scipy_adj(_parity_adjacency(rng, n, hub)
                                     + sp.eye(n), row_norm=True)
             g = from_scipy(m)
-            fwd, tr = build_ev_plans(g.rows.numpy(), g.cols.numpy(), n, n)
-            graphs.append(dataclasses.replace(g, plan_ev_fwd=fwd,
-                                              plan_ev_t=tr))
+            fwd, tr = build_ev_plans(g)
+            graphs.append(dataclasses.replace(g, plan_fwd=fwd, plan_t=tr))
         chosen = {B.dispatch(p).__name__ for g in graphs
-                  for p in (g.plan_ev_fwd, g.plan_ev_t)}
+                  for p in (g.plan_fwd, g.plan_t)}
         if chosen != {kernel}:
             raise AssertionError(f"the {name} parity model reaches "
                                  f"{chosen}, not {kernel}")
         model = GAT(n, hid, out_dim, dropout=0.5, head_num=2,
                     generator=gen)
         w = torch.randn(T, n, out_dim, generator=gen, dtype=torch.float64)
-        segment = tuple(dataclasses.replace(g, plan_ev_fwd=None,
-                                            plan_ev_t=None) for g in graphs)
+        segment = tuple(dataclasses.replace(g, plan_fwd=None, plan_t=None)
+                        for g in graphs)
         _cpu_against_card(
             name, model,
             lambda d: segment if d.type == "cpu" else tuple(

@@ -22,7 +22,6 @@ import torch
 
 from ctgcn_torch.data.formats import get_sp_adj_mat, infer_names, sorted_dir
 from ctgcn_torch.losses import WalkData
-from ctgcn_torch.ops.bsr_spmm import build_csr_plan
 from ctgcn_torch.ops.ell import build_ev_plans
 from ctgcn_torch.ops.pyramid import (attach_ell_plans, build_core_pyramid,
                                       stack_pyramids)
@@ -74,11 +73,11 @@ class DataLoader:
                           add_eye=False, adj_backend="auto"):
         """The window's adjacency (``get_scipy_adj_list``) as one host
         ``SparseGraph`` per snapshot.  ``adj_backend``: ``"ell"`` gives each
-        graph the ``CsrPlan`` of its matrix and of its transpose (the CUDA
-        kernels' inputs; the JAX package's ELL plans) and the ``EvPlan``
-        pair of its structure (for edge values computed per step; the JAX
-        package's ELL-ev plans), ``"segment"`` none, ``"auto"`` plans from
-        ``ELL_AUTO_NODES`` nodes on."""
+        graph the plan of its matrix and of its transpose (the CUDA
+        kernels' inputs; the JAX package's ELL plans), ``EvPlan``s that
+        also take edge values given per call (its ELL-ev plans),
+        ``"segment"`` none, ``"auto"`` plans from ``ELL_AUTO_NODES`` nodes
+        on."""
         if adj_backend not in ADJ_BACKENDS:
             raise ValueError(f"adj_backend {adj_backend!r}, not one of "
                              f"{ADJ_BACKENDS}")
@@ -88,14 +87,9 @@ class DataLoader:
         graphs = [from_scipy(m) for m in mats]
         if adj_backend == "ell" or (adj_backend == "auto" and
                                     self.node_num >= self.ELL_AUTO_NODES):
-            planned = []
-            for g, m in zip(graphs, mats):
-                ev_fwd, ev_t = build_ev_plans(g.rows.numpy(), g.cols.numpy(),
-                                              g.n_rows, g.n_cols)
-                planned.append(dataclasses.replace(
-                    g, plan_fwd=build_csr_plan(m), plan_t=build_csr_plan(m.T),
-                    plan_ev_fwd=ev_fwd, plan_ev_t=ev_t))
-            graphs = planned
+            graphs = [dataclasses.replace(g, plan_fwd=fwd, plan_t=tr)
+                      for g, (fwd, tr) in zip(graphs,
+                                              map(build_ev_plans, graphs))]
         return tuple(graphs)
 
     def get_edge_list(self, origin_base_path, start_idx, duration, sep="\t"):

@@ -13,7 +13,7 @@ before the dropout, as in the JAX package, so h' divides the dropped-out
 sum by the sum of the values before dropout.
 
 Both products run through ``ell_spmm_ev`` on the kernels when the graph
-carries its ``EvPlan`` pair, else through the segment ``spmm_ev``.  The
+carries its plans (``EvPlan``s), else through the segment ``spmm_ev``.  The
 row sum multiplies a ones column, which needs no gradient, so its
 backward computes d(vals) alone.
 
@@ -60,9 +60,9 @@ class SpGraphAttentionLayer(nn.Module):
         logit = (h @ self.a[:out])[src] + (h @ self.a[out:])[dst]
         edge_e = torch.exp(-F.leaky_relu(logit, self.alpha))
         ones = h.new_ones(adj.n_rows, 1)
-        if adj.plan_ev_fwd is not None:
+        if adj.plan_fwd is not None:
             def product(vals, x_):
-                return ell_spmm_ev(adj.plan_ev_fwd, adj.plan_ev_t, vals, x_)
+                return ell_spmm_ev(adj, vals, x_)
         else:
             def product(vals, x_):
                 return spmm_ev(src, dst, vals, x_, adj.n_rows)

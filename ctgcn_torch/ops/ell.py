@@ -30,11 +30,12 @@ zeros.
 
 ``ell_spmm_ev`` (port of ``ell_spmm_ev`` and ``build_ell_ev_plans`` in
 ``ctgcn_tpu/ops/ell.py``) multiplies by edge values that change every
-step, GAT's attention.  Its plans are ``EvPlan``s: a ``CsrPlan`` of the
-graph's structure that also names each nonzero's edge id (the JAX
-package's ``eids`` in its ELL-ev buckets), built once from ``edge id + 1``
-over the structure, never from the matrix's values.  Each call gathers
-the values into plan order and hands them to the same two kernels.
+step, GAT's attention.  A zoo graph's plan pair are ``EvPlan``s: the
+``CsrPlan`` of the graph that ``ell_spmm`` reads, which also names each
+nonzero's edge id (the JAX package's ``eids`` in its ELL-ev buckets),
+built once from ``edge id + 1`` over the structure, never from the
+matrix's values.  Each call gathers the values into plan order and hands
+them to the same two kernels in place of the plan's own.
 """
 from __future__ import annotations
 
@@ -46,8 +47,9 @@ import torch
 from torch.nn import functional as F
 
 from ctgcn_torch.ops.bsr_spmm import (D_ALIGN, D_ALIGN_BF16, CsrPlan,
-                                      _kernel_input, build_csr_plan, csr_spmm,
-                                      dispatch)
+                                      _csr_fields, _kernel_input,
+                                      build_csr_plan, csr_spmm, dispatch)
+from ctgcn_torch.ops.sparse import SparseGraph
 
 
 def _slot_matrix(rows, cols, vals, valid, n_nodes, delta):
@@ -148,43 +150,39 @@ def ell_spmm(fwd_plan: CsrPlan, t_plan: CsrPlan, x, bf16=False):
 
 @dataclasses.dataclass(frozen=True)
 class EvPlan(CsrPlan):
-    """A ``CsrPlan`` of a graph's structure (``csr_val`` all ones) for
-    edge values given per call.
+    """A ``CsrPlan`` of a graph (its values, for ``ell_spmm``) that also
+    names each nonzero's edge, for edge values given per call
+    (``ell_spmm_ev``).
 
     csr_eid:    int64[nnz] the edge id (position in the graph's COO) of
                 each nonzero, in plan order.
-    flat_rows:  int64[P] the graph's COO rows, in edge order ...
-    flat_cols:  int64[P] ... and columns (swapped in a transpose plan).
     """
 
     csr_eid: torch.Tensor
-    flat_rows: torch.Tensor
-    flat_cols: torch.Tensor
 
 
-def build_ev_plan(rows, cols, n_rows, n_cols) -> EvPlan:
-    """``EvPlan`` (host tensors) of the COO structure (rows, cols): the CSR
-    of ``edge id + 1`` over it gives each nonzero's edge id.  The edges
-    must be distinct."""
-    rows = np.asarray(rows, dtype=np.int64)
-    cols = np.asarray(cols, dtype=np.int64)
+def _ev_plan(rows, cols, vals, n_rows, n_cols) -> EvPlan:
+    """``EvPlan`` (host tensors) of the COO edges (rows, cols, vals): the
+    CSR of ``edge id + 1`` over the structure gives each nonzero's edge
+    id, and the values follow it into plan order."""
     eids = sp.csr_matrix((np.arange(1, rows.shape[0] + 1), (rows, cols)),
                          shape=(n_rows, n_cols))
     eids.sort_indices()
     if eids.nnz != rows.shape[0]:
-        raise ValueError("build_ev_plan: repeated (row, col) edges")
-    structure = build_csr_plan(sp.csr_matrix(
-        (np.ones(eids.nnz), eids.indices, eids.indptr), shape=eids.shape))
-    return EvPlan(**vars(structure),
-                  csr_eid=torch.from_numpy(eids.data - 1),
-                  flat_rows=torch.from_numpy(rows),
-                  flat_cols=torch.from_numpy(cols))
+        raise ValueError("build_ev_plans: repeated (row, col) edges")
+    eid = eids.data - 1
+    r = np.repeat(np.arange(n_rows), np.diff(eids.indptr))
+    return EvPlan(**_csr_fields(r, eids.indices, vals[eid], n_rows, None),
+                  n_rows=n_rows, n_cols=n_cols,
+                  csr_eid=torch.from_numpy(eid))
 
 
-def build_ev_plans(rows, cols, n_rows, n_cols):
-    """(forward, transpose) ``EvPlan``s; both index the same edge order."""
-    return (build_ev_plan(rows, cols, n_rows, n_cols),
-            build_ev_plan(cols, rows, n_cols, n_rows))
+def build_ev_plans(g: SparseGraph):
+    """(forward, transpose) ``EvPlan``s of a host graph with distinct
+    edges and no zero values; both index the graph's edge order."""
+    rows, cols, vals = (t.numpy() for t in (g.rows, g.cols, g.vals))
+    return (_ev_plan(rows, cols, vals, g.n_rows, g.n_cols),
+            _ev_plan(cols, rows, vals, g.n_cols, g.n_rows))
 
 
 class _EllSpmmEv(torch.autograd.Function):
@@ -193,30 +191,40 @@ class _EllSpmmEv(torch.autograd.Function):
     transpose plan's product, each only when asked for."""
 
     @staticmethod
-    def forward(ctx, vals, x, fwd_plan, t_plan):
-        ctx.plans = (fwd_plan, t_plan)
+    def forward(ctx, vals, x, graph):
+        ctx.graph = graph
         ctx.save_for_backward(vals, x)
-        return dispatch(fwd_plan)(fwd_plan, x, vals[fwd_plan.csr_eid])
+        plan = graph.plan_fwd
+        return dispatch(plan)(plan, x, vals[plan.csr_eid])
 
     @staticmethod
     def backward(ctx, g):
-        fwd_plan, t_plan = ctx.plans
+        # spmm.py imports this module
+        from ctgcn_torch.ops.spmm import sddmm
+
+        graph = ctx.graph
         vals, x = ctx.saved_tensors
         g = _kernel_input(g)
         dvals = dx = None
         if ctx.needs_input_grad[0]:
-            dvals = (g[fwd_plan.flat_rows] * x[fwd_plan.flat_cols]).sum(-1)
+            dvals = sddmm(graph, g, x)
         if ctx.needs_input_grad[1]:
-            dx = dispatch(t_plan)(t_plan, g, vals[t_plan.csr_eid])
-        return dvals, dx, None, None
+            plan = graph.plan_t
+            dx = dispatch(plan)(plan, g, vals[plan.csr_eid])
+        return dvals, dx, None
 
 
-def ell_spmm_ev(fwd_plan: EvPlan, t_plan: EvPlan, vals, x):
-    """``A(vals) @ x`` ([R, C] @ [C, d] -> [R, d]) on the kernels, for
-    f32 edge values ``vals`` [P] in the plans' edge order; differentiable
-    in vals and in x.  d is zero-padded inside to a multiple of 4."""
+def ell_spmm_ev(graph: SparseGraph, vals, x):
+    """``A(vals) @ x`` ([R, C] @ [C, d] -> [R, d]) on the kernels, for a
+    graph that carries its ``EvPlan`` pair and f32 edge values ``vals``
+    [nnz] in the graph's edge order; differentiable in vals and in x.
+    The graph's own values are not read.  d is zero-padded inside to a
+    multiple of 4."""
+    if not isinstance(graph.plan_fwd, EvPlan):
+        raise ValueError("ell_spmm_ev needs a graph with its EvPlan pair "
+                         "(build_ev_plans)")
     d = x.shape[1]
     pad = -d % D_ALIGN
     xp = F.pad(x, (0, pad)) if pad else x
-    out = _EllSpmmEv.apply(vals.float(), _kernel_input(xp), fwd_plan, t_plan)
+    out = _EllSpmmEv.apply(vals.float(), _kernel_input(xp), graph)
     return out[:, :d] if pad else out

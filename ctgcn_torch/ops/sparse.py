@@ -7,11 +7,10 @@ package pads them to a power-of-two capacity so that XLA traces one shape
 for every snapshot; nothing is traced here, so a graph keeps its exact
 nonzeros.  In place of the JAX package's degree-bucketed ELL tables a graph
 may carry a pair of ``CsrPlan``s (forward and transpose): ``spmm`` then
-runs the CUDA kernels through ``ell_spmm`` (``ops/ell.py``).  It may also
-carry a pair of ``EvPlan``s, the same structure with each nonzero's edge
-id, on which ``ell_spmm_ev`` runs the kernels with edge values computed
-every step (GAT's attention; the JAX package's ``ell_ev_fwd`` /
-``ell_ev_t``).
+runs the CUDA kernels through ``ell_spmm`` (``ops/ell.py``).  The loader's
+plans are ``EvPlan``s, which also name each nonzero's edge, so that
+``ell_spmm_ev`` runs the kernels with edge values computed every step
+(GAT's attention; the JAX package's ``ell_ev_fwd`` / ``ell_ev_t``).
 """
 from __future__ import annotations
 
@@ -32,8 +31,6 @@ class SparseGraph:
     vals:           float32[nnz], no zeros.
     plan_fwd:       optional ``CsrPlan`` of the matrix ...
     plan_t:         ... and of its transpose: ``spmm`` prefers them.
-    plan_ev_fwd:    optional ``EvPlan`` of the structure ...
-    plan_ev_t:      ... and of its transpose (``ops.ell.build_ev_plans``).
     """
 
     rows: torch.Tensor
@@ -43,8 +40,6 @@ class SparseGraph:
     n_cols: int
     plan_fwd: CsrPlan | None = None
     plan_t: CsrPlan | None = None
-    plan_ev_fwd: CsrPlan | None = None
-    plan_ev_t: CsrPlan | None = None
 
     @property
     def shape(self):
@@ -61,11 +56,12 @@ class SparseGraph:
 
     def to(self, device) -> "SparseGraph":
         """The graph (and its plans) on ``device``."""
-        return dataclasses.replace(self, **{
-            f.name: getattr(self, f.name).to(device)
-            for f in dataclasses.fields(self)
-            if getattr(self, f.name) is not None
-            and f.name not in ("n_rows", "n_cols")})
+        return dataclasses.replace(
+            self, rows=self.rows.to(device), cols=self.cols.to(device),
+            vals=self.vals.to(device),
+            plan_fwd=None if self.plan_fwd is None
+            else self.plan_fwd.to(device),
+            plan_t=None if self.plan_t is None else self.plan_t.to(device))
 
 
 def from_coo(rows, cols, vals, shape):

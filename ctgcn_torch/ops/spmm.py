@@ -13,7 +13,8 @@
 
 ``spmm_ev`` is the segment form with edge values given apart from the
 graph, differentiable in the values and in x (GAT's attention on graphs
-without plans); ``sddmm`` is the per-edge ``<a[row], b[col]>``.
+without plans); ``sddmm`` is the per-edge ``<a[row], b[col]>`` (the
+gradient in the values of ``ell_spmm_ev``).
 """
 from __future__ import annotations
 

@@ -30,7 +30,8 @@ import torch
 from ctgcn_torch.nn.gat import GAT as TGAT
 from ctgcn_torch.nn.gat import SpGraphAttentionLayer as TLayer
 from ctgcn_torch.ops import ell as TE
-from ctgcn_torch.ops.bsr_spmm import bsr_spmm_csr_plain, bsr_spmm_rowwalk
+from ctgcn_torch.ops.bsr_spmm import (bsr_spmm_csr_plain, bsr_spmm_rowwalk,
+                                      build_csr_plan)
 from ctgcn_torch.ops import sparse as TS
 from ctgcn_torch.ops import spmm as TSP
 from ctgcn_tpu.nn.gat import GAT as JGAT
@@ -68,8 +69,8 @@ def _x(seed, d, n=NG):
 def _both(m):
     """(port graph with its EvPlan pair, JAX padded graph)."""
     g = TS.from_scipy(m)
-    fwd, tr = TE.build_ev_plans(g.rows.numpy(), g.cols.numpy(), NG, NG)
-    return (dataclasses.replace(g, plan_ev_fwd=fwd, plan_ev_t=tr),
+    fwd, tr = TE.build_ev_plans(g)
+    return (dataclasses.replace(g, plan_fwd=fwd, plan_t=tr),
             JS.from_scipy(m))
 
 
@@ -108,19 +109,35 @@ def test_sddmm_and_spmm_ev_equal_jax():
 def test_ev_plans_name_each_edge():
     """Each plan's nonzero k carries edge ``csr_eid[k]``: the forward plan
     walks the graph's (row, col) order, the transpose plan the edges
-    swapped; both hold ones, whatever the graph's values."""
-    tg, _ = _both(_graph())
-    fwd, tr = tg.plan_ev_fwd, tg.plan_ev_t
-    for plan, r, c in ((fwd, tg.rows, tg.cols), (tr, tg.cols, tg.rows)):
+    swapped; both hold the graph's values in plan order, so each is the
+    plan that ``build_csr_plan`` makes of the matrix (or its
+    transpose)."""
+    m = _graph()
+    tg, _ = _both(m)
+    fwd, tr = tg.plan_fwd, tg.plan_t
+    for plan, r, c, mat in ((fwd, tg.rows, tg.cols, m),
+                            (tr, tg.cols, tg.rows, m.T)):
         eid = plan.csr_eid
         assert sorted(eid.tolist()) == list(range(tg.nnz))
         torch.testing.assert_close(plan.csr_row.long(), r[eid])
         torch.testing.assert_close(plan.csr_col.long(), c[eid])
-        assert bool((plan.csr_val == 1).all())
-        torch.testing.assert_close(plan.flat_rows, r)
+        torch.testing.assert_close(plan.csr_val, tg.vals[eid])
+        want = build_csr_plan(mat)
+        for name in ("csr_ptr", "csr_col", "csr_row", "csr_val",
+                     "row_order"):
+            torch.testing.assert_close(getattr(plan, name),
+                                       getattr(want, name), rtol=0, atol=0)
+        assert plan.max_row_nnz == want.max_row_nnz
     assert fwd.max_row_nnz == int(torch.bincount(tg.rows).max()) >= NG // 2 - 1
     with pytest.raises(ValueError, match="repeated"):
-        TE.build_ev_plan([1, 1], [2, 2], 4, 4)
+        TE.build_ev_plans(TS.SparseGraph(
+            rows=torch.tensor([1, 1]), cols=torch.tensor([2, 2]),
+            vals=torch.ones(2), n_rows=4, n_cols=4))
+    # a graph whose plans name no edges cannot take values per call
+    plain = build_csr_plan(m)
+    with pytest.raises(ValueError, match="EvPlan"):
+        TE.ell_spmm_ev(dataclasses.replace(tg, plan_fwd=plain, plan_t=plain),
+                       torch.ones(tg.nnz), torch.ones(NG, 4))
     # the wrappers take values in plan order, one f32 a nonzero
     x = torch.ones(NG, 4)
     for bad in (torch.ones(tg.nnz - 1), torch.ones(tg.nnz).double()):
@@ -149,8 +166,7 @@ def test_ell_spmm_ev_equal_jax(d):
         jloss, argnums=(0, 1), has_aux=True)(jvals, jnp.asarray(x))
     got = {}
     for name, fn in (
-            ("ell", lambda v, xx: TE.ell_spmm_ev(tg.plan_ev_fwd,
-                                                 tg.plan_ev_t, v, xx)),
+            ("ell", lambda v, xx: TE.ell_spmm_ev(tg, v, xx)),
             ("segment", lambda v, xx: TSP.spmm_ev(tg.rows, tg.cols, v, xx,
                                                   NG))):
         tv = torch.from_numpy(vals).requires_grad_()
@@ -180,11 +196,10 @@ def test_ell_spmm_ev_skips_dx_without_grad(monkeypatch):
     monkeypatch.setattr(TE, "dispatch", recording)
     vals = torch.rand(tg.nnz, generator=torch.Generator().manual_seed(0),
                       requires_grad=True)
-    out = TE.ell_spmm_ev(tg.plan_ev_fwd, tg.plan_ev_t, vals,
-                         torch.ones(NG, 1))
+    out = TE.ell_spmm_ev(tg, vals, torch.ones(NG, 1))
     assert out.shape == (NG, 1)
     out.sum().backward()
-    assert dispatched == [tg.plan_ev_fwd]
+    assert dispatched == [tg.plan_fwd]
     torch.testing.assert_close(vals.grad, torch.ones(tg.nnz))
 
 
@@ -193,7 +208,7 @@ def test_ell_spmm_ev_skips_dx_without_grad(monkeypatch):
 def test_attention_layer_equal_jax(concat, backend):
     tg, jg = _both(_graph(10))
     if backend == "segment":
-        tg = dataclasses.replace(tg, plan_ev_fwd=None, plan_ev_t=None)
+        tg = dataclasses.replace(tg, plan_fwd=None, plan_t=None)
     else:
         jf, jt = JE.build_ell_ev_plans(
             np.asarray(jg.rows), np.asarray(jg.cols),
@@ -227,7 +242,8 @@ def test_gat_forward_and_grads_equal_jax(dataset, heads, features,
     """GAT on the zoo's window (D^-1 (A + I), as the driver gives it),
     dropout off, U-neg's log_softmax."""
     tgraphs, jwin = _windows(dataset, True, True, adj_backend)
-    assert (tgraphs[0].plan_ev_fwd is not None) is (adj_backend == "ell")
+    assert isinstance(tgraphs[0].plan_fwd, TE.EvPlan) is (
+        adj_backend == "ell")
     assert (jwin.ell_ev_fwd is not None) is (adj_backend == "ell")
     in_dim, jxs, txs = _features(features)
     jmodel = JGAT.init(jax.random.key(4), in_dim, HID, EMB, dropout=0.5,

@@ -46,6 +46,7 @@ from ctgcn_torch.interop import params_from_numpy
 from ctgcn_torch.nn.gcn import GCN as TGCN
 from ctgcn_torch.nn.gcn import _dropout as t_dropout
 from ctgcn_torch.nn.gin import GIN as TGIN
+from ctgcn_torch.ops.ell import EvPlan
 from ctgcn_torch.ops import neighbors as TN
 from ctgcn_torch.ops import sparse as TS
 from ctgcn_torch.training import driver as TD
@@ -280,7 +281,7 @@ def _driver_window_and_loss(dataset, method, change):
     raw = tl.get_scipy_adj_list(targs["origin_base_path"], 0, T)
     for t, g in enumerate(data["adjs"]):
         assert g.backend == ("ell" if plans else "segment")
-        assert (g.plan_ev_fwd is not None) is plans
+        assert isinstance(g.plan_fwd, EvPlan) is plans
         jg = JS.SparseGraph(rows=jadjs.rows[t], cols=jadjs.cols[t],
                             vals=jadjs.vals[t], n_rows=N, n_cols=N)
         dense = TS.to_dense(g).numpy()
