@@ -74,14 +74,29 @@ kernel against its plain PyTorch version:
                 000 (a neighbour table of 87,036 x 1,147), 3 epochs, no
                 kernel of ours;
   * as_tgsage   ``configs/as.json`` TgSAGE (5 neighbours sampled, sum
-                pooling) on window 0, 3 epochs, no kernel of ours.
+                pooling) on window 0, 3 epochs, no kernel of ours;
+  * enron_gcrn  ``configs/enron.json`` GCRN as written (T = 5, one GCN of
+                hid 500 and embed 128 a snapshot, GRU, dropout 0.5, batch
+                32768) on window 0 of the Enron copy, 3 epochs: every
+                snapshot's D^-1 (A + I) (longest rows 1,147-1,149) on the
+                block-parallel kernel, both directions;
+  * enron_egcn  ``configs/enron.json`` EvolveGCN as written (EGCNH, T = 10,
+                hid 128, embed 128, gaussian degree features of width
+                1,149: 4.0 GB on the card) on a preprocessed copy of Enron
+                snapshots 000-009, 1 epoch: D^-1/2 (A + I) D^-1/2 on the
+                block-parallel kernel, both directions;
+  * math_egcn   ``configs/math.json`` EvolveGCN as written (N = 24,740,
+                T = 10, features of width 227) on a preprocessed copy of
+                Math snapshots 000-009 (longest rows 226-227), 3 epochs:
+                the row walk, both directions.
 
 Phases, one line each:
 
   1. build      the CUDA kernels from ``ctgcn_torch/csrc`` (nvcc, sm_90a);
   2. preprocess k-core pyramids and walk tables through ``ctgcn_torch.main``
                 on the native host-graph kernels (UCI, the AS and the Enron
-                snapshots, America-Air, Math snapshot 000), and the native
+                snapshots, America-Air, Math snapshot 000, Enron and Math
+                snapshots 000-009), and the native
                 core numbers against the numpy peel on every UCI snapshot;
   3. kernels    each f32 kernel on the UCI pallas plans (snapshot 2004-05,
                 both directions, d = 512 and 128: ``block_spmm`` pads hid
@@ -101,7 +116,9 @@ Phases, one line each:
      kernels_zoo  each f32 kernel on the zoo's plans of snapshot 000 (Enron
                 under GCN's D^-1 (A + I), Math under GIN's A + I), both
                 directions, d = 500 and 128, against the CSR plain version,
-                then timed beside it, ``torch.sparse.mm`` and the bound;
+                then timed beside it, ``torch.sparse.mm`` and the bound; and
+                on EvolveGCN's D^-1/2 (A + I) D^-1/2 plans of the same
+                snapshots at d = 128;
                 then with edge values given per call (``ell_spmm_ev``'s
                 product) on GAT's plans of Enron 000 and TgGAT's of Math
                 000, random positive values, at d = 500, 128 and GAT's
@@ -116,8 +133,10 @@ Phases, one line each:
                 row walk) models the same way, a small 2-head GAT on each
                 kernel (values and gradients through ``ell_spmm_ev``, so
                 ``W`` and ``a`` take both d(vals) and d(x); against the
-                CPU in float64) and a small SAGE with ``num_sample`` above
-                its largest degree;
+                CPU in float64), a small SAGE with ``num_sample`` above
+                its largest degree, and a small GCRN and EvolveGCN (EGCNH)
+                on each kernel, their parameters carried over by
+                ``params_from_numpy`` (against the CPU in float64);
   4. paths      each path with the launch counters set to 0 just before it
                 and read just after (``PATHS``: the kernels each must launch,
                 every other must not), and Enron's bf16 / "highest" loss gap;
@@ -144,8 +163,10 @@ Phases, one line each:
 Any failure exits non-zero.  Without a GPU, or outside a checkout of the
 repository, the script stops before any result.
 """
+import concurrent.futures
 import dataclasses
 import json
+import multiprocessing
 import os
 import shutil
 import subprocess
@@ -166,6 +187,8 @@ ENRON_EPOCHS = 2
 ENRON_SNAPSHOT = 4
 #: the Math snapshot of the GIN path (window 0 of configs/math.json)
 MATH_SNAPSHOTS = ("000.csv",)
+#: the snapshots of EvolveGCN's paths (window 0 of its entries: duration 10)
+TEN_SNAPSHOTS = tuple(f"{i:03d}.csv" for i in range(10))
 #: bf16 kernel with bf16 out vs its plain version: within one bf16 ulp of
 #: the plain value (at most 2^-7 of it) plus ATOL_REL * max|plain|
 BF16_ULP = 2.0 ** -7
@@ -537,22 +560,23 @@ def phase_kernels_ell(cfg, dev):
 
 def phase_kernels_zoo(cfgs, dev):
     """Both f32 kernels on the zoo's plans of snapshot 000 as the driver
-    builds them (``get_input_data``): Enron under GCN's D^-1 (A + I) and
+    builds them (``_zoo_adjacency``): Enron under GCN's D^-1 (A + I) and
     Math under GIN's A + I, each direction, at d = 500 and 128 (hid 500 and
-    embed 128; ``ell_spmm`` pads to a multiple of 4).  ``dispatch`` must
-    give Enron's plans the block-parallel kernel and Math's the row walk,
-    which the enron_gcn and math_gin paths then launch."""
+    embed 128; ``ell_spmm`` pads to a multiple of 4; EvolveGCN's 128 and
+    128 once).  ``dispatch`` must give Enron's plans the block-parallel
+    kernel and Math's the row walk, which the enron_gcn and math_gin paths
+    (and EvolveGCN's, on its D^-1/2 (A + I) D^-1/2 plans) then launch."""
     from ctgcn_torch.ops import bsr_spmm as B
-    from ctgcn_torch.training.driver import get_data_loader, get_input_data
+    from ctgcn_torch.training.driver import _zoo_adjacency, get_data_loader
 
     plans = {}
     for data, (cfg, method) in cfgs.items():
         args = dict(cfg)
         loader = get_data_loader(args)
         t0 = time.time()
-        _, window = get_input_data(method, 0, 1, loader, args)
+        adjs, _ = _zoo_adjacency(method, 0, 1, loader, args)
         built_s = time.time() - t0
-        graph = window["adjs"][0]
+        graph = adjs[0]
         if graph.backend != "ell":
             raise AssertionError(f"{data} {method}: adj_backend auto gave "
                                  f"{graph.backend}, not the plans")
@@ -569,7 +593,7 @@ def phase_kernels_zoo(cfgs, dev):
     got = {k: B.dispatch(plans[k]).__name__ for k in want}
     if got != want:
         raise AssertionError(f"dispatch gives {got} on the zoo's plans")
-    widths = _spmm_widths(cfgs["enron"][0], B.D_ALIGN)
+    widths = tuple(dict.fromkeys(_spmm_widths(cfgs["enron"][0], B.D_ALIGN)))
     return _kernel_rows("kernels_zoo", plans, dev, widths)
 
 
@@ -980,21 +1004,24 @@ def _tanh_square(y):
 
 
 def _cpu_against_card(name, model, inputs_on, dev, loss=_tanh_square,
-                      cpu_dtype=None, **fields):
+                      cpu_dtype=None, xs=None, **fields):
     """Forward and every parameter gradient of ``loss(y)`` (by default
-    sum(tanh(y)^2)) for ``model(None, inputs_on(device))`` on the CPU and
+    sum(tanh(y)^2)) for ``model(xs, inputs_on(device))`` on the CPU and
     on the card, within PARITY_TOL: the outputs of their largest, each
     gradient of the model's largest gradient (a bias before a BatchNorm
     has a zero gradient but for rounding).  ``cpu_dtype`` float64 runs
-    the CPU side in float64 (the card's stays float32)."""
+    the CPU side in float64 (the card's stays float32); ``xs`` (host
+    features, or None for identity features) go to each side in its
+    dtype."""
     import torch
 
     res = []
     for d in (torch.device("cpu"), dev):
-        mod = model.to(d, dtype=cpu_dtype if d.type == "cpu" and cpu_dtype
-                       else torch.float32)
+        dtype = (cpu_dtype if d.type == "cpu" and cpu_dtype
+                 else torch.float32)
+        mod = model.to(d, dtype=dtype)
         mod.zero_grad(set_to_none=True)
-        y = mod(None, inputs_on(d))
+        y = mod(None if xs is None else xs.to(d, dtype), inputs_on(d))
         loss(y).backward()
         res.append((y.detach().cpu(),
                     {k: p.grad.detach().cpu()
@@ -1011,6 +1038,7 @@ def _cpu_against_card(name, model, inputs_on, dev, loss=_tanh_square,
                              scale=scale, **tol) for k in gc)
     _phase("parity", model=name, tolerance=PARITY_TOL,
            max_abs_err_forward=err_f, max_abs_err_grads=err_g,
+           max_abs_forward=float(yc.abs().max()), max_abs_grad=scale,
            grads=sorted(gc), **fields)
 
 
@@ -1082,6 +1110,99 @@ def phase_parity_attn(dev):
                  dropout=0.0, generator=gen)
     _cpu_against_card("sage", model, lambda d: (nbr.to(d), deg.to(d)), dev,
                       n=n, T=T, hid=hid, num_sample=int(deg.max()) + 1)
+
+
+def _jax_layout(model):
+    """The model's parameters as the JAX package's tree (nested dicts of
+    numpy arrays): GCRN's per-step ``gcns.<t>.*`` stacked on a leading [T]
+    axis, as ``GCRN.init`` stacks them."""
+    import numpy as np
+
+    flat = {}
+    for key, val in model.state_dict().items():
+        head, _, rest = key.partition(".")
+        if head == "gcns":
+            flat.setdefault("gcns." + rest.partition(".")[2], []).append(
+                val.numpy())
+        else:
+            flat[key] = val.numpy()
+    tree = {}
+    for key, val in flat.items():
+        *path, leaf = key.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = np.stack(val) if isinstance(val, list) else val
+    return tree
+
+
+def phase_parity_recurrent(dev):
+    """A small GCRN (GRU, N = 1800, T = 2, hid 500, embed 64, dropout off)
+    and a small EvolveGCN (EGCNH, 100 normal features, hid 128, embed 64,
+    rrelu at its mean slope), forward and every parameter gradient on the
+    card through the kernels against the CPU in float64 on the segment
+    SpMM (the plain version): GCRN on D^-1 (A + I), EvolveGCN on D^-1/2
+    (A + I) D^-1/2, each of a graph whose node 0 has degree 300 (the
+    block-parallel kernel, both directions) and of one without a hub (the
+    row walk).  The parameters reach the compared model from the JAX
+    package's layout through ``params_from_numpy``."""
+    import dataclasses
+
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    from ctgcn_torch.interop import params_from_numpy
+    from ctgcn_torch.nn.egcn import EvolveGCN
+    from ctgcn_torch.nn.gcn import GCRN
+    from ctgcn_torch.ops import bsr_spmm as B
+    from ctgcn_torch.ops.ell import build_ev_plans
+    from ctgcn_torch.ops.sparse import from_scipy, normalize_scipy_adj
+
+    n, T, hid, out_dim, feat, egcn_hid = 1800, 2, 500, 64, 100, 128
+    gen = torch.Generator().manual_seed(0)
+    xs = torch.randn(T, n, feat, generator=gen)
+    for name, row_norm in (("gcrn", True), ("egcn", False)):
+        for hub, kernel in ((300, "bsr_spmm_blockpar"),
+                            (0, "bsr_spmm_rowwalk")):
+            rng = np.random.default_rng(4)
+            graphs = []
+            for _ in range(T):
+                m = normalize_scipy_adj(_parity_adjacency(rng, n, hub)
+                                        + sp.eye(n), row_norm=row_norm)
+                g = from_scipy(m)
+                fwd, tr = build_ev_plans(g)
+                graphs.append(dataclasses.replace(g, plan_fwd=fwd,
+                                                  plan_t=tr))
+            chosen = {B.dispatch(p).__name__ for g in graphs
+                      for p in (g.plan_fwd, g.plan_t)}
+            if chosen != {kernel}:
+                raise AssertionError(f"the {name} parity model reaches "
+                                     f"{chosen}, not {kernel}")
+            if name == "gcrn":
+                def make(g):
+                    return GCRN(n, hid, out_dim, T, dropout=0.5, generator=g)
+                x = None
+            else:
+                def make(g):
+                    return EvolveGCN(feat, egcn_hid, out_dim, generator=g)
+                x = xs
+            model = make(torch.Generator().manual_seed(1))
+            carried = make(gen)
+            carried.load_state_dict(params_from_numpy(_jax_layout(model)))
+            if any(not torch.equal(v, carried.state_dict()[k])
+                   for k, v in model.state_dict().items()):
+                raise AssertionError(f"parity {name}: params_from_numpy "
+                                     "did not carry the parameters")
+            segment = tuple(dataclasses.replace(g, plan_fwd=None, plan_t=None)
+                            for g in graphs)
+            _cpu_against_card(
+                f"{name}_{kernel}", carried,
+                lambda d: segment if d.type == "cpu" else tuple(
+                    g.to(d) for g in graphs), dev,
+                cpu_dtype=torch.float64, xs=x, kernel=kernel, n=n, T=T,
+                hid=hid if name == "gcrn" else egcn_hid,
+                cpu="float64, segment spmm")
 
 
 def phase_core_numbers(base):
@@ -1232,6 +1353,9 @@ PATHS = {
     "math_tggat": ("math_tggat", "TgGAT", "ell", ("bsr_spmm_rowwalk",)),
     "enron_sage": ("enron_sage", "SAGE", "ell", ()),
     "as_tgsage": ("as_tgsage", "TgSAGE", "segment", ()),
+    "enron_gcrn": ("enron_gcrn", "GCRN", "ell", ("bsr_spmm_blockpar",)),
+    "enron_egcn": ("enron_egcn", "EvolveGCN", "ell", ("bsr_spmm_blockpar",)),
+    "math_egcn": ("math_egcn", "EvolveGCN", "ell", ("bsr_spmm_rowwalk",)),
 }
 #: the paths profiled, with their epochs under the profiler (aa_snode's
 #: 52,000 launches an epoch take the profiler minutes to sum; aa_sedge
@@ -1239,7 +1363,8 @@ PATHS = {
 PROFILED = {"uci_auto": 2, "uci_pallas": 2, "as_auto": 2, "as_ctgcn_s": 2,
             "as_bf16": 2, "enron_bf16": 1, "uci_cgcn_c": 2, "uci_cgcn_s": 2,
             "aa_snode": 1, "as_ctgcn_s_slink": 2, "uci_slink_dy": 2,
-            "enron_gcn": 2, "math_gin": 2, "enron_gat": 2, "enron_sage": 2}
+            "enron_gcn": 2, "math_gin": 2, "enron_gat": 2, "enron_sage": 2,
+            "enron_gcrn": 2, "enron_egcn": 2}
 
 
 def _write_config(path, method, pre, emb):
@@ -1249,6 +1374,21 @@ def _write_config(path, method, pre, emb):
         json.dump({"preprocessing": {method: pre},
                    "embedding": {method: emb}}, fp, indent=1)
     return path, pre, emb
+
+
+def _embedding_csv_shape(path, nodes, embed_dim):
+    """[rows, cols] of one exported embedding CSV, which must name every
+    node of ``nodes`` in order and hold finite values of width
+    ``embed_dim``."""
+    import numpy as np
+
+    from ctgcn_torch.data.formats import read_embedding_csv
+
+    names, arr = read_embedding_csv(path)
+    if (names != nodes or arr.shape != (len(nodes), embed_dim)
+            or not np.isfinite(arr).all()):
+        raise AssertionError(f"embedding {path}: {arr.shape}")
+    return list(arr.shape)
 
 
 def run_path(path, cfg, method, backend, kernels, dev):
@@ -1263,7 +1403,7 @@ def run_path(path, cfg, method, backend, kernels, dev):
     import torch
 
     from ctgcn_torch import main as cli
-    from ctgcn_torch.data.formats import read_embedding_csv, read_node_list
+    from ctgcn_torch.data.formats import PARALLEL_MIN_ROWS, read_node_list
     from ctgcn_torch.ops import bsr_spmm as B
 
     cfg_path, _, emb = cfg
@@ -1295,12 +1435,17 @@ def run_path(path, cfg, method, backend, kernels, dev):
         base = Path(emb["base_path"])
         nodes = read_node_list(base / emb["node_file"])
         emb_dir = base / emb["embed_folder"]
-        for f in sorted(os.listdir(emb_dir)):
-            names, arr = read_embedding_csv(emb_dir / f)
-            if (names != nodes or arr.shape != (len(nodes), emb["embed_dim"])
-                    or not np.isfinite(arr).all()):
-                raise AssertionError(f"{path}: embedding {f}: {arr.shape}")
-            shapes.append(list(arr.shape))
+        files = [emb_dir / f for f in sorted(os.listdir(emb_dir))]
+        args = (files, [nodes] * len(files), [emb["embed_dim"]] * len(files))
+        # parsing an Enron-sized CSV takes seconds: large exports are read
+        # in worker processes, as they are written
+        if len(files) > 1 and len(nodes) * len(files) >= PARALLEL_MIN_ROWS:
+            with concurrent.futures.ProcessPoolExecutor(
+                    min(os.cpu_count() or 1, len(files)),
+                    mp_context=multiprocessing.get_context("spawn")) as pool:
+                shapes = list(pool.map(_embedding_csv_shape, *args))
+        else:
+            shapes = list(map(_embedding_csv_shape, *args))
         if len(shapes) != sum(r["time_length"] for r in results):
             raise AssertionError(f"{path}: {len(shapes)} embedding CSVs")
     supervised = {}
@@ -1600,8 +1745,8 @@ def main():
                     for f in AS_SNAPSHOTS)
             and all((ROOT / "data" / "enron" / "1.format" / f).is_file()
                     for f in ENRON_SNAPSHOTS)
-            and all((ROOT / "data" / "math" / "1.format" / f).is_file()
-                    for f in MATH_SNAPSHOTS)):
+            and all((ROOT / "data" / d / "1.format" / f).is_file()
+                    for d in ("enron", "math") for f in TEN_SNAPSHOTS)):
         return _fail(f"{ROOT} is not a checkout of the repository")
     t_start = time.time()
     sys.path.insert(0, str(ROOT))
@@ -1630,9 +1775,10 @@ def main():
         from ctgcn_torch import main as cli
 
         # 2. preprocessing on temporary copies of data/uci, of the first
-        # AS and Enron snapshots, of data/america_air (with its labels) and
-        # of Math snapshot 000 (its CTGCN-C entry writes the walk tables
-        # that its GIN entry reads)
+        # AS and Enron snapshots, of data/america_air (with its labels), of
+        # Math snapshot 000 (its CTGCN-C entry writes the walk tables that
+        # its GIN entry reads) and of Enron and Math snapshots 000-009
+        # (EvolveGCN's window)
         cfgs, confs = {}, {}
         for name, conf_name, files, extra, epochs in (
                 ("uci", "uci", None, (), EPOCHS),
@@ -1640,9 +1786,11 @@ def main():
                 ("enron", "enron", ENRON_SNAPSHOTS, (), ENRON_EPOCHS),
                 ("america_air", "america-air", None,
                  ("nodes_label", "edges_label"), AA_EPOCHS),
-                ("math", "math", MATH_SNAPSHOTS, (), EPOCHS)):
+                ("math", "math", MATH_SNAPSHOTS, (), EPOCHS),
+                ("enron10", "enron", TEN_SNAPSHOTS, (), EPOCHS),
+                ("math10", "math", TEN_SNAPSHOTS, (), EPOCHS)):
             base = work / name
-            src = ROOT / "data" / name
+            src = ROOT / "data" / conf_name.replace("-", "_")
             for folder in ("nodes_set",) + extra:
                 shutil.copytree(src / folder, base / folder)
             if files is None:
@@ -1713,6 +1861,11 @@ def main():
                                    ("enron_sage", "enron", "SAGE"),
                                    ("as_tgsage", "as", "TgSAGE")):
             variant(name, data, method, end_idx=0, epoch=EPOCHS)
+        # the recurrent GCNs: configs as written, window 0 (EvolveGCN's
+        # setup draws 1.0e9 gaussians at Enron, so one epoch there)
+        variant("enron_gcrn", "enron", "GCRN", epoch=EPOCHS)
+        variant("enron_egcn", "enron10", "EvolveGCN", epoch=1)
+        variant("math_egcn", "math10", "EvolveGCN", epoch=EPOCHS)
 
         # 3. kernels at the paths' shapes, and small-model parity
         kernels = phase_kernels(cfgs["uci_pallas"][2], dev)
@@ -1722,12 +1875,16 @@ def main():
         kernels_zoo = phase_kernels_zoo(
             {"enron": (cfgs["enron_gcn"][2], "GCN"),
              "math": (cfgs["math_gin"][2], "GIN")}, dev)
+        kernels_zoo_sym = phase_kernels_zoo(
+            {"enron": (cfgs["enron_egcn"][2], "EvolveGCN"),
+             "math": (cfgs["math_egcn"][2], "EvolveGCN")}, dev)
         kernels_zoo_ev = phase_kernels_zoo_ev(
             {"enron": (cfgs["enron_gat"][2], "GAT"),
              "math": (cfgs["math_tggat"][2], "TgGAT")}, dev)
         phase_parity(dev)
         phase_parity_zoo(dev)
         phase_parity_attn(dev)
+        phase_parity_recurrent(dev)
 
         # 4. the paths, counters set to 0 just before and read just after
         launches, results = {}, {}
@@ -1774,10 +1931,12 @@ def main():
         by_path = {p: n[name] for p, n in launches.items()}
         if name in F32_KERNELS:
             rows = {**kernels[name], "ell_as": kernels_ell[name],
-                    "zoo": kernels_zoo[name], "zoo_ev": kernels_zoo_ev[name]}
+                    "zoo": kernels_zoo[name], "zoo_ev": kernels_zoo_ev[name],
+                    "zoo_sym": kernels_zoo_sym[name]}
             status = ("matches its plain versions, launched on the pallas "
                       "and ELL paths and on the zoo's plans, with the "
-                      "plans' values and with GAT's per-step values")
+                      "plans' values (EvolveGCN's symmetric ones too) and "
+                      "with GAT's per-step values")
         else:
             rows = kernels_bf16[name]
             status = ("matches its plain version (bf16 and f32 out), "

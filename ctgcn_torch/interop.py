@@ -20,7 +20,12 @@ the JAX heads ``MLPClassifier`` and ``EdgeClassifier`` map as they are onto
 ``GAT`` (``attentions.<i>.W``, ``attentions.<i>.a``, ``out_att.W``,
 ``out_att.a``) and ``SAGE`` (``linear.*``, ``sage1.linear.*``,
 ``sage2.linear.*``) map as they are onto ``ctgcn_torch.nn.gat`` and
-``ctgcn_torch.nn.sage``.
+``ctgcn_torch.nn.sage``.  ``GCRN``'s ``gcns`` leaves carry a leading [T]
+axis, as CTGCN's ``mlps`` do, and become ``gcns.<t>.gc1.*`` /
+``gcns.<t>.gc2.*``; its ``rnn`` and ``norm`` map as CTGCN's.
+``EvolveGCN`` (``grcu<l>.evolve_weights.{update,reset,htilda}.{W,U,bias}``,
+``grcu<l>.evolve_weights.choose_topk.scorer``,
+``grcu<l>.GCN_init_weights``) maps as it is onto ``ctgcn_torch.nn.egcn``.
 """
 from __future__ import annotations
 
@@ -42,11 +47,13 @@ def _flatten(tree, prefix=""):
 
 def params_from_numpy(tree):
     """JAX CTGCN / CGCN / MLPClassifier / EdgeClassifier / GCN / GIN / GAT
-    / SAGE parameter tree (nested dicts of arrays) -> state_dict."""
+    / SAGE / GCRN / EvolveGCN parameter tree (nested dicts of arrays) ->
+    state_dict."""
     state = {}
     for name, arr in _flatten(tree).items():
         head, _, rest = name.partition(".")
-        if head in ("mlps", "cdns") and not rest.split(".")[0].isdigit():
+        if (head in ("mlps", "cdns", "gcns")
+                and not rest.split(".")[0].isdigit()):
             for t in range(arr.shape[0]):
                 state[f"{head}.{t}.{rest}"] = torch.tensor(
                     arr[t], dtype=torch.float32)

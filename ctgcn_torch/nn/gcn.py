@@ -1,13 +1,16 @@
 # coding: utf-8
-"""GCN (Kipf & Welling), the zoo's GCN and TgGCN (port of
-``GraphConvolution`` and ``GCN`` in ``ctgcn_tpu/nn/gcn.py``).
+"""GCN (Kipf & Welling), the zoo's GCN and TgGCN, and GCRN (port of
+``GraphConvolution``, ``GCN`` and ``GCRN`` in ``ctgcn_tpu/nn/gcn.py``).
 
 The convolution is ``spmm(adj, x @ W) + b``; with identity features the
 support is ``W`` itself.  One set of parameters serves every snapshot of
-the window.  ``GraphConvolution`` draws U(-1/sqrt(out_dim), 1/sqrt(out_dim))
-for weight and bias: out_dim, unlike ``torch.nn.Linear``.  Dropout draws
-its mask from the ``generator`` passed in (the engine's), and is off
-without one (the export).
+the window in GCN; GCRN has a GCN of its own for each timestep (the JAX
+package stacks their leaves on a leading [T] axis), then an L2 row
+normalization, a GRU or LSTM over time and a LayerNorm.
+``GraphConvolution`` draws U(-1/sqrt(out_dim), 1/sqrt(out_dim)) for weight
+and bias: out_dim, unlike ``torch.nn.Linear``.  Dropout draws its mask from
+the ``generator`` passed in (the engine's; GCRN's steps draw one after
+another), and is off without one (the export).
 """
 from __future__ import annotations
 
@@ -17,6 +20,9 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ctgcn_torch.nn.core_models import _make_rnn
+from ctgcn_torch.nn.layers import LayerNorm
+from ctgcn_torch.ops.rnn import rnn_scan
 from ctgcn_torch.ops.spmm import spmm
 
 
@@ -69,3 +75,29 @@ class GCN(nn.Module):
         return torch.stack([
             self.single(None if xs is None else xs[t], adj, generator)
             for t, adj in enumerate(adjs)])
+
+
+class GCRN(nn.Module):
+    """One ``GCN`` per timestep (``duration`` of them), each output row
+    divided by max(its L2 norm, 1e-12), then a GRU or LSTM (``rnn_type``)
+    over time and a LayerNorm."""
+
+    def __init__(self, input_dim, hidden_dim, output_dim, duration,
+                 dropout=0.5, bias=True, rnn_type="GRU", generator=None):
+        super().__init__()
+        self.gcns = nn.ModuleList(
+            GCN(input_dim, hidden_dim, output_dim, dropout=dropout,
+                bias=bias, generator=generator) for _ in range(duration))
+        self.rnn = _make_rnn(rnn_type, output_dim, output_dim, bias,
+                             generator)
+        self.norm = LayerNorm(output_dim)
+
+    def forward(self, xs, adjs, generator=None):
+        """xs [T, N, in] or None; adjs: T ``SparseGraph``s -> [T, N, out]."""
+        hx = torch.stack([
+            F.normalize(gcn.single(None if xs is None else xs[t], adj,
+                                   generator), dim=1, eps=1e-12)
+            for t, (gcn, adj) in enumerate(
+                zip(self.gcns, adjs, strict=True))])
+        outs, _ = rnn_scan(self.rnn, hx)
+        return self.norm(outs)

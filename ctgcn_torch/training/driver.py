@@ -2,13 +2,14 @@
 """Embedding-task driver (port of ``ctgcn_tpu/training/driver.py`` for the
 CTGCN family: CGCN-C, CGCN-S, CTGCN-C and CTGCN-S, under the learning
 types U-neg, U-own, S-node, S-edge, S-link-st and S-link-dy; and for the
-model zoo's GCN, TgGCN, GIN, TgGIN, GAT, TgGAT, SAGE and TgSAGE under
-U-neg).
+model zoo's GCN, TgGCN, GIN, TgGIN, GAT, TgGAT, SAGE, TgSAGE, GCRN and
+EvolveGCN under U-neg).
 
 The zoo's window is its adjacency, one ``SparseGraph`` a snapshot, with
 the kernels' plans at ``ELL_AUTO_NODES`` nodes and more (``adj_backend``),
-normalized as the JAX driver normalizes it: D^-1 (A + I) for GCN and GAT
-(GAT reads only the structure, so for it that means self-loops); the raw
+normalized as the JAX driver normalizes it: D^-1 (A + I) for GCN, GAT and
+GCRN (GAT reads only the structure, so for it that means self-loops);
+D^-1/2 (A + I) D^-1/2 for EvolveGCN; the raw
 weighted A for TgGCN, TgGAT, SAGE and TgSAGE; A + I for GIN and TgGIN
 when ``learn_eps`` is false (every GIN config; TgGIN's configs give no
 ``learn_eps``, so it is learnt and A stays raw).  SAGE and TgSAGE sample
@@ -16,18 +17,23 @@ from the neighbour table of the raw adjacency; GIN's ``pooling_type``
 only decides whether that table is built: the JAX driver does not pass it
 to GIN, which pools by sum.  SAGE's ``num_sample`` defaults to 5, but
 every config's SAGE entry sets it to null, which pools over all
-neighbours; TgSAGE's entries do not set it.  Dropout (and SAGE's
-sampling) draws from the engine's generator, before the U-neg sampler's
-draws; the export runs GCN, GIN and GAT without dropout, and SAGE with a
-generator seeded 0, as the JAX model draws from ``jax.random.key(0)``.
+neighbours; TgSAGE's entries do not set it.  GCRN gets only what the JAX
+factory passes (so it ignores ``feature_pre``, ``feature_dim`` and
+``layer_num``: two convolutions on identity features), EvolveGCN only its
+widths and ``model_type`` (so it ignores ``dropout`` and ``bias``).
+Dropout (SAGE's sampling, EvolveGCN's rrelu slopes) draws from the
+engine's generator, before the U-neg sampler's draws; the export runs
+GCN, GIN, GAT and GCRN without dropout, EvolveGCN at rrelu's mean slope,
+and SAGE with a generator seeded 0, as the JAX model draws from
+``jax.random.key(0)``.
 
 Per window: load the k-core pyramids (on the config's ``core_backend``,
 ``"auto"`` by default, at its ``matmul_precision``) and the node features
-(file features, identity, or degree features for the S-variants), build a
-fresh model, train it, export the per-timestamp embedding CSVs (the
-S-variants export the structure embedding, as the JAX package does), and
-record the window's training seconds in ``<base_path>/<method>_time.csv``
-after every window.
+(file features, identity, or degree features for the S-variants and
+EvolveGCN), build a fresh model, train it, export the per-timestamp
+embedding CSVs (the S-variants export the structure embedding, as the JAX
+package does), and record the window's training seconds in
+``<base_path>/<method>_time.csv`` after every window.
 
   * U-neg: the walk tables and the negative-sampling loss; U-own (the
     S-variants): the reconstruction loss.  ``UnsupervisedEmbedding``.
@@ -66,7 +72,8 @@ from ctgcn_torch.losses import (classification_loss, negative_sampling_loss,
 from ctgcn_torch.nn.core_models import (ACT_BUDGET, CGCN, CORE_RNN_BUDGET,
                                         CTGCN)
 from ctgcn_torch.nn.gat import GAT
-from ctgcn_torch.nn.gcn import GCN
+from ctgcn_torch.nn.egcn import EvolveGCN
+from ctgcn_torch.nn.gcn import GCN, GCRN
 from ctgcn_torch.nn.gin import GIN
 from ctgcn_torch.nn.heads import EdgeClassifier, MLPClassifier, inner_product
 from ctgcn_torch.nn.sage import SAGE
@@ -82,10 +89,13 @@ from ctgcn_torch.utils import resolve_device
 PORTED_METHODS = {"CGCN-C": CGCN, "CGCN-S": CGCN, "CTGCN-C": CTGCN,
                   "CTGCN-S": CTGCN, "GCN": GCN, "TgGCN": GCN, "GIN": GIN,
                   "TgGIN": GIN, "GAT": GAT, "TgGAT": GAT, "SAGE": SAGE,
-                  "TgSAGE": SAGE}
+                  "TgSAGE": SAGE, "GCRN": GCRN, "EvolveGCN": EvolveGCN}
 ZOO_METHODS = ("GCN", "TgGCN", "GIN", "TgGIN", "GAT", "TgGAT", "SAGE",
-               "TgSAGE")
+               "TgSAGE", "GCRN", "EvolveGCN")
 S_VARIANTS = ("CGCN-S", "CTGCN-S")
+#: the methods whose features are drawn from the degrees when the config
+#: names no feature files
+DEGREE_FEATURE_METHODS = S_VARIANTS + ("EvolveGCN",)
 SUPERVISED_TYPES = ("S-node", "S-edge", "S-link-st", "S-link-dy")
 LEARNING_TYPES = ("U-neg", "U-own") + SUPERVISED_TYPES
 MATMUL_PRECISIONS = ("highest", "high", "bf16")
@@ -151,15 +161,16 @@ def _zoo_adjacency(method, idx, time_length, data_loader, args):
     """The zoo's window: its adjacency as the JAX driver normalizes it per
     method, and the neighbor table for SAGE and for GIN when its config
     asks for max pooling."""
-    # of the ported methods the JAX driver normalizes only GCN and GAT, to
-    # D^-1 (A + I); GIN pools a node with its neighbours (+I) unless it
-    # learns eps
-    norm = method in ("GCN", "GAT")
+    # of the ported methods the JAX driver normalizes GCN, GAT and GCRN to
+    # D^-1 (A + I) and EvolveGCN to D^-1/2 (A + I) D^-1/2; GIN pools a
+    # node with its neighbours (+I) unless it learns eps
+    row_norm = method in ("GCN", "GAT", "GCRN")
+    norm = row_norm or method == "EvolveGCN"
     is_gin = method in ("GIN", "TgGIN")
     sep = args.get("file_sep", "\t")
     adjs = data_loader.get_date_adj_list(
         args["origin_base_path"], idx, time_length, sep=sep, normalize=norm,
-        row_norm=norm,
+        row_norm=row_norm,
         add_eye=norm or (is_gin and not args.get("learn_eps", True)),
         adj_backend=args.get("adj_backend", "auto"))
     neighbor_data = None
@@ -181,8 +192,8 @@ def get_input_data(method, idx, time_length, data_loader: DataLoader, args,
     ``matmul_precision`` sets the family's bank: "bf16" a bf16 dense bank
     / bf16 blocks / bf16 ELL gathers, "high" 3xTF32 GEMMs on an f32 bank.
     xs is None (identity features, never materialized), the files under
-    ``nfeature_folder``, or, for CGCN-S / CTGCN-S without them, degree
-    features drawn from ``rng`` (a numpy ``RandomState``)."""
+    ``nfeature_folder``, or, for CGCN-S, CTGCN-S and EvolveGCN without
+    them, degree features drawn from ``rng`` (a numpy ``RandomState``)."""
     data = {}
     if method in ZOO_METHODS:
         data["adjs"], data["neighbor_data"] = _zoo_adjacency(
@@ -197,7 +208,7 @@ def get_input_data(method, idx, time_length, data_loader: DataLoader, args,
             dense_dtype=torch.bfloat16 if prec == "bf16" else None,
             dense_prec="high" if prec == "high" else "highest")
     sep = args.get("file_sep", "\t")
-    if method in S_VARIANTS and args.get("nfeature_path") is None:
+    if method in DEGREE_FEATURE_METHODS and args.get("nfeature_path") is None:
         data["xs"], input_dim = data_loader.get_degree_feature_list(
             args["origin_base_path"], idx, time_length, sep=sep,
             init_type=args["init_type"], std=args.get("std", 1e-4), rng=rng)
@@ -248,6 +259,14 @@ def get_gnn_model(method, time_length, args, generator):
         return SAGE(*dims, num_sample=args.get("num_sample", 5),
                     pooling_type=args.get("pooling_type", "sum"),
                     dropout=args.get("dropout", 0.0), **common)
+    # the JAX factory passes GCRN and EvolveGCN only these arguments
+    if PORTED_METHODS[method] is GCRN:
+        return GCRN(*dims, duration=time_length,
+                    dropout=args.get("dropout", 0.0),
+                    rnn_type=args.get("rnn_type", "GRU"), **common)
+    if PORTED_METHODS[method] is EvolveGCN:
+        return EvolveGCN(*dims, egcn_type=args.get("model_type", "EGCNH"),
+                         generator=generator)
     kw = dict(trans_num=args["trans_layer_num"],
               diffusion_num=args["diffusion_layer_num"],
               rnn_type=args.get("rnn_type", "GRU"),
@@ -269,7 +288,8 @@ def _family_forward(model, data, generator=None):
 
 
 def _adj_forward(model, data, generator=None):
-    """GCN and GAT: the model over the window's adjacency."""
+    """GCN, GAT, GCRN and EvolveGCN: the model over the window's
+    features and adjacency."""
     return model(data["xs"], data["adjs"], generator=generator)
 
 
@@ -284,11 +304,12 @@ def _sage_forward(model, data, generator=None):
 
 def make_forward(method):
     """(model, data, generator=None) -> embeddings of ``method``; the zoo
-    draws its dropout masks (and SAGE its samples) from ``generator``:
-    without one GCN, GIN and GAT drop nothing, and SAGE draws from a
+    draws its dropout masks (SAGE its samples, EvolveGCN its rrelu
+    slopes) from ``generator``: without one GCN, GIN, GAT and GCRN drop
+    nothing, EvolveGCN takes rrelu's mean slope, and SAGE draws from a
     generator seeded 0."""
     cls = PORTED_METHODS[method]
-    if cls in (GCN, GAT):
+    if cls in (GCN, GAT, GCRN, EvolveGCN):
         return _adj_forward
     if cls is GIN:
         return _gin_forward

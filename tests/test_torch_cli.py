@@ -240,7 +240,7 @@ def test_embedding_without_core_backend_runs_auto(dataset, trained,
 
 
 @pytest.mark.parametrize("task, method", [("link_pred", None),
-                                          ("embedding", "GCRN")])
+                                          ("embedding", "VGRNN")])
 def test_unported_tasks_and_methods_raise(dataset, tmp_path, task, method):
     """An unported method raises ``NotImplementedError``; every task is
     ported, so ``link_pred`` now runs its section and an empty one stops
@@ -248,7 +248,7 @@ def test_unported_tasks_and_methods_raise(dataset, tmp_path, task, method):
     _, cfg, _, _ = dataset
     config = json.loads(Path(cfg).read_text())
     config["link_pred"] = {}
-    config["embedding"]["GCRN"] = dict(config["embedding"]["CTGCN-C"])
+    config["embedding"]["VGRNN"] = dict(config["embedding"]["CTGCN-C"])
     path = tmp_path / "cfg.json"
     path.write_text(json.dumps(config))
     argv = [f"--config={path}", f"--task={task}", "--device=cpu"]

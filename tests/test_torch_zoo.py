@@ -66,7 +66,7 @@ N, T, HID, EMB, FEAT = 120, 2, 12, 6, 10
 FWD_TOL, GRAD_TOL = 1e-5, 1e-4
 METHODS = ("GCN", "TgGCN", "GIN", "TgGIN")
 #: every zoo method the port runs, as the dataset fixture configures them
-ZOO = METHODS + ("GAT", "TgGAT", "SAGE", "TgSAGE")
+ZOO = METHODS + ("GAT", "TgGAT", "SAGE", "TgSAGE", "GCRN", "EvolveGCN")
 
 
 @pytest.fixture(scope="module")
@@ -261,21 +261,38 @@ ADJACENCY = {
     "TgGCN": lambda a: a, "GIN": lambda a: a + np.eye(N),
     "TgGIN": lambda a: a}
 ADJACENCY.update(GAT=ADJACENCY["GCN"], TgGAT=ADJACENCY["TgGCN"],
-                 SAGE=ADJACENCY["TgGCN"], TgSAGE=ADJACENCY["TgGCN"])
+                 SAGE=ADJACENCY["TgGCN"], TgSAGE=ADJACENCY["TgGCN"],
+                 GCRN=ADJACENCY["GCN"],
+                 EvolveGCN=lambda a: _sym_norm(a + np.eye(N)))
+
+
+def _sym_norm(a):
+    """D^-1/2 a D^-1/2 of a dense matrix whose rows all have a sum."""
+    d = a.sum(1) ** -0.5
+    return d[:, None] * a * d[None, :]
 
 
 def _driver_window_and_loss(dataset, method, change):
     """The body of the driver checks: inputs and adjacency against the JAX
     driver's and ``ADJACENCY``, the neighbor table where the JAX driver
-    builds one, then the U-neg loss and its gradients."""
+    builds one, then the U-neg loss and its gradients, the forward given
+    no key (no generator), so without dropout and at rrelu's mean slope.
+    Degree features (EvolveGCN) are bit-equal: the JAX driver draws them
+    from the global ``np.random``, seeded here as the port's ``rng``."""
     _, _, emb = dataset
     conf = dict(emb[method], dropout=0.0, **change)
     jargs, targs = dict(conf), dict(conf)
     jl, tl = JD.get_data_loader(jargs), TD.get_data_loader(targs)
+    np.random.seed(8)
     in_j, jadjs, jxs, _ = JD.get_input_data(method, 0, T, jl, jargs)
-    in_t, data = TD.get_input_data(method, 0, T, tl, targs)
-    assert in_t == in_j == N and data["xs"] is None and jxs is None
-    jargs["input_dim"] = targs["input_dim"] = N
+    in_t, data = TD.get_input_data(method, 0, T, tl, targs,
+                                   rng=np.random.RandomState(8))
+    assert in_t == in_j
+    if jxs is None:
+        assert in_t == N and data["xs"] is None
+    else:
+        np.testing.assert_array_equal(data["xs"].numpy(), np.asarray(jxs))
+    jargs["input_dim"] = targs["input_dim"] = in_t
     plans = change.get("adj_backend") == "ell"
     assert (jadjs.ell_fwd is not None) is plans
     raw = tl.get_scipy_adj_list(targs["origin_base_path"], 0, T)
@@ -305,13 +322,15 @@ def _driver_window_and_loss(dataset, method, change):
         assert tmodel.learn_eps is (method == "TgGIN")
     walk_j = jl.get_walk_data(*_walk_paths(targs), 0, T)
     data["walk"] = tl.get_walk_data(*_walk_paths(targs), 0, T)
-    jdata = {"adjs": jadjs, "xs": None, "neighbor_data": jnd, "walk": walk_j}
+    jdata = {"adjs": jadjs, "xs": jxs, "neighbor_data": jnd, "walk": walk_j}
     rng = np.random.default_rng(6)
     b_idx = rng.permutation(N)[:48].astype(np.int32)
     b_mask = np.ones(48, bool)
     b_mask[-3:] = False
     key = jax.random.key(7)
-    jloss_fn = JD._uneg_loss_fn(JD.make_forward(method), False, S, Q)
+    jfwd = JD.make_forward(method)
+    jloss_fn = JD._uneg_loss_fn(lambda m, d, k: jfwd(m, d, None), False, S,
+                                Q)
     jval, jgrads = jax.value_and_grad(
         lambda m: jloss_fn(m, jdata, jnp.asarray(b_idx),
                            jnp.asarray(b_mask), key))(jmodel)
@@ -328,7 +347,8 @@ def _driver_window_and_loss(dataset, method, change):
 def test_cli_runs_each_method(dataset, tmp_path, method):
     """``--task=embedding`` as the config gives it (duration 1, so two
     windows), one epoch on the CPU: finite losses, the segment SpMM below
-    ``ELL_AUTO_NODES``, one CSV per snapshot, the model file."""
+    ``ELL_AUTO_NODES`` in every window, one CSV per snapshot, the model
+    file."""
     _cli_run(dataset, tmp_path, method)
 
 
@@ -341,7 +361,9 @@ def _cli_run(dataset, tmp_path, method):
     path.write_text(json.dumps({"embedding": {method: conf}}))
     results = cli.main([f"--config={path}", "--task=embedding",
                         f"--method={method}", "--device=cpu"])
-    assert [r["core_backend"] for r in results] == ["segment"] * T
+    windows = len(range(0, T, conf["duration"]))
+    assert [r["core_backend"] for r in results] == ["segment"] * windows
+    assert sum(r["time_length"] for r in results) == T
     assert all(np.isfinite(r["losses"]).all() for r in results)
     out = base / "2.embedding" / f"{method}-cli"
     assert sorted(p.name for p in out.iterdir()) == [
@@ -350,7 +372,7 @@ def _cli_run(dataset, tmp_path, method):
 
 
 @pytest.mark.parametrize("method, change", [
-    ("EvolveGCN", {}), ("GCRN", {}), ("GCN", {"learning_type": "S-node"})])
+    ("VGRNN", {}), ("PGNN", {}), ("GCN", {"learning_type": "S-node"})])
 def test_unported_zoo_raises(dataset, tmp_path, method, change):
     _, _, emb = dataset
     path = tmp_path / "cfg.json"
