@@ -88,7 +88,17 @@ kernel against its plain PyTorch version:
   * math_egcn   ``configs/math.json`` EvolveGCN as written (N = 24,740,
                 T = 10, features of width 227) on a preprocessed copy of
                 Math snapshots 000-009 (longest rows 226-227), 3 epochs:
-                the row walk, both directions.
+                the row walk, both directions;
+  * uci_vgrnn   ``configs/uci.json`` VGRNN as written (U-own, T = 7, hid
+                500, embed 128, GCN convolutions, batch 2048: one batch),
+                3 epochs: below 16,384 nodes the segment SpMM, no kernel
+                of ours;
+  * math_vgrnn  ``configs/math.json`` VGRNN as written (U-own, batch 32768:
+                one batch) on window 0 (snapshots 000-004) of the Math
+                copy, 3 epochs: its nine convolutions a step read D^-1/2
+                (A_bin + 2I) D^-1/2 (longest row 226) on the row walk, both
+                directions; the VAE loss step by step against the sparse
+                raw A.
 
 Phases, one line each:
 
@@ -126,6 +136,10 @@ Phases, one line each:
                 version, timed beside them and ``torch.sparse.mm`` on the
                 same values, with the value gather and the SDDMM of the
                 values' gradient beside their bounds;
+     kernels_vgrnn  each f32 kernel on VGRNN's plans of Math snapshot 000
+                (D^-1/2 (A_bin + 2I) D^-1/2), both directions, d = 500 and
+                128, against the CSR plain version, then timed beside it,
+                ``torch.sparse.mm`` and the bound;
      parity     small CTGCN-C models on BSR and on delta-ELL plans, forward
                 and gradients, kernels on the GPU against the plain versions
                 on the CPU, and one on f32 blocks at ``"high"`` (3xTF32);
@@ -136,12 +150,19 @@ Phases, one line each:
                 CPU in float64), a small SAGE with ``num_sample`` above
                 its largest degree, and a small GCRN and EvolveGCN (EGCNH)
                 on each kernel, their parameters carried over by
-                ``params_from_numpy`` (against the CPU in float64);
+                ``params_from_numpy`` (against the CPU in float64), and a
+                small VGRNN the same way over two batches carrying h, its
+                noise given, forward, VAE loss and gradients;
   4. paths      each path with the launch counters set to 0 just before it
                 and read just after (``PATHS``: the kernels each must launch,
                 every other must not), and Enron's bf16 / "highest" loss gap;
      profile    an epoch's device time by kernel class (``torch.profiler``,
                 device activity only) on each path of ``PROFILED``;
+     memory     what lives at a VGRNN epoch's peak on uci_vgrnn and
+                math_vgrnn (window, parameters, gradients and Adam, the
+                tensors saved for the backward, the loss's z z^T chunk)
+                beside the measured peaks of a forward, its backward and an
+                epoch;
   5. quality    the UCI Had AUC gates, seeds 0 and 1 each, scored by the
                 port's ``link_pred`` over edge-split reps 0-2 (mean Had AUC
                 of the last 4 dates): CTGCN-C as configured but for 10
@@ -149,6 +170,8 @@ Phases, one line each:
                 ``matmul_precision: "bf16"`` (``RESULTS.md:69``), each
                 failing below ``HAD_AUC_GATE``; CTGCN-S as configured (20
                 epochs, ``RESULTS.md:38``), failing below ``S_AUC_GATE``;
+                VGRNN as configured (50 epochs, ``RESULTS.md:52``), failing
+                below ``VGRNN_AUC_GATE``;
                 and aa_snode's mean test accuracy over seeds 0 and 1,
                 failing more than ``AA_SNODE_MARGIN`` under the JAX
                 package's mean on the same config and seeds
@@ -216,6 +239,9 @@ HAD_AUC_RANGES = {"ctgcn_tpu, 6 seeds": [0.9431, 0.9496],
 #: CTGCN-S on UCI as configured (20 epochs): the JAX package's one seed,
 #: 0.9342 (RESULTS.md:38, rep std 0.0031), less 0.0100
 S_AUC_GATE = 0.9242
+#: VGRNN on UCI as configured (50 epochs): the JAX package's 0.8955
+#: (RESULTS.md:52, rep std 0.0060) less four rep standard deviations
+VGRNN_AUC_GATE = 0.8715
 #: (name, method, config change, epochs, gate) of each quality run; the
 #: bf16 run's gate is the f32 one, as RESULTS.md:69 found bf16
 #: quality-neutral (0.9331 vs 0.9340 at 50 epochs)
@@ -223,7 +249,8 @@ QUALITY_RUNS = (
     ("CTGCN-C", "CTGCN-C", {}, QUALITY_EPOCHS, HAD_AUC_GATE),
     ("CTGCN-C-bf16", "CTGCN-C", {"matmul_precision": "bf16"},
      QUALITY_EPOCHS, HAD_AUC_GATE),
-    ("CTGCN-S", "CTGCN-S", {}, 20, S_AUC_GATE))
+    ("CTGCN-S", "CTGCN-S", {}, 20, S_AUC_GATE),
+    ("VGRNN", "VGRNN", {}, 50, VGRNN_AUC_GATE))
 #: America-Air training for node_cls / edge_cls
 AA_EPOCHS = 3
 #: aa_snode's quality gate: the JAX package's mean test accuracy on the
@@ -359,15 +386,17 @@ def _spmm_widths(cfg, align):
                  for k in ("hid_dim", "embed_dim"))
 
 
-def _kernel_rows(tag, plans, dev, widths, extra_check=None, vals=None):
+def _kernel_rows(tag, plans, dev, widths, extra_check=None, vals=None,
+                 reached=tuple(F32_KERNELS)):
     """Each kernel on each of ``plans`` (name -> device plan) at each of
     ``widths`` against the CSR plain version (and ``extra_check``), then
     each kernel's time on every plan at every width beside the plain
     version's, the library call's and the bound.  With ``vals`` (name ->
     f32 values in plan order) the kernels, the plain version and the
     library read those in place of the plans' values (the same bytes, so
-    the same bound).  Returns the row of each kernel on
-    the plan ``dispatch`` gives it, at the first width."""
+    the same bound).  ``dispatch`` must give the plans the kernels of
+    ``reached``.  Returns the row of each of those kernels on the plan
+    ``dispatch`` gives it, at the first width."""
     import torch
 
     from ctgcn_torch.ops import bsr_spmm as B
@@ -383,9 +412,9 @@ def _kernel_rows(tag, plans, dev, widths, extra_check=None, vals=None):
     main_plan = {}
     for k, p in plans.items():
         main_plan.setdefault(B.dispatch(p).__name__, k)
-    if set(main_plan) != set(F32_KERNELS):
-        raise AssertionError(f"{tag}: the plans do not reach both kernels "
-                             f"({main_plan})")
+    if set(main_plan) != set(reached):
+        raise AssertionError(f"{tag}: the plans reach {sorted(main_plan)}, "
+                             f"not {sorted(reached)}")
     errs = {}
     for name in F32_KERNELS:
         kern = getattr(B, name)
@@ -424,7 +453,7 @@ def _kernel_rows(tag, plans, dev, widths, extra_check=None, vals=None):
                        "bound_ms": bound["bound_ms"],
                        "bound_by": bound["bound_by"]}
                 times[name].append(row)
-                if main_plan[name] != pk or dd != widths[0]:
+                if main_plan.get(name) != pk or dd != widths[0]:
                     continue
                 err, rel_err = errs[name, pk, dd]
                 if name == "bsr_spmm_rowwalk":
@@ -454,7 +483,8 @@ def _kernel_rows(tag, plans, dev, widths, extra_check=None, vals=None):
                        flops=bound["flops"], bytes=bound["bytes"])
         del csr
     for name in F32_KERNELS:
-        results[name]["times"] = times[name]
+        if name in results:
+            results[name]["times"] = times[name]
         _phase(tag, kernel=name, times=times[name])
     return results
 
@@ -700,6 +730,36 @@ def phase_kernels_zoo_ev(cfgs, dev):
     for name in F32_KERNELS:
         results[name]["pieces"] = pieces
     return results
+
+
+def phase_kernels_vgrnn(cfg, dev):
+    """Both f32 kernels on VGRNN's plans of Math snapshot 000 as the driver
+    builds them (D^-1/2 (A_bin + 2I) D^-1/2, longest row 226: the row walk
+    in both directions), each direction at d = 500 (``enc`` and the GRU's
+    six convolutions) and 128 (``enc_mean``, ``enc_std``), against the CSR
+    plain version, then timed beside it, ``torch.sparse.mm`` and the
+    bound."""
+    from ctgcn_torch.ops import bsr_spmm as B
+    from ctgcn_torch.training.driver import get_data_loader, get_input_data
+
+    args = dict(cfg)
+    loader = get_data_loader(args)
+    t0 = time.time()
+    _, window = get_input_data("VGRNN", 0, 1, loader, args)
+    built_s = time.time() - t0
+    graph = window["vgrnn_adjs"][0]
+    if graph.backend != "ell":
+        raise AssertionError(f"math VGRNN: adj_backend auto gave "
+                             f"{graph.backend}, not the plans")
+    fwd, tr = graph.plan_fwd, graph.plan_t
+    _phase("kernels_vgrnn", data="math", method="VGRNN",
+           window_built_seconds=built_s, n_nodes=fwd.n_rows, nnz=fwd.nnz,
+           max_row_nnz_fwd=fwd.max_row_nnz, max_row_nnz_t=tr.max_row_nnz,
+           dispatch=[B.dispatch(p).__name__ for p in (fwd, tr)])
+    plans = {"math_forward": fwd.to(dev), "math_transpose": tr.to(dev)}
+    widths = tuple(dict.fromkeys(_spmm_widths(args, B.D_ALIGN)))
+    return _kernel_rows("kernels_vgrnn", plans, dev, widths,
+                        reached=("bsr_spmm_rowwalk",))
 
 
 def _check_bf16(name, got, ref_f32, out_dtype):
@@ -1205,6 +1265,101 @@ def phase_parity_recurrent(dev):
                 cpu="float64, segment spmm")
 
 
+def phase_parity_vgrnn(dev):
+    """A small VGRNN (GCN convolutions, N = 1800, T = 2, hid 500, embed
+    64) over two batches of an epoch as the engine runs them (the second
+    starts from the first's h, detached), its noise given: each batch's
+    enc_mean, h and VAE loss, and every parameter gradient summed over the
+    batches, on the card through the kernels against the CPU in float64
+    on the segment SpMM, within PARITY_TOL of their largest.  The
+    convolutions read D^-1/2 (A_bin + 2I) D^-1/2 of a graph whose node 0
+    has degree 300 (the block-parallel kernel, both directions) and of one
+    without a hub (the row walk); the target is the graph's weights in
+    (0, 1], so posw and norm come from a sum of weights that is not the
+    edge count.  The parameters reach the compared model from the JAX
+    package's layout through ``params_from_numpy``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from ctgcn_torch.interop import params_from_numpy
+    from ctgcn_torch.losses import vae_loss
+    from ctgcn_torch.nn.vgrnn import VGRNN
+    from ctgcn_torch.ops import bsr_spmm as B
+    from ctgcn_torch.ops.ell import build_ev_plans
+    from ctgcn_torch.ops.sparse import from_scipy
+    from ctgcn_torch.training.driver import (_vgrnn_forward, _vgrnn_norm,
+                                             _vgrnn_state_init)
+
+    n, T, hid, out_dim, batches = 1800, 2, 500, 64, 2
+    gen = torch.Generator().manual_seed(0)
+    noise = [[torch.randn(n, out_dim, generator=gen) for _ in range(T)]
+             for _ in range(batches)]
+    for hub, kernel in ((300, "bsr_spmm_blockpar"), (0, "bsr_spmm_rowwalk")):
+        rng = np.random.default_rng(5)
+        raws = [_parity_adjacency(rng, n, hub) for _ in range(T)]
+        graphs = []
+        for m in raws:
+            g = from_scipy(_vgrnn_norm(m))
+            fwd, tr = build_ev_plans(g)
+            graphs.append(dataclasses.replace(g, plan_fwd=fwd, plan_t=tr))
+        chosen = {B.dispatch(p).__name__ for g in graphs
+                  for p in (g.plan_fwd, g.plan_t)}
+        if chosen != {kernel}:
+            raise AssertionError(f"the vgrnn parity model reaches "
+                                 f"{chosen}, not {kernel}")
+        segment = tuple(dataclasses.replace(g, plan_fwd=None, plan_t=None)
+                        for g in graphs)
+        targets = tuple(from_scipy(m) for m in raws)
+        model = VGRNN(n, hid, out_dim, generator=torch.Generator()
+                      .manual_seed(1))
+        carried = VGRNN(n, hid, out_dim, generator=gen)
+        carried.load_state_dict(params_from_numpy(_jax_layout(model)))
+        if any(not torch.equal(v, carried.state_dict()[k])
+               for k, v in model.state_dict().items()):
+            raise AssertionError("parity vgrnn: params_from_numpy did not "
+                                 "carry the parameters")
+        res = []
+        for d in (torch.device("cpu"), dev):
+            dtype = torch.float64 if d.type == "cpu" else torch.float32
+            mod = carried.to(d, dtype=dtype)
+            mod.zero_grad(set_to_none=True)
+            data = {"xs": None,
+                    "vgrnn_adjs": segment if d.type == "cpu" else tuple(
+                        g.to(d) for g in graphs),
+                    "adjs": tuple(g.to(d) for g in targets)}
+            hx = _vgrnn_state_init(mod, data)
+            outs = {}
+            for b in range(batches):
+                em, h, (_, es, pm, ps, z) = _vgrnn_forward(
+                    mod, data, hx=hx,
+                    noise=[x.to(d, dtype) for x in noise[b]])
+                loss = vae_loss(em, es, pm, ps, z, data["adjs"])
+                loss.backward()
+                hx = h.detach()
+                outs.update({f"enc_mean_{b}": em.detach().cpu(),
+                             f"h_{b}": hx.cpu(),
+                             f"loss_{b}": loss.detach().cpu()})
+            res.append((outs, {k: p.grad.detach().cpu()
+                               for k, p in mod.named_parameters()}))
+        (oc, gc), (og, gg) = res
+        tol = {"rtol": PARITY_TOL, "atol_rel": PARITY_TOL}
+        err_f = max(_check_close(f"parity vgrnn {k}", og[k], oc[k], **tol)
+                    for k in oc)
+        scale = max(float(v.abs().max()) for v in gc.values())
+        err_g = max(_check_close(f"parity vgrnn grad {k}", gg[k], gc[k],
+                                 scale=scale, **tol) for k in gc)
+        _phase("parity", model=f"vgrnn_{kernel}", tolerance=PARITY_TOL,
+               max_abs_err_forward=err_f, max_abs_err_grads=err_g,
+               losses_cpu=[float(oc[f"loss_{b}"]) for b in range(batches)],
+               losses_card=[float(og[f"loss_{b}"])
+                            for b in range(batches)],
+               max_abs_grad=scale, grads=sorted(gc), kernel=kernel, n=n,
+               T=T, hid=hid, batches=batches,
+               cpu="float64, segment spmm")
+
+
 def phase_core_numbers(base):
     """The native core numbers against the numpy peel on every snapshot of
     the preprocessed copy at ``base``: equal, with both times."""
@@ -1326,6 +1481,63 @@ def phase_profile(path, method, cfg, dev, epochs=2):
                         for k, v in top])
 
 
+def phase_vgrnn_memory(path, cfg, dev):
+    """What lives at the peak of a VGRNN epoch on ``path``: the window and
+    the parameters (allocated when the trainer is ready), the parameters'
+    gradients and Adam's two moments (three times the parameters), the
+    tensors the forward and the VAE loss save for the backward (distinct
+    storages, counted under ``saved_tensors_hooks``), and the dense
+    softplus sum's largest transient chunk (z z^T rows and their softplus);
+    their sum beside the measured peaks of one batch's forward and loss,
+    of its backward, and of a whole epoch (from the memory allocated before
+    each)."""
+    import torch
+
+    from ctgcn_torch import losses as L
+
+    trainer, kw = _trainer("VGRNN", cfg, dev)
+    window_and_params = torch.cuda.memory_allocated(dev)
+    params = sum(p.numel() * p.element_size()
+                 for p in trainer.model.parameters())
+    saved = {}
+
+    def pack(t):
+        saved[t.untyped_storage().data_ptr()] = t.untyped_storage().nbytes()
+        return t
+
+    data = trainer.data
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        loss, h = trainer.loss_fn(trainer.model, data, None, None,
+                                  torch.Generator(device=dev).manual_seed(0),
+                                  trainer.state_init(trainer.model, data))
+    torch.cuda.synchronize()
+    after_forward = torch.cuda.memory_allocated(dev)
+    forward_peak = torch.cuda.max_memory_allocated(dev)
+    loss.backward()
+    torch.cuda.synchronize()
+    backward_peak = torch.cuda.max_memory_allocated(dev)
+    del loss, h
+    trainer.model.zero_grad(set_to_none=True)
+    n = data["vgrnn_adjs"][0].n_rows
+    rows = L._row_chunks(n)[0]
+    chunk = 2 * (rows.stop - rows.start) * n * 4
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    trainer.learn_embedding(epoch=1, **kw)
+    peak = torch.cuda.max_memory_allocated(dev)
+    parts = {"window_and_params_bytes": window_and_params,
+             "params_bytes": params,
+             "grads_and_adam_bytes": 3 * params,
+             "saved_for_backward_bytes": sum(saved.values()),
+             "gram_chunk_transient_bytes": chunk}
+    _phase("memory", path=path, **parts,
+           sum_bytes=sum(v for k, v in parts.items() if k != "params_bytes"),
+           allocated_after_forward=after_forward,
+           forward_peak=forward_peak, backward_peak=backward_peak,
+           epoch_peak=peak)
+
+
 #: path -> (config, method, the core backend (the zoo's: the adjacency
 #: backend) "auto" or the config must give, the kernels it must launch:
 #: every other kernel must not)
@@ -1356,6 +1568,8 @@ PATHS = {
     "enron_gcrn": ("enron_gcrn", "GCRN", "ell", ("bsr_spmm_blockpar",)),
     "enron_egcn": ("enron_egcn", "EvolveGCN", "ell", ("bsr_spmm_blockpar",)),
     "math_egcn": ("math_egcn", "EvolveGCN", "ell", ("bsr_spmm_rowwalk",)),
+    "uci_vgrnn": ("uci_vgrnn", "VGRNN", "segment", ()),
+    "math_vgrnn": ("math_vgrnn", "VGRNN", "ell", ("bsr_spmm_rowwalk",)),
 }
 #: the paths profiled, with their epochs under the profiler (aa_snode's
 #: 52,000 launches an epoch take the profiler minutes to sum; aa_sedge
@@ -1364,7 +1578,8 @@ PROFILED = {"uci_auto": 2, "uci_pallas": 2, "as_auto": 2, "as_ctgcn_s": 2,
             "as_bf16": 2, "enron_bf16": 1, "uci_cgcn_c": 2, "uci_cgcn_s": 2,
             "aa_snode": 1, "as_ctgcn_s_slink": 2, "uci_slink_dy": 2,
             "enron_gcn": 2, "math_gin": 2, "enron_gat": 2, "enron_sage": 2,
-            "enron_gcrn": 2, "enron_egcn": 2}
+            "enron_gcrn": 2, "enron_egcn": 2, "uci_vgrnn": 2,
+            "math_vgrnn": 2}
 
 
 def _write_config(path, method, pre, emb):
@@ -1866,6 +2081,10 @@ def main():
         variant("enron_gcrn", "enron", "GCRN", epoch=EPOCHS)
         variant("enron_egcn", "enron10", "EvolveGCN", epoch=1)
         variant("math_egcn", "math10", "EvolveGCN", epoch=EPOCHS)
+        # VGRNN: configs as written, window 0 (Math's first five
+        # snapshots: its duration)
+        variant("uci_vgrnn", "uci", "VGRNN", epoch=EPOCHS)
+        variant("math_vgrnn", "math10", "VGRNN", end_idx=4, epoch=EPOCHS)
 
         # 3. kernels at the paths' shapes, and small-model parity
         kernels = phase_kernels(cfgs["uci_pallas"][2], dev)
@@ -1881,10 +2100,12 @@ def main():
         kernels_zoo_ev = phase_kernels_zoo_ev(
             {"enron": (cfgs["enron_gat"][2], "GAT"),
              "math": (cfgs["math_tggat"][2], "TgGAT")}, dev)
+        kernels_vgrnn = phase_kernels_vgrnn(cfgs["math_vgrnn"][2], dev)
         phase_parity(dev)
         phase_parity_zoo(dev)
         phase_parity_attn(dev)
         phase_parity_recurrent(dev)
+        phase_parity_vgrnn(dev)
 
         # 4. the paths, counters set to 0 just before and read just after
         launches, results = {}, {}
@@ -1905,6 +2126,8 @@ def main():
         for path, epochs in PROFILED.items():
             cfg, method = PATHS[path][:2]
             phase_profile(path, method, cfgs[cfg][2], dev, epochs=epochs)
+        for path in ("uci_vgrnn", "math_vgrnn"):
+            phase_vgrnn_memory(path, cfgs[path][2], dev)
 
         # 5. model quality and the other evaluation tasks, counters set to
         # 0 just before and read just after (UCI and America-Air train on
@@ -1933,10 +2156,12 @@ def main():
             rows = {**kernels[name], "ell_as": kernels_ell[name],
                     "zoo": kernels_zoo[name], "zoo_ev": kernels_zoo_ev[name],
                     "zoo_sym": kernels_zoo_sym[name]}
+            if name in kernels_vgrnn:
+                rows["zoo_vgrnn"] = kernels_vgrnn[name]
             status = ("matches its plain versions, launched on the pallas "
                       "and ELL paths and on the zoo's plans, with the "
-                      "plans' values (EvolveGCN's symmetric ones too) and "
-                      "with GAT's per-step values")
+                      "plans' values (EvolveGCN's and VGRNN's symmetric "
+                      "ones too) and with GAT's per-step values")
         else:
             rows = kernels_bf16[name]
             status = ("matches its plain version (bf16 and f32 out), "

@@ -78,12 +78,18 @@ class DataLoader:
         also take edge values given per call (its ELL-ev plans),
         ``"segment"`` none, ``"auto"`` plans from ``ELL_AUTO_NODES`` nodes
         on."""
+        return self.graphs_from_scipy(
+            self.get_scipy_adj_list(origin_base_path, start_idx, duration,
+                                    sep=sep, normalize=normalize,
+                                    row_norm=row_norm, add_eye=add_eye),
+            adj_backend=adj_backend)
+
+    def graphs_from_scipy(self, mats, adj_backend="auto"):
+        """One host ``SparseGraph`` per given scipy matrix, with the plan
+        pair under ``adj_backend`` as ``get_date_adj_list`` gives it."""
         if adj_backend not in ADJ_BACKENDS:
             raise ValueError(f"adj_backend {adj_backend!r}, not one of "
                              f"{ADJ_BACKENDS}")
-        mats = self.get_scipy_adj_list(origin_base_path, start_idx, duration,
-                                       sep=sep, normalize=normalize,
-                                       row_norm=row_norm, add_eye=add_eye)
         graphs = [from_scipy(m) for m in mats]
         if adj_backend == "ell" or (adj_backend == "auto" and
                                     self.node_num >= self.ELL_AUTO_NODES):

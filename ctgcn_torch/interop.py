@@ -25,7 +25,11 @@ axis, as CTGCN's ``mlps`` do, and become ``gcns.<t>.gc1.*`` /
 ``gcns.<t>.gc2.*``; its ``rnn`` and ``norm`` map as CTGCN's.
 ``EvolveGCN`` (``grcu<l>.evolve_weights.{update,reset,htilda}.{W,U,bias}``,
 ``grcu<l>.evolve_weights.choose_topk.scorer``,
-``grcu<l>.GCN_init_weights``) maps as it is onto ``ctgcn_torch.nn.egcn``.
+``grcu<l>.GCN_init_weights``) maps as it is onto ``ctgcn_torch.nn.egcn``,
+and ``VGRNN`` (``phi_x``, ``phi_z``, ``prior``, ``prior_mean``,
+``prior_std``: ``Linear``; ``enc``, ``enc_mean``, ``enc_std``:
+``GraphConv``; ``rnn.{xz,hz,xr,hr,xh,hh}.<layer>``) onto
+``ctgcn_torch.nn.vgrnn``.
 """
 from __future__ import annotations
 
@@ -47,8 +51,8 @@ def _flatten(tree, prefix=""):
 
 def params_from_numpy(tree):
     """JAX CTGCN / CGCN / MLPClassifier / EdgeClassifier / GCN / GIN / GAT
-    / SAGE / GCRN / EvolveGCN parameter tree (nested dicts of arrays) ->
-    state_dict."""
+    / SAGE / GCRN / EvolveGCN / VGRNN parameter tree (nested dicts of
+    arrays) -> state_dict."""
     state = {}
     for name, arr in _flatten(tree).items():
         head, _, rest = name.partition(".")

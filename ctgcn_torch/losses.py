@@ -1,7 +1,7 @@
 # coding: utf-8
 """Skip-gram negative-sampling loss, the reconstruction loss of the
-S-variants, and the classification loss of the supervised learning types
-(port of ``ctgcn_tpu/losses.py``).
+S-variants, the classification loss of the supervised learning types and
+VGRNN's VAE loss (port of ``ctgcn_tpu/losses.py``).
 
 The sampler and the loss arithmetic are separate functions, so a test can
 hand both packages the same indices:
@@ -15,6 +15,10 @@ hand both packages the same indices:
     and the negatives' scores collapse to one dot with the SUM of the
     negative embeddings, BCEWithLogits(x, 0) = softplus(x), weighted by the
     node's positive count.
+
+``vae_loss`` takes the decoder's input z, not its [N, N] output, and the
+target as a sparse graph: the JAX package densifies both a window at a
+time (12.2 GB each at Math), here no [N, N] outlives its step.
 """
 from __future__ import annotations
 
@@ -22,6 +26,8 @@ import dataclasses
 
 import torch
 from torch.nn import functional as F
+
+from ctgcn_torch.ops.spmm import sddmm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,3 +157,79 @@ def classification_loss(preds, labels, mask=None):
     cnt = torch.clamp(m.sum(dim=1), min=1)
     return ((per * m).sum(dim=1) / cnt).sum(), ((correct * m).sum(dim=1)
                                                 / cnt).mean()
+
+
+#: elements of z z^T formed at a time by the VAE loss's dense sum (2^28:
+#: 1 GiB in f32, so a few row chunks at Math, N = 24,740)
+GRAM_CHUNK_ELEMS = 1 << 28
+
+
+def _row_chunks(n):
+    rows = max(1, GRAM_CHUNK_ELEMS // n)
+    return [slice(i, min(i + rows, n)) for i in range(0, n, rows)]
+
+
+class _SoftplusGramSum(torch.autograd.Function):
+    """sum_ij softplus((z z^T)_ij) for z [N, d], formed by row chunks and
+    saving only z: the backward forms the chunks again, and since z z^T is
+    symmetric, d/dz = (G + G^T) z = 2 G z with G = sigmoid(z z^T)."""
+
+    @staticmethod
+    def forward(ctx, z):
+        ctx.save_for_backward(z)
+        total = z.new_zeros(())
+        for rows in _row_chunks(z.shape[0]):
+            total += F.softplus(z[rows] @ z.T).sum()
+        return total
+
+    @staticmethod
+    def backward(ctx, g):
+        (z,) = ctx.saved_tensors
+        dz = torch.empty_like(z)
+        for rows in _row_chunks(z.shape[0]):
+            dz[rows] = torch.sigmoid_(z[rows] @ z.T) @ z
+        return dz.mul_(2 * g)
+
+
+def softplus_gram_sum(z):
+    """sum over all (i, j) of softplus(<z_i, z_j>), differentiable in z;
+    no [N, N] tensor is saved for the backward."""
+    return _SoftplusGramSum.apply(z)
+
+
+def vae_loss(enc_mean, enc_std, prior_mean, prior_std, z, targets,
+             eps=1e-10):
+    """VGRNN's VAE loss, summed over timestamps: per step the KL divergence
+    of the posterior from the prior, (0.5 / N) * mean over rows of the sum
+    over columns, ``eps`` inside every log and square, plus ``norm`` times
+    the mean over all N^2 pairs of the weighted binary cross-entropy of
+    the logits x = z_t z_t^T against the target A_t,
+    -(posw * y * log sigmoid(x) + (1 - y) * log sigmoid(-x)), where
+    ``posw = (N^2 - s) / s`` and ``norm = N^2 / (2 (N^2 - s))`` come from
+    the target's sum of weights s (not its edge count).
+
+    The cross-entropy is softplus(x) + y * ((posw - 1) * softplus(x) -
+    posw * x): a dense sum of softplus(x) over all pairs
+    (``softplus_gram_sum``) and a sum over the target's nonzeros of x there
+    (the SDDMM of z with itself).
+
+    Args: enc_mean, enc_std, prior_mean, prior_std, z: [T, N, d];
+    targets: T ``SparseGraph``s, the raw weighted adjacency."""
+    n = z.shape[1]
+    tot = float(n) * n
+    loss = z.new_zeros(())
+    for t, target in enumerate(targets):
+        em, es, pm, ps = enc_mean[t], enc_std[t], prior_mean[t], prior_std[t]
+        kld_el = (2 * torch.log(ps + eps) - 2 * torch.log(es + eps)
+                  + ((es + eps).square() + (em - pm).square())
+                  / (ps + eps).square() - 1)
+        kld = (0.5 / n) * kld_el.sum(dim=1).mean()
+        y = target.vals.to(z.dtype)
+        s = y.sum()
+        posw = (tot - s) / s
+        norm = tot / ((tot - s) * 2.0)
+        x_e = sddmm(target, z[t], z[t])
+        bce_sum = softplus_gram_sum(z[t]) + (
+            y * ((posw - 1) * F.softplus(x_e) - posw * x_e)).sum()
+        loss = loss + kld + norm * bce_sum / tot
+    return loss

@@ -8,8 +8,9 @@ Tasks: ``preprocessing`` (k-core pyramids and walk tables, on the native
 host-graph kernels), ``embedding`` (CGCN-C, CGCN-S, CTGCN-C and
 CTGCN-S under the config's learning type: U-neg, U-own for the
 S-variants, S-node, S-edge, S-link-st or S-link-dy; and the zoo's GCN,
-TgGCN, GIN, TgGIN, GAT, TgGAT, SAGE, TgSAGE, GCRN and EvolveGCN under
-U-neg; other methods raise), and the five evaluation tasks ``link_pred``,
+TgGCN, GIN, TgGIN, GAT, TgGAT, SAGE, TgSAGE, GCRN, EvolveGCN and VGRNN
+under U-neg, and VGRNN under U-own; other methods raise), and the five
+evaluation tasks ``link_pred``,
 ``node_cls``, ``edge_cls``, ``cent_pred`` and ``sim_pred``, whose fits,
 metrics and centralities run on the device.
 The device defaults to ``cuda``; without a GPU the run stops unless

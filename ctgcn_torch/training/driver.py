@@ -2,8 +2,8 @@
 """Embedding-task driver (port of ``ctgcn_tpu/training/driver.py`` for the
 CTGCN family: CGCN-C, CGCN-S, CTGCN-C and CTGCN-S, under the learning
 types U-neg, U-own, S-node, S-edge, S-link-st and S-link-dy; and for the
-model zoo's GCN, TgGCN, GIN, TgGIN, GAT, TgGAT, SAGE, TgSAGE, GCRN and
-EvolveGCN under U-neg).
+model zoo's GCN, TgGCN, GIN, TgGIN, GAT, TgGAT, SAGE, TgSAGE, GCRN,
+EvolveGCN and VGRNN under U-neg, and VGRNN under U-own).
 
 The zoo's window is its adjacency, one ``SparseGraph`` a snapshot, with
 the kernels' plans at ``ELL_AUTO_NODES`` nodes and more (``adj_backend``),
@@ -26,6 +26,18 @@ engine's generator, before the U-neg sampler's draws; the export runs
 GCN, GIN, GAT and GCRN without dropout, EvolveGCN at rrelu's mean slope,
 and SAGE with a generator seeded 0, as the JAX model draws from
 ``jax.random.key(0)``.
+
+VGRNN reads two graphs a snapshot: its convolutions D^-1/2 (A_bin + 2I)
+D^-1/2 over the binary structure (``data["vgrnn_adjs"]``, with the plans
+at ``ELL_AUTO_NODES`` nodes and more), its VAE loss the raw weighted A as
+the target (``data["adjs"]``, kept sparse, no plans).  It gets only what
+the JAX factory passes (widths, ``conv_type``, ``bias``: one GRU layer
+whatever ``rnn_layer_num`` says), its identity features are never formed,
+and its loss is stateful: the hidden state h crosses an epoch's batches
+detached and starts each epoch at zeros, and the export replays that
+carry.  The VAE loss ignores the batch, so every batch adds the whole
+window's loss.  The export exports ``enc_mean`` and draws its noise from a
+generator seeded 0 at every call.
 
 Per window: load the k-core pyramids (on the config's ``core_backend``,
 ``"auto"`` by default, at its ``matmul_precision``) and the node features
@@ -63,12 +75,13 @@ import os
 import time
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 
 from ctgcn_torch.data.formats import read_node_list, write_time_csv
 from ctgcn_torch.data.loader import DataLoader
 from ctgcn_torch.losses import (classification_loss, negative_sampling_loss,
-                                reconstruction_loss)
+                                reconstruction_loss, vae_loss)
 from ctgcn_torch.nn.core_models import (ACT_BUDGET, CGCN, CORE_RNN_BUDGET,
                                         CTGCN)
 from ctgcn_torch.nn.gat import GAT
@@ -77,6 +90,7 @@ from ctgcn_torch.nn.gcn import GCN, GCRN
 from ctgcn_torch.nn.gin import GIN
 from ctgcn_torch.nn.heads import EdgeClassifier, MLPClassifier, inner_product
 from ctgcn_torch.nn.sage import SAGE
+from ctgcn_torch.nn.vgrnn import VGRNN
 from ctgcn_torch.ops.neighbors import neighbor_table_from_scipy
 from ctgcn_torch.ops.rnn import CVJP_BATCH_BUDGET
 from ctgcn_torch.training.engine import (SupervisedEmbedding,
@@ -89,10 +103,14 @@ from ctgcn_torch.utils import resolve_device
 PORTED_METHODS = {"CGCN-C": CGCN, "CGCN-S": CGCN, "CTGCN-C": CTGCN,
                   "CTGCN-S": CTGCN, "GCN": GCN, "TgGCN": GCN, "GIN": GIN,
                   "TgGIN": GIN, "GAT": GAT, "TgGAT": GAT, "SAGE": SAGE,
-                  "TgSAGE": SAGE, "GCRN": GCRN, "EvolveGCN": EvolveGCN}
+                  "TgSAGE": SAGE, "GCRN": GCRN, "EvolveGCN": EvolveGCN,
+                  "VGRNN": VGRNN}
 ZOO_METHODS = ("GCN", "TgGCN", "GIN", "TgGIN", "GAT", "TgGAT", "SAGE",
-               "TgSAGE", "GCRN", "EvolveGCN")
+               "TgSAGE", "GCRN", "EvolveGCN", "VGRNN")
 S_VARIANTS = ("CGCN-S", "CTGCN-S")
+#: the methods with a U-own loss: the S-variants' reconstruction loss,
+#: VGRNN's VAE loss
+U_OWN_METHODS = S_VARIANTS + ("VGRNN",)
 #: the methods whose features are drawn from the degrees when the config
 #: names no feature files
 DEGREE_FEATURE_METHODS = S_VARIANTS + ("EvolveGCN",)
@@ -110,13 +128,17 @@ def _check_scope(method, args):
     if lt not in LEARNING_TYPES:
         raise ValueError(f"learning_type {lt!r}, not one of "
                          f"{LEARNING_TYPES}")
-    if lt == "U-own" and method not in S_VARIANTS:
-        raise ValueError(f"U-own is defined for the S-variants, not "
-                         f"{method}")
-    if method in ZOO_METHODS and lt != "U-neg":
+    if lt == "U-own" and method not in U_OWN_METHODS:
+        raise ValueError(f"U-own is defined for the S-variants and VGRNN, "
+                         f"not {method}")
+    if method in ZOO_METHODS and lt in SUPERVISED_TYPES:
         raise NotImplementedError(
             f"{method} under {lt!r} is not ported yet; the zoo trains "
-            "U-neg (ROADMAP.md queue 1: the model zoo)")
+            "U-neg, and VGRNN U-own (ROADMAP.md queue 1: the model zoo)")
+    if args.get("profile_dir"):
+        raise NotImplementedError(
+            "profile_dir is not ported yet (ROADMAP.md queue 1 item 6: "
+            "training/profiling.py to torch.profiler)")
     if args.get("remat_policy", "full") != "full":
         raise NotImplementedError(
             "remat_policy 'save_spmm' is not ported yet; only 'full' "
@@ -182,12 +204,36 @@ def _zoo_adjacency(method, idx, time_length, data_loader, args):
     return adjs, neighbor_data
 
 
+def _vgrnn_norm(mat):
+    """D^-1/2 (A_bin + 2I) D^-1/2 of a scipy matrix's binary structure, in
+    float64 (the JAX driver's VGRNN branch)."""
+    b = (mat.tocsr() != 0).astype(np.float64)
+    m = b + 2.0 * sp.eye(b.shape[0])
+    d = np.asarray(m.sum(axis=1)).ravel()
+    dinv = sp.diags(np.where(d > 0, d ** -0.5, 0.0))
+    return (dinv @ m @ dinv).tocoo()
+
+
+def _vgrnn_adjacency(idx, time_length, data_loader, args):
+    """VGRNN's window: (the raw weighted A, the VAE loss's target, without
+    plans; D^-1/2 (A_bin + 2I) D^-1/2, the convolutions' graph, with the
+    plans under ``adj_backend``), one graph a snapshot each."""
+    mats = data_loader.get_scipy_adj_list(args["origin_base_path"], idx,
+                                          time_length,
+                                          sep=args.get("file_sep", "\t"))
+    return (data_loader.graphs_from_scipy(mats, adj_backend="segment"),
+            data_loader.graphs_from_scipy(
+                [_vgrnn_norm(m) for m in mats],
+                adj_backend=args.get("adj_backend", "auto")))
+
+
 def get_input_data(method, idx, time_length, data_loader: DataLoader, args,
                    rng=None):
     """(input_dim, data) for one window on the host: ``data["adjs"]`` is
     the stacked ``CorePyramid`` of the family, or the zoo's ``SparseGraph``
-    per snapshot (with ``data["neighbor_data"]``), and ``data["xs"]`` the
-    features.
+    per snapshot (with ``data["neighbor_data"]``; VGRNN's target, and its
+    convolutions' graphs in ``data["vgrnn_adjs"]``), and ``data["xs"]``
+    the features.
 
     ``matmul_precision`` sets the family's bank: "bf16" a bf16 dense bank
     / bf16 blocks / bf16 ELL gathers, "high" 3xTF32 GEMMs on an f32 bank.
@@ -195,7 +241,10 @@ def get_input_data(method, idx, time_length, data_loader: DataLoader, args,
     ``nfeature_folder``, or, for CGCN-S, CTGCN-S and EvolveGCN without
     them, degree features drawn from ``rng`` (a numpy ``RandomState``)."""
     data = {}
-    if method in ZOO_METHODS:
+    if method == "VGRNN":
+        data["adjs"], data["vgrnn_adjs"] = _vgrnn_adjacency(
+            idx, time_length, data_loader, args)
+    elif method in ZOO_METHODS:
         data["adjs"], data["neighbor_data"] = _zoo_adjacency(
             method, idx, time_length, data_loader, args)
     else:
@@ -229,9 +278,10 @@ def _data_to(data, device):
     return out
 
 
-def _adj_backend(adjs):
-    """The window's backend: the pyramid's core backend, or a zoo
-    adjacency's "ell" / "segment"."""
+def _adj_backend(data):
+    """The window's backend: the pyramid's core backend, or the "ell" /
+    "segment" of the graphs the zoo's model reads."""
+    adjs = data.get("vgrnn_adjs", data["adjs"])
     return adjs[0].backend if isinstance(adjs, tuple) else adjs.backend
 
 
@@ -267,6 +317,9 @@ def get_gnn_model(method, time_length, args, generator):
     if PORTED_METHODS[method] is EvolveGCN:
         return EvolveGCN(*dims, egcn_type=args.get("model_type", "EGCNH"),
                          generator=generator)
+    if PORTED_METHODS[method] is VGRNN:
+        return VGRNN(*dims, conv_type=args.get("conv_type", "GCN"),
+                     **common)
     kw = dict(trans_num=args["trans_layer_num"],
               diffusion_num=args["diffusion_layer_num"],
               rnn_type=args.get("rnn_type", "GRU"),
@@ -302,12 +355,21 @@ def _sage_forward(model, data, generator=None):
     return model(data["xs"], data["neighbor_data"], generator=generator)
 
 
+def _vgrnn_forward(model, data, generator=None, hx=None, noise=None):
+    """VGRNN over its convolutions' graphs from the hidden state ``hx``
+    (zeros when None): (enc_mean, h, (enc_mean, enc_std, prior_mean,
+    prior_std, z))."""
+    return model(data["xs"], data["vgrnn_adjs"], hx=hx, generator=generator,
+                 noise=noise)
+
+
 def make_forward(method):
-    """(model, data, generator=None) -> embeddings of ``method``; the zoo
-    draws its dropout masks (SAGE its samples, EvolveGCN its rrelu
-    slopes) from ``generator``: without one GCN, GIN, GAT and GCRN drop
-    nothing, EvolveGCN takes rrelu's mean slope, and SAGE draws from a
-    generator seeded 0."""
+    """(model, data, generator=None) -> embeddings of ``method`` (VGRNN's
+    forward also takes ``hx`` and returns more, ``_vgrnn_forward``); the
+    zoo draws its dropout masks (SAGE its samples, EvolveGCN its rrelu
+    slopes, VGRNN its noise) from ``generator``: without one GCN, GIN, GAT
+    and GCRN drop nothing, EvolveGCN takes rrelu's mean slope, and SAGE and
+    VGRNN draw from a generator seeded 0."""
     cls = PORTED_METHODS[method]
     if cls in (GCN, GAT, GCRN, EvolveGCN):
         return _adj_forward
@@ -315,6 +377,8 @@ def make_forward(method):
         return _gin_forward
     if cls is SAGE:
         return _sage_forward
+    if cls is VGRNN:
+        return _vgrnn_forward
     return _family_forward
 
 
@@ -329,6 +393,46 @@ def _uneg_loss_fn(fwd, take_first, neg_num, Q):
                                       neg_num=neg_num, Q=Q)
 
     return loss_fn
+
+
+def _vgrnn_state_init(model, data):
+    """The hidden state of an epoch's first batch: zeros [L, N, hid]."""
+    return model.phi_x.weight.new_zeros(
+        model.rnn_layer_num, data["vgrnn_adjs"][0].n_rows, model.hidden_dim)
+
+
+def _vae_loss_fn_stateful(fwd, eps):
+    """VGRNN's U-own loss from the carried state hx: (the VAE loss of the
+    whole window, which ignores the batch, against the raw A; the new
+    h)."""
+    def loss_fn(model, data, b_idx, b_mask, generator, hx):
+        del b_idx, b_mask
+        _, h, (em, es, pm, ps, z) = fwd(model, data, generator, hx=hx)
+        return vae_loss(em, es, pm, ps, z, data["adjs"], eps=eps), h
+
+    return loss_fn
+
+
+def _uneg_loss_fn_stateful(fwd, neg_num, Q):
+    """VGRNN's U-neg loss from the carried state hx: (the negative-sampling
+    loss of enc_mean, the noise drawn before the sampler's draws; the new
+    h)."""
+    def loss_fn(model, data, b_idx, b_mask, generator, hx):
+        embs, h, _ = fwd(model, data, generator, hx=hx)
+        return negative_sampling_loss(embs, b_idx, b_mask, data["walk"],
+                                      generator, neg_num=neg_num, Q=Q), h
+
+    return loss_fn
+
+
+def _embed_fn_stateful(fwd):
+    """(model, data, hx) -> (enc_mean, new h), without a generator: the
+    export's replay of the batch carry."""
+    def embed(model, data, hx):
+        embs, h, _ = fwd(model, data, hx=hx)
+        return embs, h
+
+    return embed
 
 
 def _recon_loss_fn(model, data, b_idx, b_mask, generator):
@@ -432,13 +536,21 @@ def build_trainer(method, args, data_loader, idx, time_length, device,
     args["input_dim"] = input_dim
     data = _data_to(data, device)
     s_variant = method in S_VARIANTS
+    vgrnn = method == "VGRNN"
     lt = args["learning_type"]
     fwd = make_forward(method)
+    if s_variant:
+        embed_fn = _embed_trans
+    elif vgrnn:
+        def embed_fn(model, data):
+            return fwd(model, data)[0]
+    else:
+        embed_fn = fwd
     common = dict(
         base_path=base_path, origin_folder=args["origin_folder"],
         embedding_folder=args["embed_folder"],
         node_list=data_loader.full_node_list,
-        embed_fn=_embed_trans if s_variant else fwd, data=data,
+        embed_fn=embed_fn, data=data,
         device=device, model_folder=args.get("model_folder", "model"),
         file_sep=args.get("file_sep", "\t"))
     if lt in SUPERVISED_TYPES:
@@ -462,9 +574,16 @@ def build_trainer(method, args, data_loader, idx, time_length, device,
             os.path.abspath(os.path.join(base_path,
                                          args["node_freq_folder"])),
             idx, time_length).to(device)
-        loss_fn = _uneg_loss_fn(fwd, s_variant, args["neg_num"], args["Q"])
+        loss_fn = (_uneg_loss_fn_stateful(fwd, args["neg_num"], args["Q"])
+                   if vgrnn else
+                   _uneg_loss_fn(fwd, s_variant, args["neg_num"], args["Q"]))
+    elif vgrnn:
+        loss_fn = _vae_loss_fn_stateful(fwd, args.get("eps", 1e-10))
     else:
         loss_fn = _recon_loss_fn
+    if vgrnn:
+        common.update(state_init=_vgrnn_state_init,
+                      embed_state_fn=_embed_fn_stateful(fwd))
     model = get_gnn_model(method, time_length, args, generator).to(device)
     return UnsupervisedEmbedding(model=model, loss_fn=loss_fn, **common)
 
@@ -557,7 +676,7 @@ def _run_windows(method, args, dev):
         time_list.append(res["cost_time"])
         results.append({"idx": idx, "time_length": time_length,
                         "setup_seconds": setup_seconds,
-                        "core_backend": _adj_backend(trainer.data["adjs"]),
+                        "core_backend": _adj_backend(trainer.data),
                         **res})
         if record_time:
             write_time_csv(os.path.join(base_path, method + "_time.csv"),

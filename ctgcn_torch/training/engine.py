@@ -5,6 +5,9 @@
 into batches; each batch re-runs the whole window forward and adds its
 loss gradient to the parameters' ``.grad``, and one optimizer step follows
 the epoch (gradient accumulation, as the JAX engine's batch scan does).
+With ``state_init`` (VGRNN) the loss is stateful: a state made at every
+epoch's start crosses the epoch's batches detached, as the JAX engine's
+``stop_gradient`` carry does, and the export replays that carry.
 
 ``SupervisedEmbedding`` (S-node, S-edge, S-link-st, S-link-dy): every
 epoch is one full-batch step of the model and its classifier over the
@@ -103,17 +106,27 @@ class UnsupervisedEmbedding(BaseEmbedding):
 
     Args:
       loss_fn: (model, data, batch_idx[B], batch_mask[B], generator) ->
-        scalar tensor.
+        scalar tensor; with ``state_init``, (..., generator, state) ->
+        (scalar tensor, new state).
+      state_init: optional (model, data) -> the state of an epoch's first
+        batch; each later batch gets the one before's new state, detached.
+      embed_state_fn: optional (model, data, state or None) -> (output, new
+        state): with more than one batch the export runs it once a batch
+        from ``None``, carrying the state, and exports the last output (the
+        final epoch's last batch forward); with one batch ``embed_fn``.
       The others as ``BaseEmbedding``'s.
     """
 
     def __init__(self, base_path, origin_folder, embedding_folder, node_list,
                  model, loss_fn, embed_fn, data, device,
-                 model_folder="model", file_sep="\t"):
+                 model_folder="model", file_sep="\t", state_init=None,
+                 embed_state_fn=None):
         super().__init__(base_path, origin_folder, embedding_folder,
                          node_list, model, embed_fn, data, device,
                          model_folder=model_folder, file_sep=file_sep)
         self.loss_fn = loss_fn
+        self.state_init = state_init
+        self.embed_state_fn = embed_state_fn
 
     def learn_embedding(self, epoch=50, batch_size=1024, lr=1e-3,
                         start_idx=0, weight_decay=0.0, model_file="ctgcn",
@@ -142,11 +155,17 @@ class UnsupervisedEmbedding(BaseEmbedding):
                                           rng=perm_rng, shuffle=shuffle)
             optimizer.zero_grad(set_to_none=False)
             total = torch.zeros((), device=self.device)
+            state = (None if self.state_init is None
+                     else self.state_init(model, self.data))
             for b_idx, b_mask in zip(batches, masks):
-                loss = self.loss_fn(
-                    model, self.data,
-                    torch.from_numpy(b_idx).to(self.device),
-                    torch.from_numpy(b_mask).to(self.device), gen)
+                args = (model, self.data,
+                        torch.from_numpy(b_idx).to(self.device),
+                        torch.from_numpy(b_mask).to(self.device), gen)
+                if self.state_init is None:
+                    loss = self.loss_fn(*args)
+                else:
+                    loss, state = self.loss_fn(*args, state)
+                    state = state.detach()
                 loss.backward()
                 total += loss.detach()
             optimizer.step()
@@ -160,8 +179,15 @@ class UnsupervisedEmbedding(BaseEmbedding):
         cost_time = time.time() - st
         t_export = time.time()
         if export:
+            batch_num = -(-self.node_num // batch_size)
             with torch.no_grad():
-                output = self.embed_fn(model, self.data)
+                if self.embed_state_fn is not None and batch_num > 1:
+                    state = None
+                    for _ in range(batch_num):
+                        output, state = self.embed_state_fn(model, self.data,
+                                                            state)
+                else:
+                    output = self.embed_fn(model, self.data)
             self.save_embedding(output, start_idx)
         if model_file:
             torch.save(model.state_dict(), model_path)

@@ -49,7 +49,7 @@ NON_GNN_METHODS = ("DynGEM", "DynAE", "DynRNN", "DynAERNN", "TIMERS")
 def get_supported_methods():
     """Every method name the JAX package's CLI accepts.  The port runs the
     CTGCN family (CGCN-C, CGCN-S, CTGCN-C, CTGCN-S) and, of the zoo, GCN,
-    TgGCN, GIN, TgGIN, GAT, TgGAT, SAGE, TgSAGE, GCRN and EvolveGCN
+    TgGCN, GIN, TgGIN, GAT, TgGAT, SAGE, TgSAGE, GCRN, EvolveGCN and VGRNN
     (``training.driver.PORTED_METHODS``); it raises
     ``NotImplementedError`` for the others."""
     return dict.fromkeys(

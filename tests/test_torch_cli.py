@@ -114,6 +114,7 @@ def test_default_device_without_gpu_raises(dataset):
     ({"remat_policy": "save_spmm"}, NotImplementedError),
     ({"n_devices": 2}, NotImplementedError),
     ({"matmul_precision": "fp8"}, ValueError),
+    ({"profile_dir": "prof"}, NotImplementedError),
 ])
 def test_unported_options_raise(dataset, tmp_path, change, error):
     _, cfg, _, _ = dataset
@@ -240,7 +241,7 @@ def test_embedding_without_core_backend_runs_auto(dataset, trained,
 
 
 @pytest.mark.parametrize("task, method", [("link_pred", None),
-                                          ("embedding", "VGRNN")])
+                                          ("embedding", "DynGEM")])
 def test_unported_tasks_and_methods_raise(dataset, tmp_path, task, method):
     """An unported method raises ``NotImplementedError``; every task is
     ported, so ``link_pred`` now runs its section and an empty one stops
@@ -248,7 +249,7 @@ def test_unported_tasks_and_methods_raise(dataset, tmp_path, task, method):
     _, cfg, _, _ = dataset
     config = json.loads(Path(cfg).read_text())
     config["link_pred"] = {}
-    config["embedding"]["VGRNN"] = dict(config["embedding"]["CTGCN-C"])
+    config["embedding"]["DynGEM"] = dict(config["embedding"]["CTGCN-C"])
     path = tmp_path / "cfg.json"
     path.write_text(json.dumps(config))
     argv = [f"--config={path}", f"--task={task}", "--device=cpu"]

@@ -66,7 +66,8 @@ N, T, HID, EMB, FEAT = 120, 2, 12, 6, 10
 FWD_TOL, GRAD_TOL = 1e-5, 1e-4
 METHODS = ("GCN", "TgGCN", "GIN", "TgGIN")
 #: every zoo method the port runs, as the dataset fixture configures them
-ZOO = METHODS + ("GAT", "TgGAT", "SAGE", "TgSAGE", "GCRN", "EvolveGCN")
+ZOO = METHODS + ("GAT", "TgGAT", "SAGE", "TgSAGE", "GCRN", "EvolveGCN",
+                 "VGRNN")
 
 
 @pytest.fixture(scope="module")
@@ -352,11 +353,12 @@ def test_cli_runs_each_method(dataset, tmp_path, method):
     _cli_run(dataset, tmp_path, method)
 
 
-def _cli_run(dataset, tmp_path, method):
-    """The body of the CLI checks, for any method of ``ZOO``."""
+def _cli_run(dataset, tmp_path, method, **change):
+    """The body of the CLI checks, for any method of ``ZOO``, its config
+    entry updated with ``change``."""
     base, names, emb = dataset
     conf = dict(emb[method], embed_folder=f"2.embedding/{method}-cli",
-                model_file=f"{method}-cli")
+                model_file=f"{method}-cli", **change)
     path = tmp_path / "cfg.json"
     path.write_text(json.dumps({"embedding": {method: conf}}))
     results = cli.main([f"--config={path}", "--task=embedding",
@@ -372,8 +374,12 @@ def _cli_run(dataset, tmp_path, method):
 
 
 @pytest.mark.parametrize("method, change", [
-    ("VGRNN", {}), ("PGNN", {}), ("GCN", {"learning_type": "S-node"})])
+    ("DynGEM", {}), ("PGNN", {}), ("GCN", {"learning_type": "S-node"}),
+    ("VGRNN", {"learning_type": "S-node"}), ("GCN", {"profile_dir": "prof"})])
 def test_unported_zoo_raises(dataset, tmp_path, method, change):
+    """Unported methods, the zoo's supervised types and the ``profile_dir``
+    key (a trace directory, which the JAX trainer writes) raise, naming
+    ROADMAP.md."""
     _, _, emb = dataset
     path = tmp_path / "cfg.json"
     path.write_text(json.dumps({"embedding": {
