@@ -98,7 +98,18 @@ kernel against its plain PyTorch version:
                 copy, 3 epochs: its nine convolutions a step read D^-1/2
                 (A_bin + 2I) D^-1/2 (longest row 226) on the row walk, both
                 directions; the VAE loss step by step against the sparse
-                raw A.
+                raw A;
+  * uci_pgnn    ``configs/uci.json`` PGNN as written (S-link-st, duration 2,
+                feature 32, hid 32, embed 128, dropout 0.5, ``approximate:
+                -1``) on window 0, 3 epochs: the proximity matrices of
+                every shortest path, 100 anchor sets, no kernel of ours;
+  * aa_pgnn     ``configs/america-air.json`` PGNN as written (S-node, hid
+                500, the classifier on its 100 anchor-set columns) on
+                window 0 (snapshot 0), 50 epochs;
+  * math_pgnn   ``configs/math.json`` PGNN as written (S-link-st,
+                ``approximate: 2``) on window 0 (snapshots 000-001 of the
+                Math copy), 3 epochs: 2 x 24,740^2 proximities on the card
+                (4.9 GB), 196 anchor sets, no kernel of ours.
 
 Phases, one line each:
 
@@ -152,7 +163,13 @@ Phases, one line each:
                 on each kernel, their parameters carried over by
                 ``params_from_numpy`` (against the CPU in float64), and a
                 small VGRNN the same way over two batches carrying h, its
-                noise given, forward, VAE loss and gradients;
+                noise given, forward, VAE loss and gradients; a small PGNN
+                given its anchor sets (the reduction's max and argmax,
+                the forward and gradients, against the CPU in float64);
+                the zoo's supervised branch: a small GCN under S-node on
+                each kernel and a small VGRNN under S-link-st carrying h
+                from the train step to validation to test (against the
+                CPU in float64);
   4. paths      each path with the launch counters set to 0 just before it
                 and read just after (``PATHS``: the kernels each must launch,
                 every other must not), and Enron's bf16 / "highest" loss gap;
@@ -162,7 +179,10 @@ Phases, one line each:
                 math_vgrnn (window, parameters, gradients and Adam, the
                 tensors saved for the backward, the loss's z z^T chunk)
                 beside the measured peaks of a forward, its backward and an
-                epoch;
+                epoch; for each PGNN path its profile, the anchor
+                selection's device time and share of the device epoch, and
+                its memory (the proximity matrices, the saved tensors, the
+                peaks);
   5. quality    the UCI Had AUC gates, seeds 0 and 1 each, scored by the
                 port's ``link_pred`` over edge-split reps 0-2 (mean Had AUC
                 of the last 4 dates): CTGCN-C as configured but for 10
@@ -171,11 +191,13 @@ Phases, one line each:
                 failing below ``HAD_AUC_GATE``; CTGCN-S as configured (20
                 epochs, ``RESULTS.md:38``), failing below ``S_AUC_GATE``;
                 VGRNN as configured (50 epochs, ``RESULTS.md:52``), failing
-                below ``VGRNN_AUC_GATE``;
+                below ``VGRNN_AUC_GATE``; PGNN as configured (50 epochs),
+                failing below ``PGNN_AUC_GATE``;
                 and aa_snode's mean test accuracy over seeds 0 and 1,
                 failing more than ``AA_SNODE_MARGIN`` under the JAX
                 package's mean on the same config and seeds
-                (``AA_SNODE_JAX_ACC``);
+                (``AA_SNODE_JAX_ACC``), and aa_pgnn's, failing under its
+                gate (``SNODE_QUALITY``);
      eval       ``cent_pred`` and ``sim_pred`` on seed 0's UCI embeddings;
                 ``node_cls`` and ``edge_cls`` on America-Air (preprocessed,
                 CTGCN-C trained 3 epochs); the centralities of UCI 2004-05
@@ -242,6 +264,17 @@ S_AUC_GATE = 0.9242
 #: VGRNN on UCI as configured (50 epochs): the JAX package's 0.8955
 #: (RESULTS.md:52, rep std 0.0060) less four rep standard deviations
 VGRNN_AUC_GATE = 0.8715
+#: PGNN on UCI as configured (S-link-st, four windows of duration 2, 50
+#: epochs): (mean, run-to-run standard deviation) of RESULTS.md:55 (over
+#: reps) and of the JAX package on the CPU (scripts/pgnn_quality_reference.py
+#: --package jax --seeds 0 1 2 3, over seeds and reps); the gate is the
+#: lower of the two means less four of their deviations
+PGNN_AUC_JAX = (0.8536, 0.0112)
+PGNN_AUC_REFERENCES = {"RESULTS.md:55": (0.8681, 0.0022),
+                       "ctgcn_tpu on the CPU, seeds 0-3": PGNN_AUC_JAX}
+PGNN_AUC_GATE = min(m - 4 * sd for m, sd in PGNN_AUC_REFERENCES.values())
+#: the figures printed beside a quality run's gate
+QUALITY_REFERENCES = {"PGNN": PGNN_AUC_REFERENCES}
 #: (name, method, config change, epochs, gate) of each quality run; the
 #: bf16 run's gate is the f32 one, as RESULTS.md:69 found bf16
 #: quality-neutral (0.9331 vs 0.9340 at 50 epochs)
@@ -250,7 +283,8 @@ QUALITY_RUNS = (
     ("CTGCN-C-bf16", "CTGCN-C", {"matmul_precision": "bf16"},
      QUALITY_EPOCHS, HAD_AUC_GATE),
     ("CTGCN-S", "CTGCN-S", {}, 20, S_AUC_GATE),
-    ("VGRNN", "VGRNN", {}, 50, VGRNN_AUC_GATE))
+    ("VGRNN", "VGRNN", {}, 50, VGRNN_AUC_GATE),
+    ("PGNN", "PGNN", {}, 50, PGNN_AUC_GATE))
 #: America-Air training for node_cls / edge_cls
 AA_EPOCHS = 3
 #: aa_snode's quality gate: the JAX package's mean test accuracy on the
@@ -261,6 +295,21 @@ AA_EPOCHS = 3
 AA_SNODE_JAX_ACC = 0.55085
 AA_SNODE_MARGIN = 0.03
 AA_SNODE_SEEDS = (0, 1)
+#: aa_pgnn's gate: the JAX package's mean test accuracy on the same config
+#: (configs/america-air.json PGNN, S-node, window 0, 50 epochs) over seeds
+#: 0-3 on the CPU (scripts/pgnn_quality_reference.py), less four of its
+#: seed-to-seed standard deviations; RESULTS.md:76's 0.3510 is node_cls's
+#: accuracy on the exported embeddings, another measure, printed beside
+AA_PGNN_JAX = (0.2616, 0.0395)
+AA_PGNN_REFERENCES = {"ctgcn_tpu on the CPU, seeds 0-3": AA_PGNN_JAX,
+                      "RESULTS.md:76 (node_cls, not S-node)": 0.3510}
+#: path -> (method, config change of the other seeds' runs, the JAX
+#: package's mean test accuracy, gate, references)
+SNODE_QUALITY = {
+    "aa_snode": ("CTGCN-C", {}, AA_SNODE_JAX_ACC,
+                 AA_SNODE_JAX_ACC - AA_SNODE_MARGIN, {}),
+    "aa_pgnn": ("PGNN", {"end_idx": 0}, AA_PGNN_JAX[0],
+                AA_PGNN_JAX[0] - 4 * AA_PGNN_JAX[1], AA_PGNN_REFERENCES)}
 #: preprocessing seconds of the numpy walks, chip_smoke.py before the
 #: native kernels (PERF.md section 5: NVIDIA H100 80GB HBM3, 700 W host)
 NUMPY_PREPROCESS_SECONDS = {"as": 9.7, "enron": 13.2}
@@ -1083,23 +1132,10 @@ def _cpu_against_card(name, model, inputs_on, dev, loss=_tanh_square,
         mod.zero_grad(set_to_none=True)
         y = mod(None if xs is None else xs.to(d, dtype), inputs_on(d))
         loss(y).backward()
-        res.append((y.detach().cpu(),
-                    {k: p.grad.detach().cpu()
-                     for k, p in mod.named_parameters()
-                     if p.grad is not None}))
-    (yc, gc), (yg, gg) = res
-    if set(gc) != set(gg) or not gc:
-        raise AssertionError(f"parity {name}: gradients of {sorted(gc)} on "
-                             f"the CPU, {sorted(gg)} on the card")
-    tol = {"rtol": PARITY_TOL, "atol_rel": PARITY_TOL}
-    err_f = _check_close(f"parity {name} forward", yg, yc, **tol)
-    scale = max(float(v.abs().max()) for v in gc.values())
-    err_g = max(_check_close(f"parity {name} grad {k}", gg[k], gc[k],
-                             scale=scale, **tol) for k in gc)
-    _phase("parity", model=name, tolerance=PARITY_TOL,
-           max_abs_err_forward=err_f, max_abs_err_grads=err_g,
-           max_abs_forward=float(yc.abs().max()), max_abs_grad=scale,
-           grads=sorted(gc), **fields)
+        res.append(({"forward": y.detach().cpu()}, _grads(mod)))
+    _compare_sides(name, res,
+                   max_abs_forward=float(res[0][0]["forward"].abs().max()),
+                   **fields)
 
 
 def phase_parity_attn(dev):
@@ -1341,23 +1377,225 @@ def phase_parity_vgrnn(dev):
                 outs.update({f"enc_mean_{b}": em.detach().cpu(),
                              f"h_{b}": hx.cpu(),
                              f"loss_{b}": loss.detach().cpu()})
-            res.append((outs, {k: p.grad.detach().cpu()
-                               for k, p in mod.named_parameters()}))
-        (oc, gc), (og, gg) = res
-        tol = {"rtol": PARITY_TOL, "atol_rel": PARITY_TOL}
-        err_f = max(_check_close(f"parity vgrnn {k}", og[k], oc[k], **tol)
-                    for k in oc)
-        scale = max(float(v.abs().max()) for v in gc.values())
-        err_g = max(_check_close(f"parity vgrnn grad {k}", gg[k], gc[k],
-                                 scale=scale, **tol) for k in gc)
-        _phase("parity", model=f"vgrnn_{kernel}", tolerance=PARITY_TOL,
-               max_abs_err_forward=err_f, max_abs_err_grads=err_g,
-               losses_cpu=[float(oc[f"loss_{b}"]) for b in range(batches)],
-               losses_card=[float(og[f"loss_{b}"])
-                            for b in range(batches)],
-               max_abs_grad=scale, grads=sorted(gc), kernel=kernel, n=n,
-               T=T, hid=hid, batches=batches,
-               cpu="float64, segment spmm")
+            res.append((outs, _grads(mod)))
+        _compare_sides(
+            f"vgrnn_{kernel}", res,
+            losses_cpu=[float(res[0][0][f"loss_{b}"])
+                        for b in range(batches)],
+            losses_card=[float(res[1][0][f"loss_{b}"])
+                         for b in range(batches)],
+            kernel=kernel, n=n, T=T, hid=hid, batches=batches,
+            cpu="float64, segment spmm")
+
+
+def _compare_sides(name, res, **fields):
+    """``res``: [(outputs, gradients) on the CPU, the same on the card],
+    dicts of tensors; each output within PARITY_TOL of its largest, each
+    gradient of the largest gradient."""
+    (oc, gc), (og, gg) = res
+    if set(gc) != set(gg) or not gc:
+        raise AssertionError(f"parity {name}: gradients of {sorted(gc)} on "
+                             f"the CPU, {sorted(gg)} on the card")
+    tol = {"rtol": PARITY_TOL, "atol_rel": PARITY_TOL}
+    err_f = max(_check_close(f"parity {name} {k}", og[k], oc[k], **tol)
+                for k in oc)
+    scale = max(float(v.abs().max()) for v in gc.values())
+    err_g = max(_check_close(f"parity {name} grad {k}", gg[k], gc[k],
+                             scale=scale, **tol) for k in gc)
+    _phase("parity", model=name, tolerance=PARITY_TOL,
+           max_abs_err_forward=err_f, max_abs_err_grads=err_g,
+           max_abs_grad=scale, outputs=sorted(oc), grads=sorted(gc),
+           **fields)
+
+
+def _grads(*modules):
+    return {f"{i}.{k}": p.grad.detach().cpu()
+            for i, m in enumerate(modules) for k, p in m.named_parameters()
+            if p.grad is not None}
+
+
+def phase_parity_pgnn(dev):
+    """A small PGNN (N = 1800, T = 2, three layers, feature 32, hid 32,
+    embed 128, dropout off) on the proximity matrices of ``approximate: 2``
+    over a sparse random graph, with the same anchor sets on both sides:
+    the anchor reduction on the card against the CPU's in float64
+    (``dists_argmax`` equal, ``dists_max`` within PARITY_TOL), then the
+    forward and every parameter gradient against the CPU in float64, the
+    parameters carried over from the JAX layout by
+    ``params_from_numpy``."""
+    import numpy as np
+    import torch
+
+    from ctgcn_torch.interop import params_from_numpy
+    from ctgcn_torch.nn.pgnn import (PGNN, anchor_reduce, anchor_sizes,
+                                     draw_anchor_sets, precompute_dist_data)
+
+    n, T = 1800, 2
+    rng = np.random.default_rng(6)
+    edges = []
+    for _ in range(T):
+        a = _parity_adjacency(rng, n, 0).tocoo()
+        edges.append(np.stack([a.row, a.col]).astype(np.int64))
+    dists = precompute_dist_data(edges, n, approximate=2)
+    gen = torch.Generator().manual_seed(2)
+    sets = [draw_anchor_sets(n, anchor_sizes(n), gen) for _ in range(T)]
+    sides = ((torch.device("cpu"), torch.float64), (dev, torch.float32))
+    reduced = []
+    for d, dtype in sides:
+        parts = [anchor_reduce(dists[t].to(d, dtype),
+                               [a.to(d) for a in sets[t]]) for t in range(T)]
+        reduced.append((torch.stack([m for m, _ in parts]),
+                        torch.stack([a for _, a in parts])))
+    (dm_c, da_c), (dm_g, da_g) = reduced
+    if not torch.equal(da_g.cpu(), da_c):
+        raise AssertionError("parity pgnn: dists_argmax differs between the "
+                             "card and the CPU")
+    err_m = _check_close("parity pgnn dists_max", dm_g.cpu(), dm_c,
+                         rtol=PARITY_TOL, atol_rel=PARITY_TOL)
+    model = PGNN(n, 32, 32, 128, layer_num=3, dropout=0.5,
+                 generator=torch.Generator().manual_seed(1))
+    carried = PGNN(n, 32, 32, 128, layer_num=3, dropout=0.5, generator=gen)
+    carried.load_state_dict(params_from_numpy(_jax_layout(model)))
+    if any(not torch.equal(v, carried.state_dict()[k])
+           for k, v in model.state_dict().items()):
+        raise AssertionError("parity pgnn: params_from_numpy did not carry "
+                             "the parameters")
+    res = []
+    for (d, dtype), (dm, da) in zip(sides, reduced):
+        mod = carried.to(d, dtype=dtype)
+        mod.zero_grad(set_to_none=True)
+        y = mod(None, dm, da)
+        _tanh_square(y).backward()
+        res.append(({"output": y.detach().cpu()}, _grads(mod)))
+    _compare_sides("pgnn", res, max_abs_err_dists_max=err_m,
+                   anchor_sets=len(sets[0]), n=n, T=T, layer_num=3,
+                   cpu="float64")
+
+
+def phase_parity_supervised(dev):
+    """The zoo's supervised branch on the card against the CPU in float64:
+    a small GCN (N = 1800, T = 2, hid 500, embed 64, dropout 0) and its
+    ``MLPClassifier`` under S-node, on D^-1 (A + I) of a graph whose node
+    0 has degree 300 (the block-parallel kernel) and of one without a hub
+    (the row walk): the logits, the loss and every gradient of the model
+    and the classifier; then a small VGRNN (hid 500, embed 64) under
+    S-link-st through the stateful forward, its noise given, on each
+    kernel: the train forward from zeros (logits, loss with its VAE term,
+    gradients), the validation forward from the train step's h and the
+    test forward from the validation's h (their logits, losses, new h and
+    the test forward's embeddings, which the trainer exports)."""
+    import dataclasses
+    import functools
+
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    from ctgcn_torch.interop import params_from_numpy
+    from ctgcn_torch.nn.gcn import GCN
+    from ctgcn_torch.nn.heads import MLPClassifier
+    from ctgcn_torch.nn.vgrnn import VGRNN
+    from ctgcn_torch.ops import bsr_spmm as B
+    from ctgcn_torch.ops.ell import build_ev_plans
+    from ctgcn_torch.ops.sparse import from_scipy, normalize_scipy_adj
+    from ctgcn_torch.training import driver as D
+
+    n, T, hid, out_dim, batch = 1800, 2, 500, 64, 300
+    gen = torch.Generator().manual_seed(0)
+    rows = torch.randint(0, n, (T, batch), generator=gen)
+    labels = torch.randint(0, 3, (T, batch), generator=gen)
+    mask = torch.rand(T, batch, generator=gen) < 0.9
+
+    def plans(m):
+        g = from_scipy(m)
+        fwd, tr = build_ev_plans(g)
+        return dataclasses.replace(g, plan_fwd=fwd, plan_t=tr)
+
+    def segment(graphs):
+        return tuple(dataclasses.replace(g, plan_fwd=None, plan_t=None)
+                     for g in graphs)
+
+    for hub, kernel in ((300, "bsr_spmm_blockpar"), (0, "bsr_spmm_rowwalk")):
+        rng = np.random.default_rng(7)
+        raws = [_parity_adjacency(rng, n, hub) for _ in range(T)]
+        graphs = [plans(normalize_scipy_adj(m + sp.eye(n), row_norm=True))
+                  for m in raws]
+        chosen = {B.dispatch(p).__name__ for g in graphs
+                  for p in (g.plan_fwd, g.plan_t)}
+        if chosen != {kernel}:
+            raise AssertionError(f"the supervised parity model reaches "
+                                 f"{chosen}, not {kernel}")
+        model = GCN(n, hid, out_dim, dropout=0.0, generator=gen)
+        cls = MLPClassifier(out_dim, 64, 3, 1, activate_type="L",
+                            generator=gen)
+        forward_fn = D._supervised_forward(D.make_forward("GCN"), "S-node",
+                                           False)
+        loss_fn = D._supervised_loss("GCN")
+        res = []
+        for d in (torch.device("cpu"), dev):
+            dtype = torch.float64 if d.type == "cpu" else torch.float32
+            m, c = model.to(d, dtype=dtype), cls.to(d, dtype=dtype)
+            m.zero_grad(set_to_none=True)
+            c.zero_grad(set_to_none=True)
+            data = {"xs": None, "adjs": segment(graphs) if d.type == "cpu"
+                    else tuple(g.to(d) for g in graphs)}
+            preds, aux = forward_fn(m, c, data, rows.to(d))
+            loss, _ = loss_fn(preds, labels.to(d), mask.to(d), aux)
+            loss.backward()
+            res.append(({"logits": preds.detach().cpu(),
+                         "loss": loss.detach().cpu()}, _grads(m, c)))
+        _compare_sides(f"gcn_snode_{kernel}", res, kernel=kernel, n=n, T=T,
+                       hid=hid, cpu="float64, segment spmm")
+
+        # VGRNN under S-link-st: edges of each snapshot and as many pairs
+        edges = torch.stack([torch.from_numpy(np.stack(
+            [sp.triu(m, 1).tocoo().row[:batch // 2],
+             sp.triu(m, 1).tocoo().col[:batch // 2]], axis=1)).long()
+            for m in raws])
+        pairs = torch.cat([edges, torch.randint(0, n, edges.shape,
+                                                generator=gen)], dim=1)
+        link_labels = torch.cat([torch.ones(T, edges.shape[1]),
+                                 torch.zeros(T, edges.shape[1])], dim=1)
+        link_mask = torch.ones(T, pairs.shape[1], dtype=torch.bool)
+        vgraphs = [plans(D._vgrnn_norm(m)) for m in raws]
+        targets = tuple(from_scipy(m) for m in raws)
+        noise = {k: [torch.randn(n, out_dim, generator=gen)
+                     for _ in range(T)] for k in ("train", "val", "test")}
+        model = VGRNN(n, hid, out_dim, generator=torch.Generator()
+                      .manual_seed(1))
+        carried = VGRNN(n, hid, out_dim, generator=gen)
+        carried.load_state_dict(params_from_numpy(_jax_layout(model)))
+        loss_fn = D._supervised_loss("VGRNN")
+        res = []
+        for d in (torch.device("cpu"), dev):
+            dtype = torch.float64 if d.type == "cpu" else torch.float32
+            mod = carried.to(d, dtype=dtype)
+            mod.zero_grad(set_to_none=True)
+            data = {"xs": None, "adjs": tuple(g.to(d) for g in targets),
+                    "vgrnn_adjs": segment(vgraphs) if d.type == "cpu"
+                    else tuple(g.to(d) for g in vgraphs)}
+            outs, hx = {}, D._vgrnn_state_init(mod, data)
+            for split in ("train", "val", "test"):
+                fwd = functools.partial(
+                    D._vgrnn_forward,
+                    noise=[x.to(d, dtype) for x in noise[split]])
+                step = D._vgrnn_supervised_forward(fwd, "S-link-st")
+                with torch.set_grad_enabled(split == "train"):
+                    preds, aux, h, embs = step(mod, None, data,
+                                               pairs.to(d), None, hx)
+                    loss, _ = loss_fn(preds, link_labels.to(d, dtype),
+                                      link_mask.to(d), aux)
+                if split == "train":
+                    loss.backward()
+                hx = h.detach()
+                outs.update({f"logits_{split}": preds.detach().cpu(),
+                             f"loss_{split}": loss.detach().cpu(),
+                             f"h_{split}": hx.cpu()})
+            outs["embeddings_test"] = embs.detach().cpu()
+            res.append((outs, _grads(mod)))
+        _compare_sides(f"vgrnn_slink_{kernel}", res, kernel=kernel, n=n,
+                       T=T, hid=hid, pairs=int(pairs.shape[1]),
+                       cpu="float64, segment spmm")
 
 
 def phase_core_numbers(base):
@@ -1434,12 +1672,17 @@ def phase_profile(path, method, cfg, dev, epochs=2):
     activity only: with the host's too, summing the events of the
     launch-heavy paths (Enron, America-Air) took it over a minute a path.
     The idle share is 1 - device busy time / the unprofiled epoch time."""
+    t0 = time.time()
+    trainer, kw = _trainer(method, cfg, dev)
+    _profile_epochs(path, trainer, kw, time.time() - t0, epochs)
+
+
+def _profile_epochs(path, trainer, kw, setup_s, epochs):
+    """``phase_profile``'s measurement on a ready trainer; returns the
+    device busy ms of an epoch."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    t0 = time.time()
-    trainer, kw = _trainer(method, cfg, dev)
-    setup_s = time.time() - t0
     trainer.learn_embedding(epoch=1, **kw)
     # the epoch's wall time without the profiler's host overhead
     epoch_ms = 1e3 * sum(
@@ -1479,6 +1722,7 @@ def phase_profile(path, method, cfg, dev, epochs=2):
                                         key=lambda kv: -kv[1][0])},
            top_kernels=[{"name": k[:90], "ms": v[0], "launches": v[1]}
                         for k, v in top])
+    return busy
 
 
 def phase_vgrnn_memory(path, cfg, dev):
@@ -1499,18 +1743,12 @@ def phase_vgrnn_memory(path, cfg, dev):
     window_and_params = torch.cuda.memory_allocated(dev)
     params = sum(p.numel() * p.element_size()
                  for p in trainer.model.parameters())
-    saved = {}
-
-    def pack(t):
-        saved[t.untyped_storage().data_ptr()] = t.untyped_storage().nbytes()
-        return t
-
     data = trainer.data
     torch.cuda.reset_peak_memory_stats(dev)
-    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
-        loss, h = trainer.loss_fn(trainer.model, data, None, None,
-                                  torch.Generator(device=dev).manual_seed(0),
-                                  trainer.state_init(trainer.model, data))
+    (loss, h), saved = _saved_bytes(lambda: trainer.loss_fn(
+        trainer.model, data, None, None,
+        torch.Generator(device=dev).manual_seed(0),
+        trainer.state_init(trainer.model, data)))
     torch.cuda.synchronize()
     after_forward = torch.cuda.memory_allocated(dev)
     forward_peak = torch.cuda.max_memory_allocated(dev)
@@ -1529,13 +1767,98 @@ def phase_vgrnn_memory(path, cfg, dev):
     parts = {"window_and_params_bytes": window_and_params,
              "params_bytes": params,
              "grads_and_adam_bytes": 3 * params,
-             "saved_for_backward_bytes": sum(saved.values()),
+             "saved_for_backward_bytes": saved,
              "gram_chunk_transient_bytes": chunk}
     _phase("memory", path=path, **parts,
            sum_bytes=sum(v for k, v in parts.items() if k != "params_bytes"),
            allocated_after_forward=after_forward,
            forward_peak=forward_peak, backward_peak=backward_peak,
            epoch_peak=peak)
+
+
+def _saved_bytes(fn):
+    """(``fn()``, the bytes of the distinct storages autograd saves for
+    its backward)."""
+    import torch
+
+    saved = {}
+
+    def pack(t):
+        saved[t.untyped_storage().data_ptr()] = t.untyped_storage().nbytes()
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = fn()
+    return out, sum(saved.values())
+
+
+def phase_pgnn(path, cfg, dev, epochs=2):
+    """PGNN on ``path``: the window's setup (the proximity matrices on the
+    host by row chunks of ``dijkstra``, each snapshot copied to the card),
+    then ``_profile_epochs``; the anchor selection's device time (CUDA
+    events: a window's draws, ``draw_anchor_sets``, and reductions,
+    ``anchor_reduce``, each snapshot's) and its share of the profiled
+    device epoch, beside the bytes its gathers move: the profiled
+    ``learn_embedding`` runs ``epochs`` train steps and ``epochs - 1``
+    validation forwards, each selecting anchors once; and ``[memory]``:
+    the proximity matrices, the parameters, what one train forward and its
+    loss save for the backward, beside the measured peaks of that forward,
+    its backward and an epoch."""
+    import torch
+
+    from ctgcn_torch.nn.pgnn import (anchor_reduce, anchor_sizes,
+                                     draw_anchor_sets)
+
+    t0 = time.time()
+    trainer, kw = _trainer("PGNN", cfg, dev)
+    setup_s = time.time() - t0
+    busy = _profile_epochs(path, trainer, kw, setup_s, epochs)
+
+    dists = trainer.data["pgnn_dists"]
+    T, n = dists.shape[:2]
+    sizes = anchor_sizes(n)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    sets = [draw_anchor_sets(n, sizes, gen, dev) for _ in range(T)]
+    draw_ms = _time_ms(lambda: [draw_anchor_sets(n, sizes, gen, dev)
+                                for _ in range(T)], iters=3, warmup=1)
+    reduce_ms = _time_ms(lambda: [anchor_reduce(dists[t], sets[t])
+                                  for t in range(T)], iters=3, warmup=1)
+    gathered = T * sum(len(a) for a in sets[0]) * n * 4
+    forwards = (2 * epochs - 1) / epochs
+    per_epoch = forwards * (draw_ms + reduce_ms)
+    _phase("profile", path=path, anchor_sets=len(sizes), snapshots=T,
+           anchor_draw_ms=draw_ms, anchor_reduce_ms=reduce_ms,
+           forwards_per_profiled_epoch=forwards,
+           anchor_ms_per_epoch=per_epoch, device_busy_ms=busy,
+           anchor_share_of_device_epoch=per_epoch / busy,
+           gathered_bytes_per_forward=gathered,
+           gather_bound_ms=1e3 * gathered / PEAK_HBM_BYTES,
+           note="the bound reads each gathered proximity once")
+
+    torch.cuda.synchronize()
+    window = dists.numel() * dists.element_size()
+    params = sum(p.numel() * p.element_size()
+                 for m in trainer._modules() for p in m.parameters())
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    (loss, *_), saved = _saved_bytes(lambda: trainer._run("train", gen))
+    torch.cuda.synchronize()
+    forward_peak = torch.cuda.max_memory_allocated(dev)
+    loss.backward()
+    torch.cuda.synchronize()
+    backward_peak = torch.cuda.max_memory_allocated(dev)
+    del loss
+    for m in trainer._modules():
+        m.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    trainer.learn_embedding(epoch=1, **kw)
+    _phase("memory", path=path, proximity_bytes=window,
+           params_bytes=params, grads_and_adam_bytes=3 * params,
+           saved_for_backward_bytes=saved,
+           allocated_before_forward=before, forward_peak=forward_peak,
+           backward_peak=backward_peak,
+           epoch_peak=torch.cuda.max_memory_allocated(dev))
 
 
 #: path -> (config, method, the core backend (the zoo's: the adjacency
@@ -1570,10 +1893,13 @@ PATHS = {
     "math_egcn": ("math_egcn", "EvolveGCN", "ell", ("bsr_spmm_rowwalk",)),
     "uci_vgrnn": ("uci_vgrnn", "VGRNN", "segment", ()),
     "math_vgrnn": ("math_vgrnn", "VGRNN", "ell", ("bsr_spmm_rowwalk",)),
+    "uci_pgnn": ("uci_pgnn", "PGNN", "dense", ()),
+    "aa_pgnn": ("aa_pgnn", "PGNN", "dense", ()),
+    "math_pgnn": ("math_pgnn", "PGNN", "dense", ()),
 }
 #: the paths profiled, with their epochs under the profiler (aa_snode's
 #: 52,000 launches an epoch take the profiler minutes to sum; aa_sedge
-#: runs the same model)
+#: runs the same model); the PGNN paths are profiled by ``phase_pgnn``
 PROFILED = {"uci_auto": 2, "uci_pallas": 2, "as_auto": 2, "as_ctgcn_s": 2,
             "as_bf16": 2, "enron_bf16": 1, "uci_cgcn_c": 2, "uci_cgcn_s": 2,
             "aa_snode": 1, "as_ctgcn_s_slink": 2, "uci_slink_dy": 2,
@@ -1647,11 +1973,16 @@ def run_path(path, cfg, method, backend, kernels, dev):
                                  f"times; the path runs {kernels}")
     shapes = []
     if emb.get("export", True):
+        from ctgcn_torch.nn.pgnn import anchor_sizes
+
         base = Path(emb["base_path"])
         nodes = read_node_list(base / emb["node_file"])
         emb_dir = base / emb["embed_folder"]
         files = [emb_dir / f for f in sorted(os.listdir(emb_dir))]
-        args = (files, [nodes] * len(files), [emb["embed_dim"]] * len(files))
+        # PGNN's embedding has one column per anchor set
+        width = (len(anchor_sizes(len(nodes))) if method == "PGNN"
+                 else emb["embed_dim"])
+        args = (files, [nodes] * len(files), [width] * len(files))
         # parsing an Enron-sized CSV takes seconds: large exports are read
         # in worker processes, as they are written
         if len(files) > 1 and len(nodes) * len(files) >= PARALLEL_MIN_ROWS:
@@ -1785,7 +2116,9 @@ def phase_quality(base, device):
     seed_means = {name: float(np.mean(v)) for name, v in had.items()}
     gates = {label: {"had_auc_mean": float(np.mean(
                          [seed_means[n] for n in names])),
-                     "gate": gate, "epochs": epochs}
+                     "gate": gate, "epochs": epochs,
+                     **({"references": QUALITY_REFERENCES[label]}
+                        if label in QUALITY_REFERENCES else {})}
              for label, (gate, epochs, names) in runs.items()}
     _phase("quality", had_auc_last4_by_seed_and_rep=had,
            had_auc_by_seed=seed_means, gates=gates,
@@ -1800,34 +2133,34 @@ def phase_quality(base, device):
     return methods
 
 
-def phase_quality_snode(aa, device, path_results):
-    """aa_snode (``configs/america-air.json`` CTGCN-C under S-node, 50
-    epochs) for each seed of ``AA_SNODE_SEEDS``: seed 0 is the aa_snode
-    path's run (the config's seed), the others are trained on the
-    preprocessed America-Air copy ``aa``; the mean test accuracy must not
-    fall more than ``AA_SNODE_MARGIN`` under the JAX package's,
-    ``AA_SNODE_JAX_ACC``."""
+def phase_quality_snode(aa, device, path, path_results):
+    """A ``SNODE_QUALITY`` run on America-Air under S-node for each seed of
+    ``AA_SNODE_SEEDS``: seed 0 is the path's run (the config's seed), the
+    others are trained on the preprocessed America-Air copy ``aa`` with
+    the path's config; the mean test accuracy must reach the gate, which
+    lies under the JAX package's mean on the same config and seeds."""
     import numpy as np
 
+    method, change, jax_acc, gate, refs = SNODE_QUALITY[path]
     with open(ROOT / "configs" / "america-air.json") as fp:
         conf = json.load(fp)
     runs = {}
     for seed in AA_SNODE_SEEDS:
-        if seed == conf["embedding"]["CTGCN-C"].get("seed", 0):
+        if seed == conf["embedding"][method].get("seed", 0):
             seconds, results = None, path_results
         else:
-            seconds, results = _train(aa, f"aa_snode-s{seed}", conf, device,
-                                      learning_type="S-node", seed=seed)
+            seconds, results = _train(aa, f"{path}-s{seed}", conf, device,
+                                      method, learning_type="S-node",
+                                      seed=seed, **change)
         runs[seed] = {"seconds": seconds, "epochs": len(results[0]["losses"]),
                       "acc_test": results[0]["acc_test"],
                       "auc_test": results[0]["auc_test"],
                       "best_acc_val": results[0]["best_acc_val"]}
     mean = float(np.mean([r["acc_test"] for r in runs.values()]))
-    gate = AA_SNODE_JAX_ACC - AA_SNODE_MARGIN
-    _phase("quality", path="aa_snode", runs=runs, mean_acc_test=mean,
-           jax_mean_acc_test=AA_SNODE_JAX_ACC, gate=gate)
+    _phase("quality", path=path, runs=runs, mean_acc_test=mean,
+           jax_mean_acc_test=jax_acc, gate=gate, references=refs)
     if not mean >= gate:
-        raise AssertionError(f"aa_snode: mean test accuracy {mean:.4f} "
+        raise AssertionError(f"{path}: mean test accuracy {mean:.4f} "
                              f"below the gate {gate:.4f}")
 
 
@@ -2085,6 +2418,11 @@ def main():
         # snapshots: its duration)
         variant("uci_vgrnn", "uci", "VGRNN", epoch=EPOCHS)
         variant("math_vgrnn", "math10", "VGRNN", end_idx=4, epoch=EPOCHS)
+        # PGNN: configs as written, window 0 (duration 2 at UCI and Math,
+        # 1 at America-Air, whose 50 epochs are aa_pgnn's quality seed 0)
+        variant("uci_pgnn", "uci", "PGNN", end_idx=1, epoch=EPOCHS)
+        variant("aa_pgnn", "america_air", "PGNN", end_idx=0)
+        variant("math_pgnn", "math10", "PGNN", end_idx=1, epoch=EPOCHS)
 
         # 3. kernels at the paths' shapes, and small-model parity
         kernels = phase_kernels(cfgs["uci_pallas"][2], dev)
@@ -2106,6 +2444,8 @@ def main():
         phase_parity_attn(dev)
         phase_parity_recurrent(dev)
         phase_parity_vgrnn(dev)
+        phase_parity_pgnn(dev)
+        phase_parity_supervised(dev)
 
         # 4. the paths, counters set to 0 just before and read just after
         launches, results = {}, {}
@@ -2128,6 +2468,8 @@ def main():
             phase_profile(path, method, cfgs[cfg][2], dev, epochs=epochs)
         for path in ("uci_vgrnn", "math_vgrnn"):
             phase_vgrnn_memory(path, cfgs[path][2], dev)
+        for path in ("uci_pgnn", "aa_pgnn", "math_pgnn"):
+            phase_pgnn(path, cfgs[path][2], dev)
 
         # 5. model quality and the other evaluation tasks, counters set to
         # 0 just before and read just after (UCI and America-Air train on
@@ -2138,7 +2480,9 @@ def main():
             getattr(B, name).launches = 0
         t0 = time.time()
         methods = phase_quality(work / "uci", "cuda")
-        phase_quality_snode(work / "america_air", "cuda", results["aa_snode"])
+        for path in SNODE_QUALITY:
+            phase_quality_snode(work / "america_air", "cuda", path,
+                                results[path])
         phase_eval(work / "uci", methods[0], work / "america_air", "cuda")
         launches["evaluation"] = {name: getattr(B, name).launches
                                   for name in KERNELS}

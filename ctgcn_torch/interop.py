@@ -29,7 +29,11 @@ axis, as CTGCN's ``mlps`` do, and become ``gcns.<t>.gc1.*`` /
 and ``VGRNN`` (``phi_x``, ``phi_z``, ``prior``, ``prior_mean``,
 ``prior_std``: ``Linear``; ``enc``, ``enc_mean``, ``enc_std``:
 ``GraphConv``; ``rnn.{xz,hz,xr,hr,xh,hh}.<layer>``) onto
-``ctgcn_torch.nn.vgrnn``.
+``ctgcn_torch.nn.vgrnn``, and ``PGNN`` (``linear_pre``, ``conv_first``,
+``conv_hidden.<i>`` and ``conv_out``, each layer with
+``dist_compute.linear{1,2}``, ``linear_hidden`` and
+``linear_out_position``; ``linear_pre`` and ``conv_out`` are absent
+without ``feature_pre`` and at one layer) onto ``ctgcn_torch.nn.pgnn``.
 """
 from __future__ import annotations
 
@@ -51,8 +55,8 @@ def _flatten(tree, prefix=""):
 
 def params_from_numpy(tree):
     """JAX CTGCN / CGCN / MLPClassifier / EdgeClassifier / GCN / GIN / GAT
-    / SAGE / GCRN / EvolveGCN / VGRNN parameter tree (nested dicts of
-    arrays) -> state_dict."""
+    / SAGE / GCRN / EvolveGCN / VGRNN / PGNN parameter tree (nested dicts
+    of arrays) -> state_dict."""
     state = {}
     for name, arr in _flatten(tree).items():
         head, _, rest = name.partition(".")

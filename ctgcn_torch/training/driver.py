@@ -3,7 +3,8 @@
 CTGCN family: CGCN-C, CGCN-S, CTGCN-C and CTGCN-S, under the learning
 types U-neg, U-own, S-node, S-edge, S-link-st and S-link-dy; and for the
 model zoo's GCN, TgGCN, GIN, TgGIN, GAT, TgGAT, SAGE, TgSAGE, GCRN,
-EvolveGCN and VGRNN under U-neg, and VGRNN under U-own).
+EvolveGCN, VGRNN and PGNN under U-neg and the four supervised types, and
+VGRNN under U-own).
 
 The zoo's window is its adjacency, one ``SparseGraph`` a snapshot, with
 the kernels' plans at ``ELL_AUTO_NODES`` nodes and more (``adj_backend``),
@@ -37,7 +38,23 @@ and its loss is stateful: the hidden state h crosses an epoch's batches
 detached and starts each epoch at zeros, and the export replays that
 carry.  The VAE loss ignores the batch, so every batch adds the whole
 window's loss.  The export exports ``enc_mean`` and draws its noise from a
-generator seeded 0 at every call.
+generator seeded 0 at every call.  Under a supervised type VGRNN's loss is
+the classification loss plus the VAE loss, and its forward is stateful
+through ``SupervisedEmbedding``'s ``state_init``.
+
+PGNN reads no adjacency: its window is the dense [T, N, N] proximity
+matrices (``data["pgnn_dists"]``, built from the edge lists with the
+config's ``approximate`` and moved to the device a snapshot at a time), so
+``core_backend`` reports "dense"; the JAX driver also loads a raw
+adjacency that PGNN never reads, which the port does not.  The factory
+passes what the JAX factory passes (``feature_dim``, by default
+``hid_dim``, ``feature_pre``, ``layer_num``, ``dropout``, ``bias``).
+Each forward draws a snapshot's anchor sets, then the dropout masks, from
+its generator; without one (the validation, test and export forwards)
+from a generator seeded 0 made at every call, so PGNN drops out there too,
+as the JAX forward without a key draws both from ``jax.random.key(0)``.
+Its embedding has one column per anchor set, so the S-node and S-edge
+classifiers take ``len(anchor_sizes(N))`` inputs, not ``embed_dim``.
 
 Per window: load the k-core pyramids (on the config's ``core_backend``,
 ``"auto"`` by default, at its ``matmul_precision``) and the node features
@@ -55,7 +72,10 @@ package does), and record the window's training seconds in
     under the binary cross-entropy (S-link-dy predicts snapshot t's edges
     from the embedding of t - 1, so its windows step by ``duration - 1``
     and the last snapshot only gives edges).  The S-variants add the
-    reconstruction loss over all rows.  ``SupervisedEmbedding``.
+    reconstruction loss over all rows, VGRNN its VAE loss.  The zoo's
+    train step draws its dropout (SAGE its samples, EvolveGCN its slopes,
+    VGRNN its noise, PGNN its anchors) from the engine's generator, the
+    other forwards as the export does.  ``SupervisedEmbedding``.
 
 The window's numpy ``RandomState(seed)`` draws the degree features and then
 the link splits, in the order the JAX package draws them from the global
@@ -89,6 +109,8 @@ from ctgcn_torch.nn.egcn import EvolveGCN
 from ctgcn_torch.nn.gcn import GCN, GCRN
 from ctgcn_torch.nn.gin import GIN
 from ctgcn_torch.nn.heads import EdgeClassifier, MLPClassifier, inner_product
+from ctgcn_torch.nn.pgnn import (PGNN, anchor_sizes, precompute_dist_data,
+                                 select_anchor_dists)
 from ctgcn_torch.nn.sage import SAGE
 from ctgcn_torch.nn.vgrnn import VGRNN
 from ctgcn_torch.ops.neighbors import neighbor_table_from_scipy
@@ -104,9 +126,9 @@ PORTED_METHODS = {"CGCN-C": CGCN, "CGCN-S": CGCN, "CTGCN-C": CTGCN,
                   "CTGCN-S": CTGCN, "GCN": GCN, "TgGCN": GCN, "GIN": GIN,
                   "TgGIN": GIN, "GAT": GAT, "TgGAT": GAT, "SAGE": SAGE,
                   "TgSAGE": SAGE, "GCRN": GCRN, "EvolveGCN": EvolveGCN,
-                  "VGRNN": VGRNN}
+                  "VGRNN": VGRNN, "PGNN": PGNN}
 ZOO_METHODS = ("GCN", "TgGCN", "GIN", "TgGIN", "GAT", "TgGAT", "SAGE",
-               "TgSAGE", "GCRN", "EvolveGCN", "VGRNN")
+               "TgSAGE", "GCRN", "EvolveGCN", "VGRNN", "PGNN")
 S_VARIANTS = ("CGCN-S", "CTGCN-S")
 #: the methods with a U-own loss: the S-variants' reconstruction loss,
 #: VGRNN's VAE loss
@@ -131,10 +153,6 @@ def _check_scope(method, args):
     if lt == "U-own" and method not in U_OWN_METHODS:
         raise ValueError(f"U-own is defined for the S-variants and VGRNN, "
                          f"not {method}")
-    if method in ZOO_METHODS and lt in SUPERVISED_TYPES:
-        raise NotImplementedError(
-            f"{method} under {lt!r} is not ported yet; the zoo trains "
-            "U-neg, and VGRNN U-own (ROADMAP.md queue 1: the model zoo)")
     if args.get("profile_dir"):
         raise NotImplementedError(
             "profile_dir is not ported yet (ROADMAP.md queue 1 item 6: "
@@ -228,12 +246,13 @@ def _vgrnn_adjacency(idx, time_length, data_loader, args):
 
 
 def get_input_data(method, idx, time_length, data_loader: DataLoader, args,
-                   rng=None):
+                   rng=None, device=None):
     """(input_dim, data) for one window on the host: ``data["adjs"]`` is
     the stacked ``CorePyramid`` of the family, or the zoo's ``SparseGraph``
     per snapshot (with ``data["neighbor_data"]``; VGRNN's target, and its
     convolutions' graphs in ``data["vgrnn_adjs"]``), and ``data["xs"]``
-    the features.
+    the features.  PGNN's proximity matrices (``data["pgnn_dists"]``, no
+    ``data["adjs"]``) are built on ``device`` (the CPU by default).
 
     ``matmul_precision`` sets the family's bank: "bf16" a bf16 dense bank
     / bf16 blocks / bf16 ELL gathers, "high" 3xTF32 GEMMs on an f32 bank.
@@ -241,7 +260,14 @@ def get_input_data(method, idx, time_length, data_loader: DataLoader, args,
     ``nfeature_folder``, or, for CGCN-S, CTGCN-S and EvolveGCN without
     them, degree features drawn from ``rng`` (a numpy ``RandomState``)."""
     data = {}
-    if method == "VGRNN":
+    if method == "PGNN":
+        edge_list = data_loader.get_edge_list(
+            args["origin_base_path"], idx, time_length,
+            sep=args.get("file_sep", "\t"))
+        data["pgnn_dists"] = precompute_dist_data(
+            edge_list, data_loader.node_num,
+            approximate=args.get("approximate", -1), device=device)
+    elif method == "VGRNN":
         data["adjs"], data["vgrnn_adjs"] = _vgrnn_adjacency(
             idx, time_length, data_loader, args)
     elif method in ZOO_METHODS:
@@ -279,8 +305,11 @@ def _data_to(data, device):
 
 
 def _adj_backend(data):
-    """The window's backend: the pyramid's core backend, or the "ell" /
-    "segment" of the graphs the zoo's model reads."""
+    """The window's backend: the pyramid's core backend, the "ell" /
+    "segment" of the graphs the zoo's model reads, or "dense" (PGNN's
+    proximity matrices)."""
+    if "pgnn_dists" in data:
+        return "dense"
     adjs = data.get("vgrnn_adjs", data["adjs"])
     return adjs[0].backend if isinstance(adjs, tuple) else adjs.backend
 
@@ -320,6 +349,11 @@ def get_gnn_model(method, time_length, args, generator):
     if PORTED_METHODS[method] is VGRNN:
         return VGRNN(*dims, conv_type=args.get("conv_type", "GCN"),
                      **common)
+    if PORTED_METHODS[method] is PGNN:
+        return PGNN(dims[0], args.get("feature_dim", dims[1]), *dims[1:],
+                    feature_pre=args.get("feature_pre", True),
+                    layer_num=args.get("layer_num", 2),
+                    dropout=args.get("dropout", 0.0), **common)
     kw = dict(trans_num=args["trans_layer_num"],
               diffusion_num=args["diffusion_layer_num"],
               rnn_type=args.get("rnn_type", "GRU"),
@@ -363,13 +397,31 @@ def _vgrnn_forward(model, data, generator=None, hx=None, noise=None):
                  noise=noise)
 
 
+def _pgnn_forward(model, data, generator=None, anchor_sets=None):
+    """PGNN over the window's proximity matrices: each snapshot's anchor
+    sets drawn from ``generator`` (or given: ``anchor_sets[t]``, one index
+    tensor a set), then the model with its dropout from the same
+    generator; without one, both from a generator seeded 0 made for the
+    call."""
+    dists = data["pgnn_dists"]
+    if generator is None:
+        generator = torch.Generator(device=dists.device).manual_seed(0)
+    sizes = anchor_sizes(dists.shape[1])
+    dm, da = zip(*(select_anchor_dists(
+        dists[t], sizes, generator,
+        anchor_sets=None if anchor_sets is None else anchor_sets[t])
+        for t in range(dists.shape[0])))
+    return model(data["xs"], torch.stack(dm), torch.stack(da),
+                 generator=generator)
+
+
 def make_forward(method):
     """(model, data, generator=None) -> embeddings of ``method`` (VGRNN's
     forward also takes ``hx`` and returns more, ``_vgrnn_forward``); the
     zoo draws its dropout masks (SAGE its samples, EvolveGCN its rrelu
-    slopes, VGRNN its noise) from ``generator``: without one GCN, GIN, GAT
-    and GCRN drop nothing, EvolveGCN takes rrelu's mean slope, and SAGE and
-    VGRNN draw from a generator seeded 0."""
+    slopes, VGRNN its noise, PGNN its anchors) from ``generator``: without
+    one GCN, GIN, GAT and GCRN drop nothing, EvolveGCN takes rrelu's mean
+    slope, and SAGE, VGRNN and PGNN draw from a generator seeded 0."""
     cls = PORTED_METHODS[method]
     if cls in (GCN, GAT, GCRN, EvolveGCN):
         return _adj_forward
@@ -379,6 +431,8 @@ def make_forward(method):
         return _sage_forward
     if cls is VGRNN:
         return _vgrnn_forward
+    if cls is PGNN:
+        return _pgnn_forward
     return _family_forward
 
 
@@ -448,34 +502,62 @@ def _embed_trans(model, data):
     return model(data["xs"], data["adjs"])[1]
 
 
-def _supervised_forward(learning_type, s_variant):
-    """forward_fn of ``SupervisedEmbedding``: the window's embeddings (the
-    node embedding of an S-variant), then the head's logits for the
-    split's items; aux is (embeddings, structure embedding or None)."""
+def _head(learning_type):
+    """(classifier, embeddings, items) -> the logits of ``learning_type``:
+    the classifier of the items' rows or edges, or the inner product of the
+    edges' ends (S-link-dy on the embeddings before the last snapshot)."""
     drop_last = learning_type == "S-link-dy"
 
-    def forward_fn(model, classifier, data, items):
-        res = model(data["xs"], data["adjs"])
-        embs, trans = res if s_variant else (res, None)
+    def head(classifier, embs, items):
         if learning_type == "S-node":
-            preds = classifier(embs, items)
-        elif learning_type == "S-edge":
-            preds = classifier(embs, items.transpose(1, 2))
-        else:
-            preds = inner_product(embs[:-1] if drop_last else embs,
-                                  items.transpose(1, 2))
-        return preds, (embs, trans)
+            return classifier(embs, items)
+        if learning_type == "S-edge":
+            return classifier(embs, items.transpose(1, 2))
+        return inner_product(embs[:-1] if drop_last else embs,
+                             items.transpose(1, 2))
+
+    return head
+
+
+def _supervised_forward(fwd, learning_type, s_variant):
+    """forward_fn of ``SupervisedEmbedding``: the window's embeddings from
+    ``fwd`` (the node embedding of an S-variant), then the head's logits
+    for the split's items; aux is (embeddings, structure embedding or
+    None)."""
+    head = _head(learning_type)
+
+    def forward_fn(model, classifier, data, items, generator=None):
+        res = fwd(model, data, generator)
+        embs, trans = res if s_variant else (res, None)
+        return head(classifier, embs, items), (embs, trans)
 
     return forward_fn
 
 
-def _supervised_loss(s_variant):
+def _vgrnn_supervised_forward(fwd, learning_type):
+    """VGRNN's stateful forward_fn of ``SupervisedEmbedding``: from the
+    hidden state hx, (logits of enc_mean, aux (enc_mean, enc_std,
+    prior_mean, prior_std, z, the raw targets), the new h, enc_mean)."""
+    head = _head(learning_type)
+
+    def forward_fn(model, classifier, data, items, generator, hx):
+        embs, h, loss_data = fwd(model, data, generator, hx=hx)
+        return (head(classifier, embs, items), loss_data + (data["adjs"],),
+                h, embs)
+
+    return forward_fn
+
+
+def _supervised_loss(method, eps=1e-10):
     """loss_fn of ``SupervisedEmbedding``: the classification loss, plus
-    the reconstruction loss over all rows for an S-variant."""
+    the reconstruction loss over all rows for an S-variant, plus the VAE
+    loss for VGRNN."""
     def loss_fn(preds, labels, mask, aux):
         loss, acc = classification_loss(preds, labels, mask=mask)
-        if s_variant:
+        if method in S_VARIANTS:
             loss = loss + reconstruction_loss(*aux)
+        elif method == "VGRNN":
+            loss = loss + vae_loss(*aux, eps=eps)
         return loss, acc
 
     return loss_fn
@@ -486,9 +568,9 @@ def _supervised_parts(method, args, data_loader, idx, time_length, rng,
     """(classifier, forward_fn, loss_fn, auc_fn, host splits) of the
     config's supervised learning type for one window; the classifier's
     parameters come from a generator seeded ``seed + 1000``, the link
-    splits from ``rng``."""
+    splits from ``rng``.  PGNN's classifier takes one input per anchor
+    set."""
     lt = args["learning_type"]
-    s_variant = method in S_VARIANTS
     base_path = args["base_path"]
     sep = args.get("file_sep", "\t")
     ratios = (args["train_ratio"], args["val_ratio"], args["test_ratio"])
@@ -502,7 +584,8 @@ def _supervised_parts(method, args, data_loader, idx, time_length, rng,
                                                            folder)),
                               idx, time_length, sep=sep)
         head = MLPClassifier if node else EdgeClassifier
-        embed_dim = args["embed_dim"]
+        embed_dim = (len(anchor_sizes(data_loader.node_num))
+                     if method == "PGNN" else args["embed_dim"])
         classifier = head(embed_dim, args.get("cls_hid_dim", embed_dim),
                           n_class, args.get("cls_layer_num", 1),
                           bias=args.get("cls_bias", True),
@@ -517,8 +600,11 @@ def _supervised_parts(method, args, data_loader, idx, time_length, rng,
         splits = build_link_splits(edge_list, data_loader.node_num, *ratios,
                                    lt, rng)
         auc_fn = binary_auc
-    return (classifier, _supervised_forward(lt, s_variant),
-            _supervised_loss(s_variant), auc_fn, splits)
+    fwd = make_forward(method)
+    forward_fn = (_vgrnn_supervised_forward(fwd, lt) if method == "VGRNN"
+                  else _supervised_forward(fwd, lt, method in S_VARIANTS))
+    return (classifier, forward_fn,
+            _supervised_loss(method, args.get("eps", 1e-10)), auc_fn, splits)
 
 
 def build_trainer(method, args, data_loader, idx, time_length, device,
@@ -532,7 +618,7 @@ def build_trainer(method, args, data_loader, idx, time_length, device,
     base_path = args["base_path"]
     rng = rng if rng is not None else np.random.RandomState(seed)
     input_dim, data = get_input_data(method, idx, time_length, data_loader,
-                                     args, rng=rng)
+                                     args, rng=rng, device=device)
     args["input_dim"] = input_dim
     data = _data_to(data, device)
     s_variant = method in S_VARIANTS
@@ -564,7 +650,8 @@ def build_trainer(method, args, data_loader, idx, time_length, device,
             classifier=None if classifier is None else classifier.to(device),
             forward_fn=forward_fn, loss_fn=loss_fn, auc_fn=auc_fn,
             splits={k: tuple(a.to(device) for a in v)
-                    for k, v in splits.items()}, **common)
+                    for k, v in splits.items()},
+            state_init=_vgrnn_state_init if vgrnn else None, **common)
         trainer.split_seconds = split_seconds
         return trainer
     if lt == "U-neg":
@@ -662,7 +749,8 @@ def _run_windows(method, args, dev):
         common = dict(epoch=args["epoch"], lr=args["lr"], start_idx=idx,
                       weight_decay=args.get("weight_decay", 0.0),
                       model_file=model_file if keep else None,
-                      load_model=load_model, export=args.get("export", True))
+                      load_model=load_model, export=args.get("export", True),
+                      seed=seed + widx)
         if supervised:
             res = trainer.learn_embedding(
                 classifier_file=args.get("cls_file") if keep else None,
@@ -671,8 +759,7 @@ def _run_windows(method, args, dev):
         else:
             res = trainer.learn_embedding(
                 batch_size=args["batch_size"],
-                shuffle=args.get("shuffle", True), seed=seed + widx,
-                **common)
+                shuffle=args.get("shuffle", True), **common)
         time_list.append(res["cost_time"])
         results.append({"idx": idx, "time_length": time_length,
                         "setup_seconds": setup_seconds,

@@ -12,7 +12,13 @@ epoch's start crosses the epoch's batches detached, as the JAX engine's
 ``SupervisedEmbedding`` (S-node, S-edge, S-link-st, S-link-dy): every
 epoch is one full-batch step of the model and its classifier over the
 train split, then a forward over the validation split; the parameters of
-the best validation accuracy are kept, saved, tested and exported.
+the best validation accuracy are kept, saved, tested and exported.  The
+train step's forward draws from a generator seeded with the window's seed,
+the others from none, as the JAX engine passes no key to its evaluation
+step.  With ``state_init`` (VGRNN) the forward is stateful: the state is
+made at every epoch's start, flows from the train step to the validation
+forward, is kept with the best parameters and feeds the test forward,
+whose embeddings are exported.
 
 The optimizer is ``torch.optim.Adam(lr, weight_decay=wd)``: L2 added to
 the gradient before the moment updates, eps 1e-8 -- the same update as
@@ -203,18 +209,28 @@ class SupervisedEmbedding(BaseEmbedding):
     Args:
       classifier: the head (``nn.Module`` on ``device``), or ``None`` for
         the link types, which score edges by the inner product.
-      forward_fn: (model, classifier, data, items) -> (logits, aux), the
-        items of one split as ``splits`` gives them.
+      forward_fn: (model, classifier, data, items, generator) -> (logits,
+        aux), the items of one split as ``splits`` gives them; the train
+        step passes the engine's generator, the validation, test and export
+        forwards ``None``.  With ``state_init``, (..., generator, state) ->
+        (logits, aux, new state, embeddings).
       loss_fn: (logits, labels, mask, aux) -> (loss, accuracy) tensors.
       auc_fn: (logits, labels, mask) -> float, on the host.
       splits: {"train" | "val" | "test": (items, labels, mask)} on
         ``device`` (``training.splits``).
+      state_init: optional (model, data) -> the state of an epoch's train
+        step (VGRNN's hidden state).  The train step's new state feeds the
+        validation forward, whose new state is kept with the best
+        parameters; the test forward starts from it (from a fresh state
+        when no validation epoch ran) and its embeddings are the ones
+        exported.
       The others as ``BaseEmbedding``'s.
     """
 
     def __init__(self, base_path, origin_folder, embedding_folder, node_list,
                  model, classifier, forward_fn, loss_fn, embed_fn, auc_fn,
-                 data, splits, device, model_folder="model", file_sep="\t"):
+                 data, splits, device, model_folder="model", file_sep="\t",
+                 state_init=None):
         super().__init__(base_path, origin_folder, embedding_folder,
                          node_list, model, embed_fn, data, device,
                          model_folder=model_folder, file_sep=file_sep)
@@ -223,35 +239,45 @@ class SupervisedEmbedding(BaseEmbedding):
         self.loss_fn = loss_fn
         self.auc_fn = auc_fn
         self.splits = splits
+        self.state_init = state_init
 
     def _modules(self):
         return [m for m in (self.model, self.classifier) if m is not None]
 
-    def _state(self):
+    def _params(self):
         """Copies of the parameters (the live tensors change in place with
         every optimizer step)."""
         return [copy.deepcopy(m.state_dict()) for m in self._modules()]
 
-    def _run(self, split):
+    def _run(self, split, generator=None, state=None):
+        """(loss, accuracy, logits) of one split's forward; with
+        ``state_init`` also (new state, embeddings)."""
         items, labels, mask = self.splits[split]
-        preds, aux = self.forward_fn(self.model, self.classifier, self.data,
-                                     items)
+        args = (self.model, self.classifier, self.data, items, generator)
+        if self.state_init is None:
+            preds, aux = self.forward_fn(*args)
+            extra = ()
+        else:
+            preds, aux, state, embs = self.forward_fn(*args, state)
+            extra = (state, embs)
         loss, acc = self.loss_fn(preds, labels, mask, aux)
-        return loss, acc, preds
+        return (loss, acc, preds) + extra
 
     def learn_embedding(self, epoch=50, lr=1e-3, start_idx=0,
                         weight_decay=0.0, model_file="ctgcn",
                         classifier_file="ctgcn_cls", load_model=False,
-                        export=True, verbose=True):
+                        export=True, seed=0, verbose=True):
         """Train, keep the best-on-validation parameters (the parameters
         before training when no validation epoch runs), save them, test
-        them and export their embeddings.  Returns a dict: ``cost_time``
+        them and export their embeddings.  The train step's forward draws
+        from a generator seeded ``seed``.  Returns a dict: ``cost_time``
         (seconds of training and test), per epoch ``losses`` (train),
         ``epoch_seconds`` (the train step and, from the second epoch, the
         validation forward) and ``acc_val`` (from the second epoch),
         ``best_acc_val``, ``acc_test``, ``auc_test``, ``loss_test`` and
         ``export_seconds`` (embedding export)."""
         model, cls = self.model, self.classifier
+        stateful = self.state_init is not None
         model_path = os.path.join(self.model_base_path, model_file or "")
         cls_path = os.path.join(self.model_base_path, classifier_file or "")
         if load_model and model_file and os.path.exists(model_path):
@@ -265,12 +291,15 @@ class SupervisedEmbedding(BaseEmbedding):
         params = [p for m in self._modules() for p in m.parameters()
                   if p.requires_grad]
         optimizer = make_optimizer(params, lr, weight_decay)
-        best_acc, best = -1.0, self._state()
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        best_acc, best, best_state = -1.0, self._params(), None
         losses, acc_vals, epoch_seconds = [], [], []
         for e in range(epoch):
             t_e = time.time()
             optimizer.zero_grad(set_to_none=False)
-            loss, acc, _ = self._run("train")
+            state = self.state_init(model, self.data) if stateful else None
+            loss, acc, _, *rest = self._run("train", gen, state)
             loss.backward()
             optimizer.step()
             losses.append(float(loss.detach()))
@@ -282,10 +311,13 @@ class SupervisedEmbedding(BaseEmbedding):
                           flush=True)
                 continue
             with torch.no_grad():
-                loss_v, acc_v, preds_v = self._run("val")
+                state = rest[0].detach() if stateful else None
+                loss_v, acc_v, preds_v, *rest_v = self._run("val", None,
+                                                            state)
             acc_vals.append(float(acc_v))
             if acc_vals[-1] > best_acc:
-                best_acc, best = acc_vals[-1], self._state()
+                best_acc, best = acc_vals[-1], self._params()
+                best_state = rest_v[0] if stateful else None
             if verbose:
                 _, labels_v, mask_v = self.splits["val"]
                 print(f"Epoch: {e + 1} loss_train: {losses[-1]:.4f} "
@@ -296,14 +328,17 @@ class SupervisedEmbedding(BaseEmbedding):
                       flush=True)
             self._sync()
             epoch_seconds.append(time.time() - t_e)
-        for m, state in zip(self._modules(), best):
-            m.load_state_dict(state)
+        for m, params in zip(self._modules(), best):
+            m.load_state_dict(params)
         if model_file:
             torch.save(model.state_dict(), model_path)
         if classifier_file and cls is not None:
             torch.save(cls.state_dict(), cls_path)
         with torch.no_grad():
-            loss_te, acc_te, preds_te = self._run("test")
+            if stateful and best_state is None:
+                best_state = self.state_init(model, self.data)
+            loss_te, acc_te, preds_te, *rest_te = self._run("test", None,
+                                                            best_state)
         _, labels_te, mask_te = self.splits["test"]
         auc_te = self.auc_fn(preds_te, labels_te, mask_te)
         print(f"Test set results: loss= {float(loss_te):.4f} "
@@ -311,8 +346,11 @@ class SupervisedEmbedding(BaseEmbedding):
         cost_time = time.time() - st
         t_export = time.time()
         if export:
-            with torch.no_grad():
-                output = self.embed_fn(model, self.data)
+            if stateful:
+                output = rest_te[1]
+            else:
+                with torch.no_grad():
+                    output = self.embed_fn(model, self.data)
             self.save_embedding(output, start_idx)
         return {"cost_time": cost_time, "losses": losses,
                 "epoch_seconds": epoch_seconds, "acc_val": acc_vals,

@@ -359,7 +359,7 @@ def test_best_on_val_parameters_are_copies(tmp_path):
     x = torch.randn(1, 5, 4, generator=gen)
     seen, val_acc = [], iter([0.75, 0.5])
 
-    def forward_fn(model, classifier, data, items):
+    def forward_fn(model, classifier, data, items, generator=None):
         seen.append((torch.is_grad_enabled(),
                      model.weight.detach().clone(),
                      classifier.mlp.layers[0].weight.detach().clone()))

@@ -15,8 +15,8 @@ which both packages read).
     adjacency each method gets (normalization, +I, plans) equal to the JAX
     driver's, the traps included, and the U-neg loss (the JAX sampler's
     draws) within 1e-5 and its gradients as above.
-  * The CLI runs each method and exports its CSVs; unported zoo methods
-    and learning types raise.
+  * The CLI runs each method and exports its CSVs; unported methods and
+    options raise.
   * The dataset fixture and the driver and CLI checks serve the zoo's
     later slices too (``tests/test_torch_gat.py``,
     ``tests/test_torch_sage.py``).
@@ -374,12 +374,12 @@ def _cli_run(dataset, tmp_path, method, **change):
 
 
 @pytest.mark.parametrize("method, change", [
-    ("DynGEM", {}), ("PGNN", {}), ("GCN", {"learning_type": "S-node"}),
-    ("VGRNN", {"learning_type": "S-node"}), ("GCN", {"profile_dir": "prof"})])
+    ("DynGEM", {}), ("DynAE", {}), ("TIMERS", {}),
+    ("GCN", {"remat_policy": "save_spmm"}), ("GCN", {"profile_dir": "prof"})])
 def test_unported_zoo_raises(dataset, tmp_path, method, change):
-    """Unported methods, the zoo's supervised types and the ``profile_dir``
-    key (a trace directory, which the JAX trainer writes) raise, naming
-    ROADMAP.md."""
+    """Unported methods (the non-GNN ones), the ``remat_policy:
+    "save_spmm"`` knob and the ``profile_dir`` key (a trace directory,
+    which the JAX trainer writes) raise, naming ROADMAP.md."""
     _, _, emb = dataset
     path = tmp_path / "cfg.json"
     path.write_text(json.dumps({"embedding": {
