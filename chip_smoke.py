@@ -109,7 +109,22 @@ kernel against its plain PyTorch version:
   * math_pgnn   ``configs/math.json`` PGNN as written (S-link-st,
                 ``approximate: 2``) on window 0 (snapshots 000-001 of the
                 Math copy), 3 epochs: 2 x 24,740^2 proximities on the card
-                (4.9 GB), 196 anchor sets, no kernel of ours.
+                (4.9 GB), 196 anchor sets, no kernel of ours;
+  * uci_dyngem, uci_dynae, uci_dynrnn, uci_dynaernn, uci_timers
+                ``configs/uci.json``'s non-GNN entries as written (DynGEM
+                on every snapshot, 4,096 edges a batch; DynAE, DynRNN and
+                DynAERNN on windows 2-6 of 3 snapshots, look-back 2; 50
+                epochs; TIMERS' host SVD updates): [quality] scores them;
+  * math_dyngem ``configs/math.json`` DynGEM as written on window 0
+                (snapshot 000), 3 epochs: every edge's two rows of the
+                dense 24,740-wide snapshot, one batch;
+  * math_dynae, math_dynaernn  ``configs/math.json`` DynAE and DynAERNN as
+                written on window 0 (snapshots 000-003, look-back 3: a
+                dense [4, 24,740, 24,740] window of 9.8 GB on the card, one
+                batch of every node), 3 epochs;
+  * as_dynrnn   ``configs/as.json`` DynRNN as written on window 0 (AS
+                snapshots 000-003), 3 epochs: its last decoder LSTM has
+                6,828 hidden units.  These nine run no kernel of ours.
 
 Phases, one line each:
 
@@ -170,6 +185,11 @@ Phases, one line each:
                 each kernel and a small VGRNN under S-link-st carrying h
                 from the train step to validation to test (against the
                 CPU in float64);
+     parity_dyn DynGEM, DynAE, DynRNN and DynAERNN small (N = 800, the
+                configs' widths), their parameters carried over by
+                ``params_from_numpy``: the embedding, one epoch's summed
+                loss and gradients over two batches, and its Adam step,
+                against the CPU in float64;
   4. paths      each path with the launch counters set to 0 just before it
                 and read just after (``PATHS``: the kernels each must launch,
                 every other must not), and Enron's bf16 / "highest" loss gap;
@@ -182,7 +202,9 @@ Phases, one line each:
                 epoch; for each PGNN path its profile, the anchor
                 selection's device time and share of the device epoch, and
                 its memory (the proximity matrices, the saved tensors, the
-                peaks);
+                peaks); the same profile and memory (the dense window, a
+                batch's saved tensors, the peaks) on the non-GNN paths of
+                Math and AS;
   5. quality    the UCI Had AUC gates, seeds 0 and 1 each, scored by the
                 port's ``link_pred`` over edge-split reps 0-2 (mean Had AUC
                 of the last 4 dates): CTGCN-C as configured but for 10
@@ -192,7 +214,9 @@ Phases, one line each:
                 epochs, ``RESULTS.md:38``), failing below ``S_AUC_GATE``;
                 VGRNN as configured (50 epochs, ``RESULTS.md:52``), failing
                 below ``VGRNN_AUC_GATE``; PGNN as configured (50 epochs),
-                failing below ``PGNN_AUC_GATE``;
+                failing below ``PGNN_AUC_GATE``; the uci_* non-GNN paths
+                (seed 0), failing below ``DYN_AUC_GATES`` and, TIMERS, more
+                than ``TIMERS_AUC_TOL`` from the JAX package's figure;
                 and aa_snode's mean test accuracy over seeds 0 and 1,
                 failing more than ``AA_SNODE_MARGIN`` under the JAX
                 package's mean on the same config and seeds
@@ -310,6 +334,36 @@ SNODE_QUALITY = {
                  AA_SNODE_JAX_ACC - AA_SNODE_MARGIN, {}),
     "aa_pgnn": ("PGNN", {"end_idx": 0}, AA_PGNN_JAX[0],
                 AA_PGNN_JAX[0] - 4 * AA_PGNN_JAX[1], AA_PGNN_REFERENCES)}
+#: the non-GNN baselines on UCI as configured (50 epochs; the uci_* paths
+#: are their seed-0 runs): (mean, run-to-run standard deviation) of
+#: RESULTS.md (over reps, trained by the JAX package) and of the JAX
+#: package on the CPU (scripts/dyn_quality_reference.py --package jax
+#: --seeds 0 1 --rnn-seeds 0, over seeds and reps); each gate is the lower
+#: of the two means less four of their deviations
+DYN_JAX = "ctgcn_tpu on the CPU, seeds 0-1 (DynRNN: 0)"
+DYN_AUC_REFERENCES = {
+    "DynGEM": {"RESULTS.md:48": (0.9124, 0.0038),
+               DYN_JAX: (0.9163, 0.0046)},
+    "DynAE": {"RESULTS.md:46": (0.9213, 0.0025),
+              DYN_JAX: (0.9217, 0.0030)},
+    "DynRNN": {"RESULTS.md:54": (0.8756, 0.0062),
+               DYN_JAX: (0.8777, 0.0060)},
+    "DynAERNN": {"RESULTS.md:53": (0.8883, 0.0020),
+                 DYN_JAX: (0.8907, 0.0043)}}
+DYN_AUC_GATES = {m: min(mean - 4 * sd for mean, sd in refs.values())
+                 for m, refs in DYN_AUC_REFERENCES.items()}
+#: TIMERS draws nothing but ARPACK's start, which the port pins to the ones
+#: vector as the reference script pins the JAX package's: its Had AUC on
+#: the card must lie within TIMERS_AUC_TOL of the JAX package's
+#: (scripts/dyn_quality_reference.py); RESULTS.md:58's, from a random
+#: start, is printed beside it
+TIMERS_AUC_JAX = 0.82025
+TIMERS_AUC_TOL = 1e-3
+TIMERS_AUC_REFERENCES = {"ctgcn_tpu on the CPU, ARPACK from ones":
+                         TIMERS_AUC_JAX, "RESULTS.md:58": (0.8197, 0.0089)}
+#: the snapshots of the DynAE family's Math and AS paths (window 0 of
+#: their entries: duration 4, look-back 3)
+DYN_SNAPSHOTS = tuple(f"{i:03d}.csv" for i in range(4))
 #: preprocessing seconds of the numpy walks, chip_smoke.py before the
 #: native kernels (PERF.md section 5: NVIDIA H100 80GB HBM3, 700 W host)
 NUMPY_PREPROCESS_SECONDS = {"as": 9.7, "enron": 13.2}
@@ -1861,6 +1915,166 @@ def phase_pgnn(path, cfg, dev, epochs=2):
            epoch_peak=torch.cuda.max_memory_allocated(dev))
 
 
+def phase_parity_dyn(dev):
+    """DynGEM, DynAE, DynRNN and DynAERNN small (N = 800, W = 4 snapshots
+    of weights 1-4, look-back 2, the configs' widths: units (500, 300),
+    rnn units (500,), embed 128) on the card against the CPU in float64,
+    their parameters carried over from the JAX layout by
+    ``params_from_numpy``: every node's embedding (the export), then one
+    epoch of ``train_epoch`` over two batches of 1,000 rows (the sampler's
+    draws, the same on both sides) with the configs' loss weights, its
+    summed loss and summed gradients, within PARITY_TOL; and the epoch's
+    Adam step, given the card's summed gradients on both sides, within
+    PARITY_TOL of the largest parameter.  (Adam's first step is lr g /
+    (|g| + eps): where a summed gradient lies within rounding of zero, its
+    sign in f32 sets the step, so the step is compared given the card's
+    gradients.)"""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    from ctgcn_torch.interop import params_from_numpy
+    from ctgcn_torch.nn import dynae
+    from ctgcn_torch.training.engine import make_optimizer
+
+    n, W, lb, batch, lr = 800, 4, 2, 1000, 1e-3
+    args = {"embed_dim": 128, "look_back": lb, "n_units": (500, 300),
+            "ae_units": (500, 300), "rnn_units": (500,), "bias": True}
+    rng = np.random.default_rng(7)
+    mats = []
+    for _ in range(W):
+        a = np.triu((rng.random((n, n)) < 0.01)
+                    * rng.integers(1, 5, (n, n)), 1).astype(np.float64)
+        mats.append(sp.coo_matrix(a + a.T))
+    window = torch.from_numpy(np.stack([m.toarray() for m in mats]))
+    edges = sp.find(mats[0])
+    cpu = torch.device("cpu")
+    for method in dynae.DYN_METHODS:
+        # DynGEM's configs weigh the loss otherwise (alpha, beta, nu)
+        hyper = (dict(alpha=1e-5, beta=10.0, nu1=1e-4, nu2=1e-4)
+                 if method == "DynGEM" else
+                 dict(alpha=0.0, beta=5.0, nu1=1e-6, nu2=1e-6))
+        model = dynae.build_model(method, n, args,
+                                  torch.Generator().manual_seed(1))
+        carried = dynae.build_model(method, n, args,
+                                    torch.Generator().manual_seed(2))
+        carried.load_state_dict(params_from_numpy(_jax_layout(model)))
+        init = model.state_dict()
+        if any(not torch.equal(v, carried.state_dict()[k])
+               for k, v in init.items()):
+            raise AssertionError(f"parity {method}: params_from_numpy did "
+                                 "not carry the parameters")
+        rows = len(edges[0]) if method == "DynGEM" else n * (W - lb)
+        batches = dynae.draw_batches(rows, min(batch, rows), 2,
+                                     torch.Generator().manual_seed(3))
+        loss_fn = dynae.make_batch_loss(method, lb, **hyper)
+        res, after = [], []
+        for d, dtype in ((cpu, torch.float64), (dev, torch.float32)):
+            mod = carried.to(d, dtype)
+            mod.load_state_dict(init)
+            mod.zero_grad(set_to_none=True)
+            if method == "DynGEM":
+                data = (window[0].to(d, dtype),
+                        *(torch.from_numpy(e.astype(np.int64)).to(d)
+                          for e in edges[:2]),
+                        torch.from_numpy(edges[2]).to(d, dtype))
+            else:
+                data = (window.to(d, dtype),)
+            with torch.no_grad():
+                emb = dynae.embed(method, lb, mod, data)
+            total = dynae.train_epoch(
+                mod, make_optimizer(list(mod.parameters()), lr), loss_fn,
+                data, [b.to(d) for b in batches])
+            res.append(({"embedding": emb.cpu(),
+                         "epoch_loss": total.detach().cpu().reshape(1)},
+                        {k: p.grad.detach().cpu()
+                         for k, p in mod.named_parameters()}))
+            after.append({k: p.detach().cpu()
+                          for k, p in mod.named_parameters()})
+        stepped = dynae.build_model(method, n, args, None).double()
+        stepped.load_state_dict(init)
+        for k, p in stepped.named_parameters():
+            p.grad = res[1][1][k].double()
+        make_optimizer(list(stepped.parameters()), lr).step()
+        want = dict(stepped.named_parameters())
+        scale = max(float(v.abs().max()) for v in want.values())
+        err_step = max(_check_close(
+            f"parity {method} Adam step {k}", after[1][k],
+            want[k].detach(), rtol=PARITY_TOL, atol_rel=PARITY_TOL,
+            scale=scale) for k in want)
+        _compare_sides(f"dyn_{method}", res, n=n, W=W, look_back=lb,
+                       batches=len(batches), batch_rows=len(batches[0]),
+                       rows=rows, **hyper, max_abs_err_step=err_step,
+                       max_abs_param=scale,
+                       cpu="float64; the Adam step given the card's "
+                           "gradients")
+
+
+def _dyn_trainer(method, cfg, dev):
+    """The trainer of the last window of ``cfg`` (every profiled path
+    trains one: its ``end_idx``) on ``dev``, its setup synchronised, and
+    the ``learn_embedding`` arguments of an unexported, unsaved epoch."""
+    import torch
+
+    from ctgcn_torch.nn import dynae
+
+    args = dict(cfg)
+    loader, origin = dynae.get_data_loader(args)
+    idx = args["end_idx"]
+    trainer = dynae.build_trainer(method, args, loader, origin, idx, dev,
+                                  torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    kw = dynae.train_kwargs(method, args)
+    del kw["epoch"]
+    kw.update(idx=idx, model_file=None, load_model=False, export=False,
+              verbose=False)
+    return trainer, kw
+
+
+def phase_dyn(path, method, cfg, dev, epochs=2):
+    """A non-GNN path's profile (``_profile_epochs`` after the window's
+    setup: its matrices, the dense [W, N, N] copy on the card, the model),
+    then ``[memory]``: the dense window, the parameters, what one batch's
+    loss saves for its backward, beside the measured peaks of that batch's
+    forward, its backward and an epoch."""
+    import torch
+
+    from ctgcn_torch.nn import dynae
+
+    t0 = time.time()
+    trainer, kw = _dyn_trainer(method, cfg, dev)
+    _profile_epochs(path, trainer, kw, time.time() - t0, epochs)
+    model, window = trainer.model, trainer.data[0]
+    params = sum(p.numel() * p.element_size() for p in model.parameters())
+    batch = dynae.draw_batches(trainer.row_num,
+                               min(kw["batch_size"], trainer.row_num), 1,
+                               torch.Generator().manual_seed(0))[0].to(dev)
+    loss_fn = dynae.make_batch_loss(method, trainer.look_back, kw["alpha"],
+                                    kw["beta"], kw["nu1"], kw["nu2"])
+    model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    loss, saved = _saved_bytes(lambda: loss_fn(model, trainer.data, batch))
+    torch.cuda.synchronize()
+    forward_peak = torch.cuda.max_memory_allocated(dev)
+    loss.backward()
+    torch.cuda.synchronize()
+    backward_peak = torch.cuda.max_memory_allocated(dev)
+    del loss
+    model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    trainer.learn_embedding(epoch=1, **kw)
+    _phase("memory", path=path, window_bytes=window.numel()
+           * window.element_size(), window_shape=list(window.shape),
+           params_bytes=params, grads_and_adam_bytes=3 * params,
+           batch_rows=len(batch), saved_for_backward_bytes=saved,
+           allocated_before_forward=before, forward_peak=forward_peak,
+           backward_peak=backward_peak,
+           epoch_peak=torch.cuda.max_memory_allocated(dev))
+
+
 #: path -> (config, method, the core backend (the zoo's: the adjacency
 #: backend) "auto" or the config must give, the kernels it must launch:
 #: every other kernel must not)
@@ -1896,7 +2110,23 @@ PATHS = {
     "uci_pgnn": ("uci_pgnn", "PGNN", "dense", ()),
     "aa_pgnn": ("aa_pgnn", "PGNN", "dense", ()),
     "math_pgnn": ("math_pgnn", "PGNN", "dense", ()),
+    "uci_dyngem": ("uci_dyngem", "DynGEM", "dense", ()),
+    "uci_dynae": ("uci_dynae", "DynAE", "dense", ()),
+    "uci_dynrnn": ("uci_dynrnn", "DynRNN", "dense", ()),
+    "uci_dynaernn": ("uci_dynaernn", "DynAERNN", "dense", ()),
+    "uci_timers": ("uci_timers", "TIMERS", "host", ()),
+    "math_dyngem": ("math_dyngem", "DynGEM", "dense", ()),
+    "math_dynae": ("math_dynae", "DynAE", "dense", ()),
+    "math_dynaernn": ("math_dynaernn", "DynAERNN", "dense", ()),
+    "as_dynrnn": ("as_dynrnn", "DynRNN", "dense", ()),
 }
+#: the non-GNN paths [quality] scores: path -> its method, whose
+#: embed_folder (configs/uci.json) names the scored folder
+DYN_QUALITY_PATHS = {"uci_dyngem": "DynGEM", "uci_dynae": "DynAE",
+                     "uci_dynrnn": "DynRNN", "uci_dynaernn": "DynAERNN",
+                     "uci_timers": "TIMERS"}
+#: the non-GNN paths ``phase_dyn`` profiles
+DYN_PROFILED = ("math_dyngem", "math_dynae", "math_dynaernn", "as_dynrnn")
 #: the paths profiled, with their epochs under the profiler (aa_snode's
 #: 52,000 launches an epoch take the profiler minutes to sum; aa_sedge
 #: runs the same model); the PGNN paths are profiled by ``phase_pgnn``
@@ -1932,22 +2162,15 @@ def _embedding_csv_shape(path, nodes, embed_dim):
     return list(arr.shape)
 
 
-def run_path(path, cfg, method, backend, kernels, dev):
-    """The embedding task of ``cfg`` through the CLI, with the launch
-    counters set to 0 just before and read just after.  Checks that
-    ``backend`` ran in every window, the losses are finite, (when the
-    config exports) every embedding CSV holds every node and (for a
-    supervised type) the test accuracy and AUC lie in [0, 1]; that each
-    kernel of ``kernels`` was launched and no other.  Returns the launch counts
-    and the window results."""
-    import numpy as np
+def _run_cli_counted(cfg_path, method, dev):
+    """The embedding task of the config at ``cfg_path`` through the CLI,
+    the launch counters set to 0 just before and read just after: (what it
+    returns, its wall seconds, the launches, the peak device memory)."""
     import torch
 
     from ctgcn_torch import main as cli
-    from ctgcn_torch.data.formats import PARALLEL_MIN_ROWS, read_node_list
     from ctgcn_torch.ops import bsr_spmm as B
 
-    cfg_path, _, emb = cfg
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     for name in KERNELS:
@@ -1957,8 +2180,79 @@ def run_path(path, cfg, method, backend, kernels, dev):
                         f"--method={method}"])
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {name: getattr(B, name).launches for name in KERNELS}
-    peak = torch.cuda.max_memory_allocated(dev)
+    return (results, wall,
+            {name: getattr(B, name).launches for name in KERNELS},
+            torch.cuda.max_memory_allocated(dev))
+
+
+def _check_exports(path, emb, method, count):
+    """The shapes of the ``count`` embedding CSVs a path exported, each
+    holding every node at the method's width (``_embedding_csv_shape``)."""
+    from ctgcn_torch.data.formats import PARALLEL_MIN_ROWS, read_node_list
+    from ctgcn_torch.nn.pgnn import anchor_sizes
+
+    base = Path(emb["base_path"])
+    nodes = read_node_list(base / emb["node_file"])
+    emb_dir = base / emb["embed_folder"]
+    files = [emb_dir / f for f in sorted(os.listdir(emb_dir))]
+    # PGNN's embedding has one column per anchor set, TIMERS' two halves of
+    # embed_dim // 2
+    width = (len(anchor_sizes(len(nodes))) if method == "PGNN"
+             else 2 * (emb["embed_dim"] // 2) if method == "TIMERS"
+             else emb["embed_dim"])
+    args = (files, [nodes] * len(files), [width] * len(files))
+    # parsing an Enron-sized CSV takes seconds: large exports are read in
+    # worker processes, as they are written
+    if len(files) > 1 and len(nodes) * len(files) >= PARALLEL_MIN_ROWS:
+        with concurrent.futures.ProcessPoolExecutor(
+                min(os.cpu_count() or 1, len(files)),
+                mp_context=multiprocessing.get_context("spawn")) as pool:
+            shapes = list(pool.map(_embedding_csv_shape, *args))
+    else:
+        shapes = list(map(_embedding_csv_shape, *args))
+    if len(shapes) != count:
+        raise AssertionError(f"{path}: {len(shapes)} embedding CSVs, want "
+                             f"{count}")
+    return shapes
+
+
+def run_timers_path(path, cfg, method, backend, kernels, dev):
+    """TIMERS (host ARPACK and numpy) through the CLI as ``run_path`` runs
+    the others: no kernel launched (``kernels`` is empty), every snapshot's
+    loss and bound finite, one CSV a snapshot holding every node.  Returns
+    the launch counts and the per-snapshot results."""
+    import numpy as np
+
+    cfg_path, _, emb = cfg
+    out, wall, launches, peak = _run_cli_counted(cfg_path, method, dev)
+    if any(n > 0 for name, n in launches.items() if name not in kernels):
+        raise AssertionError(f"{path}: launches {launches}")
+    losses = [r["loss"] for r in out]
+    bounds = [r["bound"] for r in out]
+    if not np.isfinite(losses + bounds).all():
+        raise AssertionError(f"{path}: losses {losses}, bounds {bounds}")
+    shapes = _check_exports(path, emb, method, len(out))
+    _phase("path", path=path, method=method, core_backend=backend,
+           windows=len(out), seconds=wall,
+           snapshot_seconds=[r["seconds"] for r in out], losses=losses,
+           bounds=bounds, reruns=[r["rerun"] for r in out],
+           launches=launches, max_memory_allocated=peak,
+           embedding_csvs=shapes)
+    return launches, out
+
+
+def run_path(path, cfg, method, backend, kernels, dev):
+    """The embedding task of ``cfg`` through the CLI, with the launch
+    counters set to 0 just before and read just after.  Checks that
+    ``backend`` ran in every window, the losses are finite, (when the
+    config exports) every embedding CSV holds every node and (for a
+    supervised type) the test accuracy and AUC lie in [0, 1]; that each
+    kernel of ``kernels`` was launched and no other.  Returns the launch counts
+    and the window results."""
+    import numpy as np
+
+    cfg_path, _, emb = cfg
+    results, wall, launches, peak = _run_cli_counted(cfg_path, method, dev)
     backends = [r["core_backend"] for r in results]
     if not results or backends != [backend] * len(results):
         raise AssertionError(f"{path}: backends {backends}, want "
@@ -1973,27 +2267,8 @@ def run_path(path, cfg, method, backend, kernels, dev):
                                  f"times; the path runs {kernels}")
     shapes = []
     if emb.get("export", True):
-        from ctgcn_torch.nn.pgnn import anchor_sizes
-
-        base = Path(emb["base_path"])
-        nodes = read_node_list(base / emb["node_file"])
-        emb_dir = base / emb["embed_folder"]
-        files = [emb_dir / f for f in sorted(os.listdir(emb_dir))]
-        # PGNN's embedding has one column per anchor set
-        width = (len(anchor_sizes(len(nodes))) if method == "PGNN"
-                 else emb["embed_dim"])
-        args = (files, [nodes] * len(files), [width] * len(files))
-        # parsing an Enron-sized CSV takes seconds: large exports are read
-        # in worker processes, as they are written
-        if len(files) > 1 and len(nodes) * len(files) >= PARALLEL_MIN_ROWS:
-            with concurrent.futures.ProcessPoolExecutor(
-                    min(os.cpu_count() or 1, len(files)),
-                    mp_context=multiprocessing.get_context("spawn")) as pool:
-                shapes = list(pool.map(_embedding_csv_shape, *args))
-        else:
-            shapes = list(map(_embedding_csv_shape, *args))
-        if len(shapes) != sum(r["time_length"] for r in results):
-            raise AssertionError(f"{path}: {len(shapes)} embedding CSVs")
+        shapes = _check_exports(path, emb, method,
+                                sum(r["time_length"] for r in results))
     supervised = {}
     if "acc_test" in results[0]:
         # the supervised types' test results, and the splits' host time
@@ -2006,7 +2281,7 @@ def run_path(path, cfg, method, backend, kernels, dev):
                                  f"{supervised['acc_test']} / "
                                  f"{supervised['auc_test']}")
     _phase("path", path=path, method=method, core_backend=backend,
-           learning_type=emb["learning_type"],
+           learning_type=emb.get("learning_type"),
            matmul_precision=emb.get("matmul_precision", "highest"),
            windows=len(results), seconds=wall,
            time_length=[r["time_length"] for r in results],
@@ -2070,13 +2345,18 @@ def _train(base, name, conf, device, method="CTGCN-C", **change):
     return time.time() - t0, results
 
 
-def phase_quality(base, device):
+def phase_quality(base, device, dyn_methods=()):
     """The Had AUC gates on the preprocessed UCI copy ``base``: each run of
     ``QUALITY_RUNS`` trained once per seed, then one ``link_pred`` as
     ``configs/uci.json`` gives it (ratios 0.5/0.3/0.2, C in 0.01-10, four
-    measures) over reps 0-2 on all of them; each run's mean Had AUC of the
-    last 4 dates, over seeds and reps, must reach its gate.  Returns the
-    method folders, the f32 CTGCN-C seed 0's first."""
+    measures) over reps 0-2 on all of them and on the folders of
+    ``dyn_methods`` (the uci_* paths' exports, seed 0, as configured);
+    each run's mean Had AUC of the last 4 dates, over seeds and reps, must
+    reach its gate (``DYN_AUC_GATES`` for the non-GNN methods; TIMERS' must
+    lie within ``TIMERS_AUC_TOL`` of the JAX package's).  The DynAE family
+    exports snapshots 2-6 only, so link_pred scores 4 dates of it, 6 of
+    the others.  Returns the method folders, the f32 CTGCN-C seed 0's
+    first."""
     import numpy as np
 
     from ctgcn_torch.evaluation.tables import read_table
@@ -2084,6 +2364,7 @@ def phase_quality(base, device):
     with open(ROOT / "configs" / "uci.json") as fp:
         conf = json.load(fp)
     runs, methods, train = {}, [], {}
+    dates = {}
     for label, method, change, epochs, gate in QUALITY_RUNS:
         for seed in QUALITY_SEEDS:
             name = f"{label}-s{seed}"
@@ -2095,18 +2376,27 @@ def phase_quality(base, device):
                            "final_loss": results[-1]["losses"][-1]}
             methods.append(name)
             runs.setdefault(label, (gate, epochs, []))[2].append(name)
+    for method in dyn_methods:
+        gate = (TIMERS_AUC_JAX - TIMERS_AUC_TOL if method == "TIMERS"
+                else DYN_AUC_GATES[method])
+        runs[method] = (gate, conf["embedding"][method].get("epoch"),
+                        [method])
+        # a snapshot's edges are scored with the embedding before it
+        dates[method] = len(os.listdir(base / "2.embedding" / method)) - 1
     lp = dict(conf["link_pred"], base_path=str(base), start_idx=0,
-              rep_num=QUALITY_REPS, method_list=methods, aggregate=True)
+              rep_num=QUALITY_REPS, method_list=methods + list(dyn_methods),
+              aggregate=True)
     timing = _cli({"_path": base / "link_pred.json", "link_pred": lp},
                   "link_pred", device)
     had, means = {}, {}
-    for name in methods:
+    for name in methods + list(dyn_methods):
         per_rep = []
         for i in range(QUALITY_REPS):
             header, cols = read_table(base / f"lp_res_{i}"
                                       / f"{name}_auc_record.csv", ",")
             vals = cols[header.index("Had")]
-            if len(vals) != 6 or not all(0.0 <= v <= 1.0 for v in vals):
+            if (len(vals) != dates.get(name, 6)
+                    or not all(0.0 <= v <= 1.0 for v in vals)):
                 raise AssertionError(f"{name} rep {i}: Had AUCs {vals}")
             per_rep.append(float(np.mean(vals[-4:])))
             means.setdefault(i, {})[name] = {
@@ -2114,11 +2404,13 @@ def phase_quality(base, device):
                 for m in lp["measure_list"]}
         had[name] = per_rep
     seed_means = {name: float(np.mean(v)) for name, v in had.items()}
+    refs = {**QUALITY_REFERENCES, **DYN_AUC_REFERENCES,
+            "TIMERS": TIMERS_AUC_REFERENCES}
     gates = {label: {"had_auc_mean": float(np.mean(
                          [seed_means[n] for n in names])),
                      "gate": gate, "epochs": epochs,
-                     **({"references": QUALITY_REFERENCES[label]}
-                        if label in QUALITY_REFERENCES else {})}
+                     **({"references": refs[label]} if label in refs
+                        else {})}
              for label, (gate, epochs, names) in runs.items()}
     _phase("quality", had_auc_last4_by_seed_and_rep=had,
            had_auc_by_seed=seed_means, gates=gates,
@@ -2130,6 +2422,12 @@ def phase_quality(base, device):
         if not g["had_auc_mean"] >= g["gate"]:
             raise AssertionError(f"{label}: Had AUC {g['had_auc_mean']:.4f}"
                                  f" below the gate {g['gate']}")
+    if "TIMERS" in gates and not (abs(gates["TIMERS"]["had_auc_mean"]
+                                      - TIMERS_AUC_JAX) <= TIMERS_AUC_TOL):
+        raise AssertionError(f"TIMERS: Had AUC "
+                             f"{gates['TIMERS']['had_auc_mean']:.5f} more "
+                             f"than {TIMERS_AUC_TOL} from the JAX "
+                             f"package's {TIMERS_AUC_JAX}")
     return methods
 
 
@@ -2423,6 +2721,22 @@ def main():
         variant("uci_pgnn", "uci", "PGNN", end_idx=1, epoch=EPOCHS)
         variant("aa_pgnn", "america_air", "PGNN", end_idx=0)
         variant("math_pgnn", "math10", "PGNN", end_idx=1, epoch=EPOCHS)
+        # the non-GNN baselines: UCI's entries as written (every window,
+        # 50 epochs: [quality] scores them), and window 0 of Math's and
+        # AS's (snapshot 000 for DynGEM, 000-003 for the others)
+        for name, data, method, change in (
+                ("uci_dyngem", "uci", "DynGEM", {}),
+                ("uci_dynae", "uci", "DynAE", {}),
+                ("uci_dynrnn", "uci", "DynRNN", {}),
+                ("uci_dynaernn", "uci", "DynAERNN", {}),
+                ("uci_timers", "uci", "TIMERS", {}),
+                ("math_dyngem", "math10", "DynGEM", {"end_idx": 0}),
+                ("math_dynae", "math10", "DynAE", {"end_idx": 3}),
+                ("math_dynaernn", "math10", "DynAERNN", {"end_idx": 3}),
+                ("as_dynrnn", "as", "DynRNN", {"end_idx": 3})):
+            if data != "uci":
+                change["epoch"] = EPOCHS
+            variant(name, data, method, **change)
 
         # 3. kernels at the paths' shapes, and small-model parity
         kernels = phase_kernels(cfgs["uci_pallas"][2], dev)
@@ -2446,11 +2760,13 @@ def main():
         phase_parity_vgrnn(dev)
         phase_parity_pgnn(dev)
         phase_parity_supervised(dev)
+        phase_parity_dyn(dev)
 
         # 4. the paths, counters set to 0 just before and read just after
         launches, results = {}, {}
         for path, (cfg, method, backend, kerns) in PATHS.items():
-            launches[path], results[path] = run_path(
+            run = run_timers_path if method == "TIMERS" else run_path
+            launches[path], results[path] = run(
                 path, cfgs[cfg], method, backend, kerns, dev)
         first = {p: results[p][0]["losses"][0]
                  for p in ("enron_bf16", "enron_highest")}
@@ -2470,6 +2786,8 @@ def main():
             phase_vgrnn_memory(path, cfgs[path][2], dev)
         for path in ("uci_pgnn", "aa_pgnn", "math_pgnn"):
             phase_pgnn(path, cfgs[path][2], dev)
+        for path in DYN_PROFILED:
+            phase_dyn(path, PATHS[path][1], cfgs[path][2], dev)
 
         # 5. model quality and the other evaluation tasks, counters set to
         # 0 just before and read just after (UCI and America-Air train on
@@ -2479,7 +2797,8 @@ def main():
         for name in KERNELS:
             getattr(B, name).launches = 0
         t0 = time.time()
-        methods = phase_quality(work / "uci", "cuda")
+        methods = phase_quality(work / "uci", "cuda",
+                                tuple(DYN_QUALITY_PATHS.values()))
         for path in SNODE_QUALITY:
             phase_quality_snode(work / "america_air", "cuda", path,
                                 results[path])

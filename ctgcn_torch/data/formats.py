@@ -102,27 +102,29 @@ def _header(d, sep):
     return sep + sep.join(str(j) for j in range(d)) + "\n"
 
 
-def format_embedding_rows(arr, names, sep="\t"):
+def format_embedding_rows(arr, names, sep="\t", dtype=np.float32):
     """Rows of an embedding CSV, each ending in a newline: the node name,
     then each value as the shortest string that reads back as the same
-    float32 (numpy's ``astype(str)``, e.g. ``1.7640524``, ``-0.0``,
-    ``1e-05``), what ``pandas.DataFrame.to_csv`` writes for a float32
-    frame."""
-    cells = np.asarray(arr, dtype=np.float32).astype(str)
+    value of ``dtype`` (numpy's ``astype(str)``, e.g. ``1.7640524``,
+    ``-0.0``, ``1e-05``), what ``pandas.DataFrame.to_csv`` writes for a
+    frame of that dtype (float32: the trainers' exports; float64:
+    TIMERS')."""
+    cells = np.asarray(arr, dtype=dtype).astype(str)
     return "".join(f"{name}{sep}{sep.join(row)}\n"
                    for name, row in zip(names, cells.tolist()))
 
 
-def write_embedding_csv(path, arr, names, sep="\t"):
+def write_embedding_csv(path, arr, names, sep="\t", dtype=np.float32):
     """[N, d] float array -> CSV with a header row of column numbers and
     the node name as the index, byte for byte what the JAX package's
-    ``pandas.DataFrame.to_csv`` writes for a float32 frame
+    ``pandas.DataFrame.to_csv`` writes for a frame of ``dtype``
     (:func:`format_embedding_rows`)."""
     with open(path, "w") as fp:
         fp.write(_header(arr.shape[1], sep))
         for s in range(0, arr.shape[0], CHUNK_ROWS):
             fp.write(format_embedding_rows(arr[s:s + CHUNK_ROWS],
-                                           names[s:s + CHUNK_ROWS], sep))
+                                           names[s:s + CHUNK_ROWS], sep,
+                                           dtype))
 
 
 def write_embedding_csvs(paths, arrays, names, sep="\t"):

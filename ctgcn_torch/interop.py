@@ -34,6 +34,12 @@ and ``VGRNN`` (``phi_x``, ``phi_z``, ``prior``, ``prior_mean``,
 ``dist_compute.linear{1,2}``, ``linear_hidden`` and
 ``linear_out_position``; ``linear_pre`` and ``conv_out`` are absent
 without ``feature_pre`` and at one layer) onto ``ctgcn_torch.nn.pgnn``.
+The non-GNN baselines' trees map as they are onto
+``ctgcn_torch.nn.dynae``: ``encoder.layers.<i>.{weight,bias}`` and
+``decoder.layers.<i>.*`` (DynGEM, DynAE; DynAERNN's decoder),
+``encoder.cells.<i>.{w_ih,w_hh,b_ih,b_hh}`` and ``decoder.cells.<i>.*``
+(DynRNN), ``ae_encoders.<t>.layers.<i>.*`` and
+``rnn_encoder.cells.<i>.*`` (DynAERNN).
 """
 from __future__ import annotations
 
@@ -55,8 +61,8 @@ def _flatten(tree, prefix=""):
 
 def params_from_numpy(tree):
     """JAX CTGCN / CGCN / MLPClassifier / EdgeClassifier / GCN / GIN / GAT
-    / SAGE / GCRN / EvolveGCN / VGRNN / PGNN parameter tree (nested dicts
-    of arrays) -> state_dict."""
+    / SAGE / GCRN / EvolveGCN / VGRNN / PGNN / DynGEM / DynAE / DynRNN /
+    DynAERNN parameter tree (nested dicts of arrays) -> state_dict."""
     state = {}
     for name, arr in _flatten(tree).items():
         head, _, rest = name.partition(".")

@@ -5,12 +5,15 @@
         [--method=<M>] [--device=cuda|cpu]
 
 Tasks: ``preprocessing`` (k-core pyramids and walk tables, on the native
-host-graph kernels), ``embedding`` (CGCN-C, CGCN-S, CTGCN-C and
-CTGCN-S under the config's learning type: U-neg, U-own for the
-S-variants, S-node, S-edge, S-link-st or S-link-dy; and the zoo's GCN,
-TgGCN, GIN, TgGIN, GAT, TgGAT, SAGE, TgSAGE, GCRN, EvolveGCN and VGRNN
-under U-neg, and VGRNN under U-own; other methods raise), and the five
-evaluation tasks ``link_pred``,
+host-graph kernels), ``embedding`` (every method the JAX package runs:
+CGCN-C, CGCN-S, CTGCN-C and CTGCN-S under the config's learning type,
+U-neg, U-own for the S-variants, S-node, S-edge, S-link-st or S-link-dy;
+the zoo's GCN, TgGCN, GIN, TgGIN, GAT, TgGAT, SAGE, TgSAGE, GCRN,
+EvolveGCN, VGRNN and PGNN under U-neg and the supervised types, and VGRNN
+under U-own; the non-GNN DynGEM, DynAE, DynRNN and DynAERNN, trained by
+``nn.dynae.dyngem_embedding``, and TIMERS, host linear algebra in
+``nn.timers.timers_embedding``), and the five evaluation tasks
+``link_pred``,
 ``node_cls``, ``edge_cls``, ``cent_pred`` and ``sim_pred``, whose fits,
 metrics and centralities run on the device.
 The device defaults to ``cuda``; without a GPU the run stops unless
@@ -23,7 +26,8 @@ import importlib
 import json
 import sys
 
-from ctgcn_torch.utils import get_supported_methods, resolve_device
+from ctgcn_torch.utils import (NON_GNN_METHODS, get_supported_methods,
+                               resolve_device)
 
 #: evaluation task -> (module, function) of ``ctgcn_torch.evaluation``
 EVAL_TASKS = {
@@ -53,7 +57,8 @@ def parse_args(argv):
 
 def main(argv=None):
     """Run one task; returns what the task returns (the embedding task:
-    one result dict per window; an evaluation task: its seconds)."""
+    one result dict per window, TIMERS' one per snapshot; an evaluation
+    task: its seconds)."""
     args = parse_args(argv if argv is not None else sys.argv[1:])
     device = resolve_device(args.device)
     with open(args.config[0]) as fp:
@@ -68,10 +73,18 @@ def main(argv=None):
     if args.task == "embedding":
         if args.method not in get_supported_methods():
             raise ValueError(f"unknown method {args.method!r}")
+        section = config[args.task][args.method]
+        if args.method == "TIMERS":
+            from ctgcn_torch.nn.timers import timers_embedding
+
+            return timers_embedding(section, device=device)
+        if args.method in NON_GNN_METHODS:
+            from ctgcn_torch.nn.dynae import dyngem_embedding
+
+            return dyngem_embedding(args.method, section, device=device)
         from ctgcn_torch.training.driver import gnn_embedding
 
-        return gnn_embedding(args.method, config[args.task][args.method],
-                             device=device)
+        return gnn_embedding(args.method, section, device=device)
     if args.task in EVAL_TASKS:
         module, fn = EVAL_TASKS[args.task]
         task = getattr(importlib.import_module(

@@ -143,9 +143,10 @@ MATMUL_PRECISIONS = ("highest", "high", "bf16")
 
 def _check_scope(method, args):
     if method not in PORTED_METHODS:
-        raise NotImplementedError(
-            f"method {method!r} is not ported yet (ROADMAP.md queue 1: "
-            "the model zoo)")
+        raise ValueError(
+            f"gnn_embedding runs {sorted(PORTED_METHODS)}, not {method!r} "
+            "(the non-GNN methods run through nn.dynae.dyngem_embedding and "
+            "nn.timers.timers_embedding)")
     lt = args["learning_type"]
     if lt not in LEARNING_TYPES:
         raise ValueError(f"learning_type {lt!r}, not one of "

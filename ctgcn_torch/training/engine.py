@@ -23,13 +23,16 @@ whose embeddings are exported.
 The optimizer is ``torch.optim.Adam(lr, weight_decay=wd)``: L2 added to
 the gradient before the moment updates, eps 1e-8 -- the same update as
 the JAX package's ``optax.chain(add_decayed_weights, scale_by_adam,
-scale(-lr))``.  Parameters are saved with ``torch.save(state_dict)``.
+scale(-lr))``.  Parameters are saved with ``torch.save(state_dict)``;
+``load_model_file`` reads them back and refuses a file that ``torch.save``
+did not write (the JAX package writes flax msgpack at the same path).
 """
 from __future__ import annotations
 
 import copy
 import os
 import time
+import zipfile
 
 import numpy as np
 import torch
@@ -52,6 +55,21 @@ def batch_matrix(node_num, batch_size, rng=None, shuffle=True):
     mask[:node_num] = True
     return (padded.reshape(batch_num, batch_size),
             mask.reshape(batch_num, batch_size))
+
+
+def load_model_file(model, path, device):
+    """Load the ``state_dict`` that ``torch.save`` wrote at ``path`` into
+    ``model``.  Raises ``ValueError`` naming ``path`` when the file is not
+    ``torch.save``'s zip archive: the JAX package saves flax msgpack at the
+    same ``<base>/<model_folder>/<model_file>``, which the port cannot
+    read, and it does not fall back to a fresh model."""
+    if not zipfile.is_zipfile(path):
+        raise ValueError(
+            f"{path} is not a model file that ctgcn_torch wrote (a "
+            "torch.save archive of a state_dict); the JAX package writes "
+            "flax msgpack at the same path: remove it, or set load_model to "
+            "false")
+    model.load_state_dict(torch.load(path, map_location=device))
 
 
 def make_optimizer(params, lr, weight_decay=0.0):
@@ -144,8 +162,7 @@ class UnsupervisedEmbedding(BaseEmbedding):
         model = self.model
         model_path = os.path.join(self.model_base_path, model_file or "")
         if load_model and model_file and os.path.exists(model_path):
-            model.load_state_dict(torch.load(model_path,
-                                             map_location=self.device))
+            load_model_file(model, model_path, self.device)
         # the training time includes the optimizer's construction (the
         # first one in a process imports much of torch lazily)
         st = time.time()
@@ -281,12 +298,10 @@ class SupervisedEmbedding(BaseEmbedding):
         model_path = os.path.join(self.model_base_path, model_file or "")
         cls_path = os.path.join(self.model_base_path, classifier_file or "")
         if load_model and model_file and os.path.exists(model_path):
-            model.load_state_dict(torch.load(model_path,
-                                             map_location=self.device))
+            load_model_file(model, model_path, self.device)
             if (cls is not None and classifier_file
                     and os.path.exists(cls_path)):
-                cls.load_state_dict(torch.load(cls_path,
-                                               map_location=self.device))
+                load_model_file(cls, cls_path, self.device)
         st = time.time()
         params = [p for m in self._modules() for p in m.parameters()
                   if p.requires_grad]

@@ -47,11 +47,11 @@ NON_GNN_METHODS = ("DynGEM", "DynAE", "DynRNN", "DynAERNN", "TIMERS")
 
 
 def get_supported_methods():
-    """Every method name the JAX package's CLI accepts.  The port runs the
-    CTGCN family (CGCN-C, CGCN-S, CTGCN-C, CTGCN-S) and, of the zoo, GCN,
-    TgGCN, GIN, TgGIN, GAT, TgGAT, SAGE, TgSAGE, GCRN, EvolveGCN and VGRNN
-    (``training.driver.PORTED_METHODS``); it raises
-    ``NotImplementedError`` for the others."""
+    """Every method name the JAX package's CLI accepts, all of which the
+    port runs: the CTGCN family and the zoo through
+    ``training.driver.gnn_embedding`` (``PORTED_METHODS``), DynGEM, DynAE,
+    DynRNN and DynAERNN through ``nn.dynae.dyngem_embedding`` and TIMERS
+    through ``nn.timers.timers_embedding``."""
     return dict.fromkeys(
         NON_GNN_METHODS + STATIC_GNN_METHODS + DYNAMIC_GNN_METHODS, 1)
 

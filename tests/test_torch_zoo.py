@@ -374,12 +374,14 @@ def _cli_run(dataset, tmp_path, method, **change):
 
 
 @pytest.mark.parametrize("method, change", [
-    ("DynGEM", {}), ("DynAE", {}), ("TIMERS", {}),
+    ("GCRN", {"n_devices": 2}), ("VGRNN", {"remat_policy": "save_spmm"}),
+    ("PGNN", {"profile_dir": "prof"}),
     ("GCN", {"remat_policy": "save_spmm"}), ("GCN", {"profile_dir": "prof"})])
 def test_unported_zoo_raises(dataset, tmp_path, method, change):
-    """Unported methods (the non-GNN ones), the ``remat_policy:
-    "save_spmm"`` knob and the ``profile_dir`` key (a trace directory,
-    which the JAX trainer writes) raise, naming ROADMAP.md."""
+    """The options not ported yet raise under any zoo method, naming
+    ROADMAP.md: ``n_devices`` above 1 (the multi-device paths), the
+    ``remat_policy: "save_spmm"`` knob and the ``profile_dir`` key (a
+    trace directory, which the JAX trainer writes)."""
     _, _, emb = dataset
     path = tmp_path / "cfg.json"
     path.write_text(json.dumps({"embedding": {
