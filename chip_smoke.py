@@ -166,6 +166,17 @@ Phases, one line each:
                 (D^-1/2 (A_bin + 2I) D^-1/2), both directions, d = 500 and
                 128, against the CSR plain version, then timed beside it,
                 ``torch.sparse.mm`` and the bound;
+     kernels_halo  the halo plans of Enron snapshot 000 at 4 parts
+                (``partition_pyramid_halo`` of its k-core pyramid and
+                ``partition_graph_halo`` of GCN's D^-1 (A + I)): the host
+                seconds, rpp, H, each part's local and remote nonzeros and
+                the bytes an exchange ships a part; on the card each
+                part's local and remote products at d = 500 and 128 (the
+                receive buffer assembled by index from the other parts'
+                rows) on the kernel ``dispatch`` gives them, their sum
+                against the unpartitioned product, and each part's kernel
+                ms beside its bound, the plain version and
+                ``torch.sparse.mm``;
      parity     small CTGCN-C models on BSR and on delta-ELL plans, forward
                 and gradients, kernels on the GPU against the plain versions
                 on the CPU, and one on f32 blocks at ``"high"`` (3xTF32);
@@ -193,6 +204,19 @@ Phases, one line each:
   4. paths      each path with the launch counters set to 0 just before it
                 and read just after (``PATHS``: the kernels each must launch,
                 every other must not), and Enron's bf16 / "highest" loss gap;
+     dist       an NCCL process group of world size 1 through the port's
+                ``parallel.dist.init_from_env`` (localhost, a free port):
+                UCI CTGCN-C (2 epochs) and GCN (window 0, 2 epochs, the
+                CTGCN-C entry's walk tables) through the CLI with
+                ``n_devices: 4`` and ``graph_partition: true`` (the halo
+                path on one part, a real ``all_to_all_single``; counters
+                set to 0 just before each and read just after): their
+                epoch losses against the same runs without those keys
+                (rtol 1e-4), and the halo path's export of the plain run's
+                trained model against the plain run's CSVs (rtol 1e-3,
+                atol 1e-4; the trained runs' CSV gap is reported beside
+                the plain run's own gap to a rerun: Adam magnifies a
+                rounding-level gradient's sign), epoch ms and peak memory;
      profile    an epoch's device time by kernel class (``torch.profiler``,
                 device activity only) on each path of ``PROFILED``;
      memory     what lives at a VGRNN epoch's peak on uci_vgrnn and
@@ -863,6 +887,309 @@ def phase_kernels_vgrnn(cfg, dev):
     widths = tuple(dict.fromkeys(_spmm_widths(args, B.D_ALIGN)))
     return _kernel_rows("kernels_vgrnn", plans, dev, widths,
                         reached=("bsr_spmm_rowwalk",))
+
+
+#: parts of the halo plans that [kernels_halo] measures at Enron
+HALO_PARTS = 4
+#: the keys that send a [dist] run down the partitioned path
+DIST_KEYS = {"n_devices": 4, "graph_partition": True}
+#: the runs of a [dist] path, in order (``phase_dist``)
+DIST_RUNS = ("plain", "rerun", "halo", "replay")
+
+
+def _kept_deltas(mats):
+    """A snapshot's delta slots, max core first, straight from scipy: each
+    core that differs from the one before it, minus the one kept before
+    it (slot 0 whole, without the +I)."""
+    kept = [m for j, m in enumerate(mats)
+            if j == 0 or abs(m - mats[j - 1]).sum() != 0]
+    return [kept[0]] + [kept[k] - kept[k - 1] for k in range(1, len(kept))]
+
+
+def _halo_rows(tag, what, plan_host, ref_mat, n_nodes, widths, dev):
+    """Each part of a halo plan (``PartitionedPyramid`` or
+    ``HaloPartitionedGraph``) on the card: its LOCAL product on its x rows
+    and its REMOTE product on the receive buffer, assembled here by index
+    from the other parts' rows, each by the kernel ``dispatch`` gives it;
+    their sum over the parts against the unpartitioned product of
+    ``ref_mat`` ([K·N, N] or [N, N] scipy, the plain CSR version); then
+    each part's kernel ms beside the bound, the plain version and
+    ``torch.sparse.mm``.  Returns the rows by kernel name."""
+    import torch
+
+    from ctgcn_torch.ops import bsr_spmm as B
+
+    parts = [plan_host.part(p).to(dev) for p in range(plan_host.parts)]
+    rpp, K = plan_host.rows_per_part, parts[0].num_slots
+    ref_plan = B.build_csr_plan(ref_mat).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x_all = torch.randn(plan_host.n_rows, max(widths), device=dev,
+                        generator=gen)
+    rows = {}
+    for dd in widths:
+        x = x_all[:, :dd].contiguous()
+        xs = x.split(rpp)
+        outs = []
+        for p, part in enumerate(parts):
+            recv = torch.cat([xs[q][parts[q].send[p]]
+                              for q in range(len(parts))]).contiguous()
+            local = B.dispatch(part.local_fwd)(part.local_fwd, xs[p])
+            remote = B.dispatch(part.remote_fwd)(part.remote_fwd, recv)
+            outs.append((local + remote).reshape(K, rpp, dd))
+            for side, plan, inp in (("local", part.local_fwd, xs[p]),
+                                    ("remote", part.remote_fwd, recv)):
+                kern = B.dispatch(plan)
+                bound = _bound(plan, dd)
+                csr = _plan_csr(plan)
+                row = {"plan": f"{what} part {p} {side}", "d": dd,
+                       "shape": [plan.n_rows, plan.n_cols, dd],
+                       "nnz": plan.nnz, "max_row_nnz": plan.max_row_nnz,
+                       "ms": _time_ms(lambda: kern(plan, inp)),
+                       "plain_ms": _time_ms(
+                           lambda: B.bsr_spmm_csr_plain(plan, inp),
+                           iters=5, warmup=1),
+                       "library_ms": _time_ms(
+                           lambda: torch.sparse.mm(csr, inp)),
+                       "bound_ms": bound["bound_ms"],
+                       "bound_by": bound["bound_by"]}
+                rows.setdefault(kern.__name__, []).append(row)
+                _phase(tag, kernel=kern.__name__, **row,
+                       library="torch.sparse.mm (CSR)")
+        got = torch.cat(outs, dim=1)[:, :n_nodes].reshape(-1, dd)
+        ref = B.bsr_spmm_csr_plain(ref_plan, x[:n_nodes])
+        err = _check_close(f"{tag} {what} d={dd} parts' sum", got, ref)
+        _phase(tag, check=f"{what} parts' sum against the unpartitioned "
+               "product", d=dd, max_abs_err=err,
+               tolerance=f"rtol {RTOL} + atol {ATOL_REL} * max|plain|")
+        for kern_rows in rows.values():
+            for row in kern_rows:
+                if row["d"] == dd:
+                    row["max_abs_err"] = err
+    return rows
+
+
+def phase_kernels_halo(cfg_core, cfg_gcn, dev):
+    """The halo plans of Enron snapshot 000 (N = 87,036) at ``HALO_PARTS``
+    parts: ``partition_pyramid_halo`` of its core pyramid (CTGCN-C's
+    ``graph_partition`` path) and ``partition_graph_halo`` of GCN's
+    D^-1 (A + I); the host seconds, rpp, H, each part's local and remote
+    nonzeros and the bytes a real exchange ships a part (P·H·d·4); then
+    every part's products on the card (``_halo_rows``) at d = 500 and 128.
+    Returns the rows by kernel name."""
+    import scipy.sparse as sp
+
+    from ctgcn_torch.ops import bsr_spmm as B
+    from ctgcn_torch.parallel.core_partition import partition_pyramid_halo
+    from ctgcn_torch.parallel.graph_partition import partition_graph_halo
+    from ctgcn_torch.training.driver import get_data_loader
+
+    rows = {}
+    widths = _spmm_widths(cfg_core, B.D_ALIGN)
+    for what, cfg in (("pyramid", cfg_core), ("gcn", cfg_gcn)):
+        args = dict(cfg)
+        loader = get_data_loader(args)
+        n = loader.node_num
+        if what == "pyramid":
+            mats = loader.get_core_scipy_list(args["core_base_path"], 0, 1,
+                                              max_core=args["max_core"])[0]
+            t0 = time.time()
+            plan = partition_pyramid_halo(mats, n, HALO_PARTS)
+            host_s = time.time() - t0
+            ref = sp.vstack([d.tocsr() for d in _kept_deltas(mats)]
+                            + [sp.csr_matrix((n, n))]
+                            * (plan.num_slots - int(plan.valid.sum())))
+        else:
+            ref = loader.get_scipy_adj_list(
+                args["origin_base_path"], 0, 1, normalize=True,
+                row_norm=True, add_eye=True)[0]
+            t0 = time.time()
+            plan = partition_graph_halo(ref, HALO_PARTS)
+            host_s = time.time() - t0
+        t0 = time.time()
+        host_parts = [plan.part(p) for p in range(plan.parts)]
+        _phase("kernels_halo", what=what, n_nodes=n, parts=plan.parts,
+               partition_host_seconds=host_s,
+               part_plans_host_seconds=time.time() - t0,
+               rows_per_part=plan.rows_per_part, halo_width=plan.halo_width,
+               num_slots=host_parts[0].num_slots,
+               local_nnz=[h.local_fwd.nnz for h in host_parts],
+               remote_nnz=[h.remote_fwd.nnz for h in host_parts],
+               exchange_bytes_per_part={
+                   dd: plan.parts * plan.halo_width * dd * 4
+                   for dd in widths},
+               dispatch=[[B.dispatch(h.local_fwd).__name__,
+                          B.dispatch(h.remote_fwd).__name__]
+                         for h in host_parts])
+        for name, kern_rows in _halo_rows("kernels_halo", what, plan, ref, n,
+                                          widths, dev).items():
+            rows.setdefault(name, []).extend(kern_rows)
+    return rows
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _csv_arrays(emb):
+    from ctgcn_torch.data.formats import read_embedding_csv
+
+    folder = Path(emb["base_path"]) / emb["embed_folder"]
+    return {f: read_embedding_csv(folder / f)[1]
+            for f in sorted(os.listdir(folder))}
+
+
+def _halo_kernels(method, cfg, snapshots):
+    """The kernels ``dispatch`` gives the one-part plans of the first
+    ``snapshots`` snapshots of ``cfg`` as one window (what the [dist] path
+    must launch)."""
+    from ctgcn_torch.ops import bsr_spmm as B
+    from ctgcn_torch.parallel.dist import Parts
+    from ctgcn_torch.training.driver import _halo_adjacency, get_data_loader
+
+    args = dict(cfg)
+    loader = get_data_loader(args)
+    hparts = _halo_adjacency(method, 0, snapshots, loader, args,
+                             Parts(1, 0))
+    return sorted({B.dispatch(p).__name__ for h in hparts
+                   for p in (h.local_fwd, h.local_t, h.remote_fwd,
+                             h.remote_t)})
+
+
+def _csv_gap(got, ref):
+    """(max abs difference, share of elements beyond rtol 1e-3 / atol
+    1e-4) between two runs' CSVs."""
+    import numpy as np
+
+    if list(got) != list(ref) or not ref:
+        raise AssertionError(f"CSVs {list(got)} against {list(ref)}")
+    diffs = [np.abs(got[f] - ref[f]) for f in ref]
+    beyond = [~np.isclose(got[f], ref[f], rtol=1e-3, atol=1e-4) for f in ref]
+    return (max(float(d.max()) for d in diffs),
+            float(np.mean(np.concatenate([b.ravel() for b in beyond]))))
+
+
+def _weight_gaps(emb_a, emb_b):
+    """How two runs' trained model files differ: the weights, those more
+    than the learning rate apart (a step of Adam's that went the other
+    way), and the largest gap among the rest."""
+    import torch
+
+    def load(emb):
+        folder = Path(emb["base_path"]) / emb["model_folder"]
+        return torch.load(folder / emb["model_file"], map_location="cpu")
+
+    a, b = load(emb_a), load(emb_b)
+    if list(a) != list(b):
+        raise AssertionError(f"model files' keys {list(a)} / {list(b)}")
+    gaps = torch.cat([(a[k] - b[k]).abs().reshape(-1) for k in a])
+    apart = gaps > emb_a["lr"]
+    return {"weights": int(gaps.numel()),
+            "weights_more_than_lr_apart": int(apart.sum()),
+            "max_gap_of_other_weights": float(gaps[~apart].max())}
+
+
+def phase_dist(runs, dev):
+    """The CLI's partitioned path on an NCCL process group of world size
+    1, joined through the port's own ``init_from_env`` (localhost, a free
+    port).  Each of ``runs`` is (path, method, the snapshots it covers,
+    and the configs "plain", "rerun" (the plain run again), "halo"
+    (``DIST_KEYS`` added) and "replay" (the halo path, 0 epochs, loading
+    the plain run's model file)); each config runs through the CLI with
+    the launch counters set to 0 just before and read just after.  The halo run takes the partitioned path
+    on one part with a real ``all_to_all_single``: its epoch losses must
+    lie within 1e-4 of the plain run's.  Its CSVs after training are
+    reported beside the plain run's but not held to them: Adam's first
+    step moves every parameter by lr whatever its gradient's size, so a
+    gradient that rounding puts on either side of 0 moves a weight by 2·lr
+    between two runs that differ only in summation order, and at UCI's
+    full width some exported values then differ by more than rtol 1e-3.
+    Beside that gap are reported the rerun's (the same path twice) and the
+    weights of the two trained model files that lie more than lr apart
+    (the flipped steps) against the largest gap of the rest.  The replay's
+    CSVs, the halo path's export of the plain run's trained model, are
+    held to the plain run's at rtol 1e-3 / atol 1e-4.  Returns the
+    launches by path (the halo runs)."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from ctgcn_torch.parallel.dist import init_from_env
+
+    env = dict(MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()),
+               RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    launches = {}
+    try:
+        if not init_from_env(dev):
+            raise AssertionError("init_from_env did not start a group")
+        if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+            raise AssertionError(f"group {dist.get_backend()} of "
+                                 f"{dist.get_world_size()}")
+        _phase("dist", backend=dist.get_backend(),
+               world_size=dist.get_world_size(), port=env["MASTER_PORT"])
+        for path, method, snapshots, cfgs in runs:
+            want = _halo_kernels(method, cfgs["halo"][2], snapshots)
+            out, losses = {}, {}
+            for tag in DIST_RUNS:
+                cfg = cfgs[tag]
+                res, wall, counts, peak = _run_cli_counted(cfg[0], method,
+                                                           dev)
+                ran = sorted(k for k, v in counts.items() if v)
+                if ran != ([] if tag in ("plain", "rerun") else want):
+                    raise AssertionError(f"{path} {tag}: launched {counts}")
+                if tag in ("halo", "replay") and [(r["parts"],
+                                                   r["core_backend"])
+                                       for r in res] != [(1, "halo")] * len(
+                                           res):
+                    raise AssertionError(f"{path} {tag}: {res}")
+                losses[tag] = [l for r in res for l in r["losses"]]
+                if not np.isfinite(losses[tag]).all():
+                    raise AssertionError(f"{path} {tag}: losses "
+                                         f"{losses[tag]}")
+                out[tag] = _csv_arrays(cfg[2])
+                _phase("dist", path=path, run=tag, method=method,
+                       windows=len(res), seconds=wall,
+                       epoch_ms=[[1e3 * e for e in r["epoch_seconds"]]
+                                 for r in res],
+                       losses=losses[tag], launches=counts,
+                       max_memory_allocated=peak)
+                if tag == "halo":
+                    launches[path] = counts
+            np.testing.assert_allclose(losses["halo"], losses["plain"],
+                                       rtol=1e-4, err_msg=f"{path} losses")
+            trained = _csv_gap(out["halo"], out["plain"])
+            rerun = _csv_gap(out["rerun"], out["plain"])
+            weights = _weight_gaps(cfgs["plain"][2], cfgs["halo"][2])
+            replay = _csv_gap(out["replay"], out["plain"])
+            for f in out["plain"]:
+                np.testing.assert_allclose(out["replay"][f], out["plain"][f],
+                                           rtol=1e-3, atol=1e-4,
+                                           err_msg=f"{path} replay {f}")
+            _phase("dist", path=path, check="halo runs against the plain "
+                   "run", csvs=len(out["plain"]),
+                   loss_max_rel_gap=max(
+                       abs(a - b) / abs(b)
+                       for a, b in zip(losses["halo"], losses["plain"])),
+                   trained_csv_max_abs_gap=trained[0],
+                   trained_csv_share_beyond_tolerance=trained[1],
+                   rerun_csv_max_abs_gap=rerun[0],
+                   rerun_csv_share_beyond_tolerance=rerun[1], **weights,
+                   replay_csv_max_abs_err=replay[0],
+                   tolerance="losses rtol 1e-4; replay CSVs rtol 1e-3, "
+                             "atol 1e-4")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return launches
 
 
 def _check_bf16(name, got, ref_f32, out_dtype):
@@ -2738,6 +3065,28 @@ def main():
                 change["epoch"] = EPOCHS
             variant(name, data, method, **change)
 
+        # the partitioned path on one part (phase_dist): UCI CTGCN-C and GCN
+        # (window 0; the CTGCN-C entry's walk tables), 2 epochs, with and
+        # without n_devices: 4 and graph_partition: true, and the halo
+        # path's export (0 epochs) of the plain run's model file
+        walks = {k: cfgs["uci"][2][k]
+                 for k in ("walk_pair_folder", "node_freq_folder")}
+        dist_runs = []
+        for method, change, snapshots in (
+                ("CTGCN-C", {}, 7), ("GCN", dict(end_idx=0, **walks), 1)):
+            path = f"dist_{method.lower().replace('-', '_')}"
+            for tag, keys in (
+                    ("plain", {}), ("rerun", {}), ("halo", DIST_KEYS),
+                    ("replay", dict(DIST_KEYS, epoch=0, load_model=True,
+                                    model_file=f"{path}_plain"))):
+                keys = dict(dict(epoch=2, model_file=f"{path}_{tag}"),
+                            **keys)
+                variant(f"{path}_{tag}", "uci", method, record_time=False,
+                        embed_folder=f"2.embedding/{path}_{tag}", **change,
+                        **keys)
+            dist_runs.append((path, method, snapshots, {
+                tag: cfgs[f"{path}_{tag}"] for tag in DIST_RUNS}))
+
         # 3. kernels at the paths' shapes, and small-model parity
         kernels = phase_kernels(cfgs["uci_pallas"][2], dev)
         kernels_ell, as_plans = phase_kernels_ell(cfgs["as"][2], dev)
@@ -2753,6 +3102,8 @@ def main():
             {"enron": (cfgs["enron_gat"][2], "GAT"),
              "math": (cfgs["math_tggat"][2], "TgGAT")}, dev)
         kernels_vgrnn = phase_kernels_vgrnn(cfgs["math_vgrnn"][2], dev)
+        kernels_halo = phase_kernels_halo(cfgs["enron"][2],
+                                          cfgs["enron_gcn"][2], dev)
         phase_parity(dev)
         phase_parity_zoo(dev)
         phase_parity_attn(dev)
@@ -2778,6 +3129,7 @@ def main():
         if not gap < ENRON_LOSS_GAP:
             raise AssertionError(f"Enron first-epoch loss: bf16 against "
                                  f"highest {gap:.3e} apart")
+        launches.update(phase_dist(dist_runs, dev))
         # where an epoch's time goes (after the counted runs)
         for path, epochs in PROFILED.items():
             cfg, method = PATHS[path][:2]
@@ -2821,10 +3173,12 @@ def main():
                     "zoo_sym": kernels_zoo_sym[name]}
             if name in kernels_vgrnn:
                 rows["zoo_vgrnn"] = kernels_vgrnn[name]
+            rows["halo"] = kernels_halo.get(name, [])
             status = ("matches its plain versions, launched on the pallas "
                       "and ELL paths and on the zoo's plans, with the "
                       "plans' values (EvolveGCN's and VGRNN's symmetric "
-                      "ones too) and with GAT's per-step values")
+                      "ones too) and with GAT's per-step values, and on "
+                      "the halo paths' part plans")
         else:
             rows = kernels_bf16[name]
             status = ("matches its plain version (bf16 and f32 out), "

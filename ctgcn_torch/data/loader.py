@@ -215,7 +215,8 @@ class DataLoader:
     def get_core_adj_list(self, core_base_path, start_idx, duration,
                           max_core=-1, core_backend="auto",
                           dense_budget_bytes=4 << 30, allow_blocks=True,
-                          dense_dtype=None, dense_prec="highest"):
+                          dense_dtype=None, dense_prec="highest",
+                          keep=None):
         """The window's k-core pyramids as one stacked host ``CorePyramid``:
         K = the window's largest core count, +I on slot 0, delta-skip as
         ``valid``, the slot products on ``core_backend``.
@@ -233,7 +234,11 @@ class DataLoader:
         ``dense_dtype`` (``torch.bfloat16`` for the config's
         ``matmul_precision: "bf16"``) stores the dense bank and the blocks
         in bf16 and makes the ELL plans gather in bf16; ``dense_prec``
-        ("highest" or "high") is the GEMM precision of an f32 bank."""
+        ("highest" or "high") is the GEMM precision of an f32 bank.
+
+        ``keep`` (a range of the window's snapshots; default all) builds
+        only those, with the K and the backend chosen over the whole window
+        (a part's timesteps under time sharding)."""
         if core_backend not in CORE_BACKENDS:
             raise ValueError(f"unknown core_backend {core_backend!r}")
         per_snap = self.get_core_scipy_list(core_base_path, start_idx,
@@ -248,6 +253,8 @@ class DataLoader:
             core_backend = (("blocks" if allow_blocks else "dense") if fits
                             else "ell")
         bank = {"dense_dtype": dense_dtype, "dense_prec": dense_prec}
+        if keep is not None:
+            per_snap = [per_snap[t] for t in keep]
         pyramids = [
             build_core_pyramid(mats, self.node_num, num_slots=num_slots,
                                densify=core_backend == "dense",

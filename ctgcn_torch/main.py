@@ -18,6 +18,13 @@ under U-own; the non-GNN DynGEM, DynAE, DynRNN and DynAERNN, trained by
 metrics and centralities run on the device.
 The device defaults to ``cuda``; without a GPU the run stops unless
 ``--device cpu`` is given.
+
+Under ``torchrun`` (one process a GPU; WORLD_SIZE and the rest in the
+environment) the process group is initialized at entry (NCCL, or gloo with
+``--device cpu``) and ``cuda`` means ``cuda:LOCAL_RANK``.  The CTGCN family
+and the zoo split the embedding task's windows over the ranks as the
+config's ``n_devices`` / ``graph_partition`` say (``training.driver``);
+every other task, and the non-GNN methods, run on rank 0 alone.
 """
 from __future__ import annotations
 
@@ -26,6 +33,9 @@ import importlib
 import json
 import sys
 
+import torch.distributed as dist
+
+from ctgcn_torch.parallel.dist import init_from_env, is_primary
 from ctgcn_torch.utils import (NON_GNN_METHODS, get_supported_methods,
                                resolve_device)
 
@@ -61,11 +71,24 @@ def main(argv=None):
     task: its seconds)."""
     args = parse_args(argv if argv is not None else sys.argv[1:])
     device = resolve_device(args.device)
+    started = init_from_env(device)
+    try:
+        return _run(args, device)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _run(args, device):
     with open(args.config[0]) as fp:
         config = json.load(fp)
     if args.task in ("preprocessing", "embedding") and args.method is None:
         raise AttributeError(
             f"method parameter is needed for the {args.task} task!")
+    split = (args.task == "embedding"
+             and args.method not in NON_GNN_METHODS)
+    if not (split or is_primary()):
+        return None
     if args.task == "preprocessing":
         from ctgcn_torch.preprocessing import preprocess
 

@@ -82,6 +82,16 @@ the link splits, in the order the JAX package draws them from the global
 ``np.random``; the classifier's parameters come from a generator seeded
 with the window's seed + 1000.
 
+Several parts (``parallel/``, under ``torchrun``): the config's
+``n_devices`` (> 1) splits a window over min(n_devices, world size)
+processes.  With ``graph_partition`` the family and GCN / TgGCN split each
+snapshot's rows (the halo paths); without it the family's windows split
+over time, the part count clamped to a divisor of T (the JAX driver's
+notice when none is left).  With one part the run is the single-device
+run.  A rank past the part count builds the window's draws (to keep its
+generators in step) and waits.  ``temporal_pipeline``, the zoo's time
+sharding and the supervised types under several parts raise.
+
 The JAX driver's memory knobs, which it reads from ``CTGCN_TPU_*``
 environment variables, reach the model as constructor arguments here:
 ``layer_remat`` from the config, as in the JAX driver, and the byte
@@ -115,6 +125,13 @@ from ctgcn_torch.nn.sage import SAGE
 from ctgcn_torch.nn.vgrnn import VGRNN
 from ctgcn_torch.ops.neighbors import neighbor_table_from_scipy
 from ctgcn_torch.ops.rnn import CVJP_BATCH_BUDGET
+from ctgcn_torch.parallel import dist as pdist
+from ctgcn_torch.parallel.core_partition import (halo_core_forward,
+                                                 partition_pyramid_halo)
+from ctgcn_torch.parallel.graph_partition import (halo_gcn_forward,
+                                                  partition_graph_halo)
+from ctgcn_torch.parallel.mesh import (Sharding, shard_time, time_chunk,
+                                       time_sharded_forward)
 from ctgcn_torch.training.engine import (SupervisedEmbedding,
                                          UnsupervisedEmbedding)
 from ctgcn_torch.training.splits import (binary_auc, build_label_splits,
@@ -136,12 +153,18 @@ U_OWN_METHODS = S_VARIANTS + ("VGRNN",)
 #: the methods whose features are drawn from the degrees when the config
 #: names no feature files
 DEGREE_FEATURE_METHODS = S_VARIANTS + ("EvolveGCN",)
+#: the CTGCN family
+FAMILY = ("CGCN-C", "CGCN-S", "CTGCN-C", "CTGCN-S")
+#: the methods that ``graph_partition`` splits by rows
+PARTITIONED_METHODS = FAMILY + ("GCN", "TgGCN")
 SUPERVISED_TYPES = ("S-node", "S-edge", "S-link-st", "S-link-dy")
 LEARNING_TYPES = ("U-neg", "U-own") + SUPERVISED_TYPES
 MATMUL_PRECISIONS = ("highest", "high", "bf16")
 
 
-def _check_scope(method, args):
+def _check_scope(method, args, world_size=None):
+    """Raise for what the port does not run; ``world_size`` (the process
+    group's by default) decides whether more than one part would run."""
     if method not in PORTED_METHODS:
         raise ValueError(
             f"gnn_embedding runs {sorted(PORTED_METHODS)}, not {method!r} "
@@ -162,10 +185,24 @@ def _check_scope(method, args):
         raise NotImplementedError(
             "remat_policy 'save_spmm' is not ported yet; only 'full' "
             "(ROADMAP.md queue 1: CoreDiffusion's memory knobs)")
-    if args.get("n_devices", 0) > 1:
-        raise NotImplementedError(
-            "multi-device runs are not ported yet (ROADMAP.md queue 1: "
-            "multi-device)")
+    world = pdist.world_size() if world_size is None else world_size
+    if min(args.get("n_devices") or 1, world) > 1:
+        where = "(ROADMAP.md queue 1 item 4: multi-device)"
+        partitioned = (args.get("graph_partition", False)
+                       and method in PARTITIONED_METHODS)
+        if lt in SUPERVISED_TYPES:
+            raise NotImplementedError(
+                f"the supervised learning types over several parts are not "
+                f"ported yet {where}")
+        if not partitioned and method in ZOO_METHODS:
+            raise NotImplementedError(
+                f"time sharding of the zoo ({method}) is not ported yet "
+                f"{where}")
+        if (not partitioned and args.get("temporal_pipeline", False)
+                and method in ("CTGCN-C", "CTGCN-S")):
+            raise NotImplementedError(
+                f"temporal_pipeline (GPipe over time) is not ported yet "
+                f"{where}")
     prec = args.get("matmul_precision", "highest")
     if prec not in MATMUL_PRECISIONS:
         raise ValueError(f"matmul_precision {prec!r}, not one of "
@@ -246,8 +283,31 @@ def _vgrnn_adjacency(idx, time_length, data_loader, args):
                 adj_backend=args.get("adj_backend", "auto")))
 
 
+def _halo_adjacency(method, idx, time_length, data_loader, args, parts):
+    """This part's ``HaloPart`` of each snapshot: the family's delta
+    pyramid slots (K the window's), or GCN's D^-1 (A + I) / TgGCN's raw A,
+    partitioned over ``parts.count`` on the host."""
+    n = data_loader.node_num
+    if method in FAMILY:
+        per_snap = data_loader.get_core_scipy_list(
+            args["core_base_path"], idx, time_length,
+            max_core=args.get("max_core", -1))
+        num_slots = max(len(m) for m in per_snap)
+        plans = [partition_pyramid_halo(mats, n, parts.count,
+                                        num_slots=num_slots)
+                 for mats in per_snap]
+    else:
+        norm = method == "GCN"
+        mats = data_loader.get_scipy_adj_list(
+            args["origin_base_path"], idx, time_length,
+            sep=args.get("file_sep", "\t"), normalize=norm, row_norm=norm,
+            add_eye=norm)
+        plans = [partition_graph_halo(m, parts.count) for m in mats]
+    return tuple(p.part(parts.index) for p in plans)
+
+
 def get_input_data(method, idx, time_length, data_loader: DataLoader, args,
-                   rng=None, device=None):
+                   rng=None, device=None, layout=None):
     """(input_dim, data) for one window on the host: ``data["adjs"]`` is
     the stacked ``CorePyramid`` of the family, or the zoo's ``SparseGraph``
     per snapshot (with ``data["neighbor_data"]``; VGRNN's target, and its
@@ -259,9 +319,22 @@ def get_input_data(method, idx, time_length, data_loader: DataLoader, args,
     / bf16 blocks / bf16 ELL gathers, "high" 3xTF32 GEMMs on an f32 bank.
     xs is None (identity features, never materialized), the files under
     ``nfeature_folder``, or, for CGCN-S, CTGCN-S and EvolveGCN without
-    them, degree features drawn from ``rng`` (a numpy ``RandomState``)."""
+    them, degree features drawn from ``rng`` (a numpy ``RandomState``).
+
+    ``layout`` (``make_layout``'s): "graph" gives this part's halo plans
+    (``data["halo_adjs"]``, no ``data["adjs"]``); "time" this part's
+    timesteps of the pyramids and of xs; a rank without a part gets only
+    xs (its draws)."""
+    kind, parts = layout if layout is not None else (None, None)
+    if parts is not None and parts.index is None:
+        kind = "idle"
     data = {}
-    if method == "PGNN":
+    if kind == "idle":
+        pass
+    elif kind == "graph":
+        data["halo_adjs"] = _halo_adjacency(method, idx, time_length,
+                                            data_loader, args, parts)
+    elif method == "PGNN":
         edge_list = data_loader.get_edge_list(
             args["origin_base_path"], idx, time_length,
             sep=args.get("file_sep", "\t"))
@@ -282,7 +355,9 @@ def get_input_data(method, idx, time_length, data_loader: DataLoader, args,
             core_backend=args.get("core_backend", "auto"),
             dense_budget_bytes=args.get("dense_budget_bytes", 4 << 30),
             dense_dtype=torch.bfloat16 if prec == "bf16" else None,
-            dense_prec="high" if prec == "high" else "highest")
+            dense_prec="high" if prec == "high" else "highest",
+            keep=(range(*time_chunk(parts, time_length)) if kind == "time"
+                  else None))
     sep = args.get("file_sep", "\t")
     if method in DEGREE_FEATURE_METHODS and args.get("nfeature_path") is None:
         data["xs"], input_dim = data_loader.get_degree_feature_list(
@@ -291,7 +366,42 @@ def get_input_data(method, idx, time_length, data_loader: DataLoader, args,
     else:
         data["xs"], input_dim = data_loader.get_feature_list(
             args.get("nfeature_path"), idx, time_length, sep=sep)
+    if kind == "time" and data["xs"] is not None:
+        lo, hi = time_chunk(parts, time_length)
+        data["xs"] = data["xs"][lo:hi]
     return input_dim, data
+
+
+def _make_product_mesh(args, time_length, world_size):
+    """The number of time parts for the config's ``n_devices``: min(n,
+    world size) clamped to the largest divisor of the window's T (UCI's
+    T = 7 on 8 GPUs uses 7); 1 (single-device) when n is absent or 1, or
+    when no divisor above 1 is left, with the JAX driver's notice."""
+    n = args.get("n_devices", 0)
+    if not n or n <= 1:
+        return 1
+    n = min(n, world_size)
+    while n > 1 and time_length % n != 0:
+        n -= 1
+    if n <= 1:
+        print(f"n_devices: no divisor of T={time_length} in range; "
+              f"running single-device")
+    return max(n, 1)
+
+
+def make_layout(method, args, time_length, groups=None):
+    """(kind, ``Parts``) of a window: ("graph", P) for ``graph_partition``
+    on the family and GCN / TgGCN (P = min(n_devices, world size)), ("time",
+    P) for the family's time sharding, (None, 1 part) for the
+    single-device run.  Every rank calls this (it may make a subgroup);
+    ``groups`` caches them across windows."""
+    world = pdist.world_size()
+    n = args.get("n_devices", 0) or 0
+    if (args.get("graph_partition", False) and n > 1
+            and method in PARTITIONED_METHODS):
+        return "graph", pdist.make_parts(min(n, world), groups)
+    count = _make_product_mesh(args, time_length, world)
+    return ("time" if count > 1 else None), pdist.make_parts(count, groups)
 
 
 def _data_to(data, device):
@@ -311,6 +421,8 @@ def _adj_backend(data):
     proximity matrices)."""
     if "pgnn_dists" in data:
         return "dense"
+    if "halo_adjs" in data:
+        return "halo"
     adjs = data.get("vgrnn_adjs", data["adjs"])
     return adjs[0].backend if isinstance(adjs, tuple) else adjs.backend
 
@@ -416,13 +528,32 @@ def _pgnn_forward(model, data, generator=None, anchor_sets=None):
                  generator=generator)
 
 
-def make_forward(method):
+def make_forward(method, layout=None, node_num=None):
     """(model, data, generator=None) -> embeddings of ``method`` (VGRNN's
     forward also takes ``hx`` and returns more, ``_vgrnn_forward``); the
     zoo draws its dropout masks (SAGE its samples, EvolveGCN its rrelu
     slopes, VGRNN its noise, PGNN its anchors) from ``generator``: without
     one GCN, GIN, GAT and GCRN drop nothing, EvolveGCN takes rrelu's mean
-    slope, and SAGE, VGRNN and PGNN draw from a generator seeded 0."""
+    slope, and SAGE, VGRNN and PGNN draw from a generator seeded 0.
+
+    ``layout`` "graph" gives the halo forwards over ``data["halo_adjs"]``
+    (``node_num`` nodes), "time" the time-sharded forward."""
+    kind, parts = layout if layout is not None else (None, None)
+    if kind == "graph" and method in FAMILY:
+        def fwd(model, data, generator=None):
+            return halo_core_forward(model, data["xs"], data["halo_adjs"],
+                                     node_num, parts)
+        return fwd
+    if kind == "graph":
+        def fwd(model, data, generator=None):
+            return halo_gcn_forward(model, data["xs"], data["halo_adjs"],
+                                    node_num, parts, generator=generator)
+        return fwd
+    if kind == "time":
+        def fwd(model, data, generator=None):
+            return time_sharded_forward(model, data["xs"], data["adjs"],
+                                        parts)
+        return fwd
     cls = PORTED_METHODS[method]
     if cls in (GCN, GAT, GCRN, EvolveGCN):
         return _adj_forward
@@ -490,17 +621,22 @@ def _embed_fn_stateful(fwd):
     return embed
 
 
-def _recon_loss_fn(model, data, b_idx, b_mask, generator):
+def _recon_loss_fn(fwd):
     """U-own: the S-variants' reconstruction loss on the batch rows."""
-    del generator
-    embs, trans = model(data["xs"], data["adjs"])
-    return reconstruction_loss(embs, trans, b_idx, b_mask)
+    def loss_fn(model, data, b_idx, b_mask, generator):
+        embs, trans = fwd(model, data, generator)
+        return reconstruction_loss(embs, trans, b_idx, b_mask)
+
+    return loss_fn
 
 
-def _embed_trans(model, data):
+def _embed_trans(fwd):
     """The exported embedding of an S-variant: its structure embedding (the
     MLP output), as the JAX driver exports it."""
-    return model(data["xs"], data["adjs"])[1]
+    def embed(model, data):
+        return fwd(model, data)[1]
+
+    return embed
 
 
 def _head(learning_type):
@@ -565,7 +701,7 @@ def _supervised_loss(method, eps=1e-10):
 
 
 def _supervised_parts(method, args, data_loader, idx, time_length, rng,
-                      seed):
+                      seed, layout=None):
     """(classifier, forward_fn, loss_fn, auc_fn, host splits) of the
     config's supervised learning type for one window; the classifier's
     parameters come from a generator seeded ``seed + 1000``, the link
@@ -601,7 +737,7 @@ def _supervised_parts(method, args, data_loader, idx, time_length, rng,
         splits = build_link_splits(edge_list, data_loader.node_num, *ratios,
                                    lt, rng)
         auc_fn = binary_auc
-    fwd = make_forward(method)
+    fwd = make_forward(method, layout, data_loader.node_num)
     forward_fn = (_vgrnn_supervised_forward(fwd, lt) if method == "VGRNN"
                   else _supervised_forward(fwd, lt, method in S_VARIANTS))
     return (classifier, forward_fn,
@@ -609,25 +745,33 @@ def _supervised_parts(method, args, data_loader, idx, time_length, rng,
 
 
 def build_trainer(method, args, data_loader, idx, time_length, device,
-                  generator, rng=None, seed=0):
+                  generator, rng=None, seed=0, layout=None):
     """The window's inputs on ``device``, a fresh model drawn from
     ``generator``, and the trainer of the config's learning type over
     them.  ``rng`` (numpy ``RandomState``, by default one seeded with
     ``seed``) draws the degree features, then the link splits; ``seed`` is
     the window's (it seeds the classifier).  A supervised trainer carries
-    the seconds its splits took to build as ``split_seconds``."""
+    the seconds its splits took to build as ``split_seconds``.
+
+    ``layout`` (``make_layout``'s) splits the window over parts; a rank
+    without a part draws what the others draw and gets None."""
     base_path = args["base_path"]
     rng = rng if rng is not None else np.random.RandomState(seed)
     input_dim, data = get_input_data(method, idx, time_length, data_loader,
-                                     args, rng=rng, device=device)
+                                     args, rng=rng, device=device,
+                                     layout=layout)
     args["input_dim"] = input_dim
+    kind, parts = layout if layout is not None else (None, None)
+    if parts is not None and parts.index is None:
+        get_gnn_model(method, time_length, args, generator)
+        return None
     data = _data_to(data, device)
     s_variant = method in S_VARIANTS
     vgrnn = method == "VGRNN"
     lt = args["learning_type"]
-    fwd = make_forward(method)
+    fwd = make_forward(method, layout, data_loader.node_num)
     if s_variant:
-        embed_fn = _embed_trans
+        embed_fn = _embed_trans(fwd)
     elif vgrnn:
         def embed_fn(model, data):
             return fwd(model, data)[0]
@@ -643,7 +787,7 @@ def build_trainer(method, args, data_loader, idx, time_length, device,
     if lt in SUPERVISED_TYPES:
         t0 = time.time()
         classifier, forward_fn, loss_fn, auc_fn, splits = _supervised_parts(
-            method, args, data_loader, idx, time_length, rng, seed)
+            method, args, data_loader, idx, time_length, rng, seed, layout)
         split_seconds = time.time() - t0
         model = get_gnn_model(method, time_length, args, generator).to(device)
         trainer = SupervisedEmbedding(
@@ -668,12 +812,17 @@ def build_trainer(method, args, data_loader, idx, time_length, device,
     elif vgrnn:
         loss_fn = _vae_loss_fn_stateful(fwd, args.get("eps", 1e-10))
     else:
-        loss_fn = _recon_loss_fn
+        loss_fn = _recon_loss_fn(fwd)
     if vgrnn:
         common.update(state_init=_vgrnn_state_init,
                       embed_state_fn=_embed_fn_stateful(fwd))
-    model = get_gnn_model(method, time_length, args, generator).to(device)
-    return UnsupervisedEmbedding(model=model, loss_fn=loss_fn, **common)
+    model = get_gnn_model(method, time_length, args, generator)
+    if kind == "time":
+        shard_time(model, parts, time_length)
+    sharding = (None if kind is None
+                else Sharding(parts, kind, time_length=time_length))
+    return UnsupervisedEmbedding(model=model.to(device), loss_fn=loss_fn,
+                                 sharding=sharding, **common)
 
 
 def gnn_embedding(method, args, device="cuda"):
@@ -682,8 +831,9 @@ def gnn_embedding(method, args, device="cuda"):
     Returns one dict per window: ``idx``, ``time_length``,
     ``setup_seconds`` (loading the window and building its model, on the
     host clock; for the supervised types ``split_seconds`` of it built the
-    splits), ``core_backend`` and what the trainer's ``learn_embedding``
-    returns.
+    splits), ``core_backend`` ("halo" on the halo paths), ``parts`` (the
+    window's part count; ``idle`` on a rank without a part, which returns
+    nothing else) and what the trainer's ``learn_embedding`` returns.
 
     On the card the GEMMs run in full FP32: TF32 is turned off for the run
     and the caller's setting restored after it (``matmul_precision:
@@ -736,13 +886,21 @@ def _run_windows(method, args, dev):
     # degree features and link splits: the JAX driver draws them from the
     # unseeded global np.random; here one stream from the config's seed
     rng = np.random.RandomState(seed)
+    groups = {}
     for widx, idx in enumerate(range(start_idx, end_idx, step)):
         print(f"idx = {idx}, duration = {duration}")
         time_length = min(idx + duration, end_idx) - idx
+        layout = make_layout(method, args, time_length, groups)
         t_setup = time.time()
         trainer = build_trainer(method, args, data_loader, idx, time_length,
-                                dev, gen, rng=rng, seed=seed + widx)
+                                dev, gen, rng=rng, seed=seed + widx,
+                                layout=layout)
         setup_seconds = time.time() - t_setup
+        if trainer is None:
+            results.append({"idx": idx, "time_length": time_length,
+                            "parts": layout[1].count, "idle": True})
+            pdist.barrier()
+            continue
         # every window overwrites the same model file; only the last
         # window's save is kept unless the run reloads models
         is_last = idx + step >= end_idx
@@ -765,10 +923,12 @@ def _run_windows(method, args, dev):
         results.append({"idx": idx, "time_length": time_length,
                         "setup_seconds": setup_seconds,
                         "core_backend": _adj_backend(trainer.data),
-                        **res})
-        if record_time:
+                        "parts": layout[1].count, **res})
+        if record_time and pdist.is_primary():
             write_time_csv(os.path.join(base_path, method + "_time.csv"),
                            time_list)
+        # rank 0 wrote the window's files; every rank meets here
+        pdist.barrier()
     print(f"finish {method} embedding! cost time: "
           f"{time.time() - t_start} seconds!")
     return results

@@ -26,6 +26,13 @@ the JAX package's ``optax.chain(add_decayed_weights, scale_by_adam,
 scale(-lr))``.  Parameters are saved with ``torch.save(state_dict)``;
 ``load_model_file`` reads them back and refuses a file that ``torch.save``
 did not write (the JAX package writes flax msgpack at the same path).
+
+Under several parts (``parallel.mesh.Sharding``, U-neg and U-own): every
+part draws the same batches and negatives from the same seeded generators,
+the gradients are reduced by the sharding's rule before each optimizer
+step, rank 0 alone writes the CSVs and the model file, and the model file
+is the whole model's ``state_dict`` (time-stacked slices gathered first),
+the keys of the single-device file, so ``load_model_file`` reads either.
 """
 from __future__ import annotations
 
@@ -38,6 +45,7 @@ import numpy as np
 import torch
 
 from ctgcn_torch.data.formats import write_embedding_csvs
+from ctgcn_torch.parallel.dist import is_primary
 from ctgcn_torch.utils import check_and_make_path
 
 
@@ -57,9 +65,10 @@ def batch_matrix(node_num, batch_size, rng=None, shuffle=True):
             mask.reshape(batch_num, batch_size))
 
 
-def load_model_file(model, path, device):
+def load_model_file(model, path, device, sharding=None):
     """Load the ``state_dict`` that ``torch.save`` wrote at ``path`` into
-    ``model``.  Raises ``ValueError`` naming ``path`` when the file is not
+    ``model`` (into its slice, through ``sharding``, when it is split).
+    Raises ``ValueError`` naming ``path`` when the file is not
     ``torch.save``'s zip archive: the JAX package saves flax msgpack at the
     same ``<base>/<model_folder>/<model_file>``, which the port cannot
     read, and it does not fall back to a fresh model."""
@@ -69,7 +78,11 @@ def load_model_file(model, path, device):
             "torch.save archive of a state_dict); the JAX package writes "
             "flax msgpack at the same path: remove it, or set load_model to "
             "false")
-    model.load_state_dict(torch.load(path, map_location=device))
+    state = torch.load(path, map_location=device)
+    if sharding is None:
+        model.load_state_dict(state)
+    else:
+        sharding.load_state_dict(model, state)
 
 
 def make_optimizer(params, lr, weight_decay=0.0):
@@ -138,31 +151,37 @@ class UnsupervisedEmbedding(BaseEmbedding):
         state): with more than one batch the export runs it once a batch
         from ``None``, carrying the state, and exports the last output (the
         final epoch's last batch forward); with one batch ``embed_fn``.
+      sharding: optional ``parallel.mesh.Sharding`` of a model split over
+        parts (``loss_fn`` and ``embed_fn`` then run collectives, which
+        every part calls).
       The others as ``BaseEmbedding``'s.
     """
 
     def __init__(self, base_path, origin_folder, embedding_folder, node_list,
                  model, loss_fn, embed_fn, data, device,
                  model_folder="model", file_sep="\t", state_init=None,
-                 embed_state_fn=None):
+                 embed_state_fn=None, sharding=None):
         super().__init__(base_path, origin_folder, embedding_folder,
                          node_list, model, embed_fn, data, device,
                          model_folder=model_folder, file_sep=file_sep)
         self.loss_fn = loss_fn
         self.state_init = state_init
         self.embed_state_fn = embed_state_fn
+        self.sharding = sharding
 
     def learn_embedding(self, epoch=50, batch_size=1024, lr=1e-3,
                         start_idx=0, weight_decay=0.0, model_file="ctgcn",
                         load_model=False, shuffle=True, export=True, seed=0,
                         verbose=True):
-        """Train, export, save.  Returns a dict: ``cost_time`` (seconds of
-        training), per epoch ``losses`` and ``epoch_seconds``, and
-        ``export_seconds`` (embedding export and model save)."""
+        """Train, export, save (rank 0 writes).  Returns a dict:
+        ``cost_time`` (seconds of training), per epoch ``losses`` and
+        ``epoch_seconds``, and ``export_seconds`` (embedding export and
+        model save)."""
         model = self.model
+        sharding = self.sharding
         model_path = os.path.join(self.model_base_path, model_file or "")
         if load_model and model_file and os.path.exists(model_path):
-            load_model_file(model, model_path, self.device)
+            load_model_file(model, model_path, self.device, sharding)
         # the training time includes the optimizer's construction (the
         # first one in a process imports much of torch lazily)
         st = time.time()
@@ -191,12 +210,14 @@ class UnsupervisedEmbedding(BaseEmbedding):
                     state = state.detach()
                 loss.backward()
                 total += loss.detach()
+            if sharding is not None:
+                sharding.reduce_grads(model)
             optimizer.step()
             loss_val = float(total)         # waits for the epoch to finish
             self._sync()
             epoch_seconds.append(time.time() - t_e)
             losses.append(loss_val)
-            if verbose:
+            if verbose and is_primary():
                 print(f"epoch {e + 1}, loss: {loss_val:.6f}, "
                       f"cost time: {time.time() - st:.3f}s", flush=True)
         cost_time = time.time() - st
@@ -211,9 +232,13 @@ class UnsupervisedEmbedding(BaseEmbedding):
                                                             state)
                 else:
                     output = self.embed_fn(model, self.data)
-            self.save_embedding(output, start_idx)
+            if is_primary():
+                self.save_embedding(output, start_idx)
         if model_file:
-            torch.save(model.state_dict(), model_path)
+            state = (model.state_dict() if sharding is None
+                     else sharding.state_dict(model))
+            if is_primary():
+                torch.save(state, model_path)
         self.model = model
         return {"cost_time": cost_time, "losses": losses,
                 "epoch_seconds": epoch_seconds,

@@ -10,8 +10,12 @@ import torch
 
 def resolve_device(device="cuda"):
     """``torch.device`` for ``device``; raises when CUDA is asked for and
-    there is no GPU (the port never falls back to the CPU by itself)."""
+    there is no GPU (the port never falls back to the CPU by itself).
+    Under ``torchrun`` a bare "cuda" is ``cuda:LOCAL_RANK``."""
     dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None and "LOCAL_RANK" in \
+            os.environ:
+        dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "device 'cuda' requested but torch.cuda.is_available() is False;"

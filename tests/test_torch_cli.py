@@ -6,6 +6,8 @@ CTGCN-S on a small generated dataset, one epoch, and the supervised
 learning types, two epochs.  The embedding and time
 CSVs must read the way the JAX package's evaluators read them (pandas,
 tab-separated, node name as the index)."""
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -18,6 +20,7 @@ import pytest
 import torch
 
 from ctgcn_torch import main as cli
+from ctgcn_torch.training import driver
 
 ROOT = Path(__file__).resolve().parent.parent
 N, SNAPS = 120, 4
@@ -112,19 +115,56 @@ def test_default_device_without_gpu_raises(dataset):
 
 @pytest.mark.parametrize("change, error", [
     ({"remat_policy": "save_spmm"}, NotImplementedError),
-    ({"n_devices": 2}, NotImplementedError),
+    ({"n_devices": 2, "temporal_pipeline": True}, NotImplementedError),
     ({"matmul_precision": "fp8"}, ValueError),
     ({"profile_dir": "prof"}, NotImplementedError),
 ])
 def test_unported_options_raise(dataset, tmp_path, change, error):
+    """Options not ported yet raise.  ``temporal_pipeline`` raises where
+    more than one part would run: ``_check_scope`` at a world size of 2
+    (on one process the run is the single-device run)."""
     _, cfg, _, _ = dataset
     config = json.loads(Path(cfg).read_text())
     config["embedding"]["CTGCN-C"].update(change)
+    if "n_devices" in change:
+        with pytest.raises(error, match="not ported.*ROADMAP.md"):
+            driver._check_scope("CTGCN-C", config["embedding"]["CTGCN-C"],
+                                world_size=2)
+        return
     path = tmp_path / "cfg.json"
     path.write_text(json.dumps(config))
     with pytest.raises(error, match="not ported|matmul_precision"):
         cli.main([f"--config={path}", "--task=embedding",
                   "--method=CTGCN-C", "--device=cpu"])
+
+
+def test_n_devices_on_one_process_matches_single_device(dataset, trained,
+                                                        tmp_path):
+    """``n_devices: 2`` in one process runs on one part, as the JAX driver
+    does on one device (with its notice): the same CSVs, byte for byte,
+    as the run without the key."""
+    base, cfg, _, _ = dataset
+    config = json.loads(Path(cfg).read_text())
+    entry = config["embedding"]["CTGCN-C"]
+    outs = []
+    for tag, change in (("one", {}), ("nd2", {"n_devices": 2})):
+        config["embedding"]["CTGCN-C"] = dict(
+            entry, embed_folder=f"2.embedding/{tag}", model_file=tag,
+            record_time=False, **change)
+        path = tmp_path / f"{tag}.json"
+        path.write_text(json.dumps(config))
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            res = cli.main([f"--config={path}", "--task=embedding",
+                            "--method=CTGCN-C", "--device=cpu"])
+        assert [r["parts"] for r in res] == [1, 1]
+        outs.append((base / "2.embedding" / tag, log.getvalue()))
+    (one, _), (nd2, log) = outs
+    assert "n_devices: no divisor of T=3 in range" in log
+    files = sorted(os.listdir(one))
+    assert files == sorted(os.listdir(nd2)) and len(files) == SNAPS
+    for f in files:
+        assert (one / f).read_bytes() == (nd2 / f).read_bytes(), f
 
 
 @pytest.mark.parametrize("method, change, backend", [
@@ -245,14 +285,15 @@ def test_embedding_without_core_backend_runs_auto(dataset, trained,
 def test_unported_tasks_and_methods_raise(dataset, tmp_path, task, method):
     """Every task and every method is ported: ``link_pred`` runs its
     section, and an empty one stops at the first key it needs; what is
-    left to port are options, and a method's entry that asks for one
-    (``n_devices: 2``, the multi-device paths) raises
-    ``NotImplementedError`` naming ROADMAP.md."""
+    left to port are options, and a method's entry that asks for one (a
+    supervised learning type over several parts: ``_check_scope`` at a
+    world size of 2) raises ``NotImplementedError`` naming ROADMAP.md."""
     _, cfg, _, _ = dataset
     config = json.loads(Path(cfg).read_text())
     config["link_pred"] = {}
     config["embedding"]["CTGCN-S"] = dict(config["embedding"]["CTGCN-C"],
-                                          n_devices=2)
+                                          n_devices=2,
+                                          learning_type="S-node")
     path = tmp_path / "cfg.json"
     path.write_text(json.dumps(config))
     argv = [f"--config={path}", f"--task={task}", "--device=cpu"]
@@ -263,4 +304,5 @@ def test_unported_tasks_and_methods_raise(dataset, tmp_path, task, method):
             cli.main(argv)
         return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli.main(argv)
+        driver._check_scope(method, config["embedding"][method],
+                            world_size=2)

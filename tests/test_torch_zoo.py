@@ -379,10 +379,16 @@ def _cli_run(dataset, tmp_path, method, **change):
     ("GCN", {"remat_policy": "save_spmm"}), ("GCN", {"profile_dir": "prof"})])
 def test_unported_zoo_raises(dataset, tmp_path, method, change):
     """The options not ported yet raise under any zoo method, naming
-    ROADMAP.md: ``n_devices`` above 1 (the multi-device paths), the
+    ROADMAP.md: ``n_devices`` above 1 where more than one part would run
+    (the zoo's time sharding: ``_check_scope`` at a world size of 2), the
     ``remat_policy: "save_spmm"`` knob and the ``profile_dir`` key (a
     trace directory, which the JAX trainer writes)."""
     _, _, emb = dataset
+    if "n_devices" in change:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            TD._check_scope(method, dict(emb["GCN"], **change),
+                            world_size=2)
+        return
     path = tmp_path / "cfg.json"
     path.write_text(json.dumps({"embedding": {
         method: dict(emb["GCN"], **change)}}))
