@@ -30,7 +30,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from ctgcn_torch.nn.gcn import _dropout
+from ctgcn_torch.nn.gcn import _dropout, skip_dropout
 from ctgcn_torch.ops.ell import ell_spmm_ev
 from ctgcn_torch.ops.spmm import spmm_ev
 
@@ -101,6 +101,18 @@ class GAT(nn.Module):
         if self.learning_type == "U-neg":
             return F.log_softmax(h, dim=1)
         return h
+
+    def skip_draws(self, n, n_edges, generator, device, in_dim=None):
+        """Draw what ``single`` draws for a snapshot of n nodes and
+        ``n_edges`` stored edges, given features of width ``in_dim`` (None:
+        identity features)."""
+        if in_dim is not None:
+            skip_dropout((n, in_dim), self.dropout, generator, device)
+        for att in self.attentions:
+            skip_dropout((n_edges,), att.dropout, generator, device)
+        skip_dropout((n, sum(att.W.shape[1] for att in self.attentions)),
+                     self.dropout, generator, device)
+        skip_dropout((n_edges,), self.out_att.dropout, generator, device)
 
     def forward(self, xs, adjs, generator=None):
         """xs [T, N, in] or None; adjs: T ``SparseGraph``s -> [T, N, out]."""

@@ -36,6 +36,14 @@ def _dropout(x, rate, generator):
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
+def skip_dropout(shape, rate, generator, device):
+    """Draw from ``generator`` what ``_dropout`` draws for a tensor of
+    ``shape`` on ``device``, and nothing else (a time part's generator
+    passes another part's snapshot this way)."""
+    if generator is not None and rate:
+        torch.rand(shape, generator=generator, device=device)
+
+
 class GraphConvolution(nn.Module):
     def __init__(self, input_dim, output_dim, bias=True, generator=None):
         super().__init__()
@@ -69,6 +77,11 @@ class GCN(nn.Module):
         h = F.relu(self.gc1(x, adj))
         h = _dropout(h, self.dropout, generator)
         return self.gc2(h, adj)
+
+    def skip_draws(self, n, generator, device):
+        """Draw what ``single`` draws for a snapshot of n nodes."""
+        skip_dropout((n, self.gc1.weight.shape[1]), self.dropout, generator,
+                     device)
 
     def forward(self, xs, adjs, generator=None):
         """xs [T, N, in] or None; adjs: T ``SparseGraph``s -> [T, N, out]."""

@@ -20,7 +20,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from ctgcn_torch.nn.gcn import _dropout
+from ctgcn_torch.nn.gcn import _dropout, skip_dropout
 from ctgcn_torch.nn.layers import Linear
 from ctgcn_torch.ops.neighbors import masked_max_pool
 from ctgcn_torch.ops.spmm import spmm
@@ -105,6 +105,12 @@ class GIN(nn.Module):
             if layer < n_layers - 1:
                 h = _dropout(h, self.dropout, generator)
         return h
+
+    def skip_draws(self, n, generator, device):
+        """Draw what ``single`` draws for a snapshot of n nodes."""
+        for norm in self.norms[:-1]:
+            skip_dropout((n, norm.scale.shape[0]), self.dropout, generator,
+                         device)
 
     def forward(self, xs, adjs, neighbor_data=None, generator=None):
         """xs [T, N, in] or None; adjs: T ``SparseGraph``s; neighbor_data:

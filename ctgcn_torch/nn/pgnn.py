@@ -41,7 +41,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from ctgcn_torch.nn.gcn import _dropout
+from ctgcn_torch.nn.gcn import _dropout, skip_dropout
 from ctgcn_torch.nn.layers import Linear
 
 #: float64 elements of one ``dijkstra`` row chunk (256 MiB)
@@ -253,6 +253,15 @@ class PGNN(nn.Module):
         return x_position / torch.clamp(
             torch.linalg.vector_norm(x_position, dim=-1, keepdim=True),
             min=1e-12)
+
+    def skip_draws(self, n, generator, device):
+        """Draw the dropout masks ``single`` draws for a snapshot of n
+        nodes (the anchors are the caller's)."""
+        if self.layer_num == 1:
+            return
+        width = self.conv_first.linear_hidden.weight.shape[1]
+        for _ in range(1 + len(self.conv_hidden)):
+            skip_dropout((n, width), self.dropout, generator, device)
 
     def forward(self, xs, dists_max, dists_argmax, generator=None):
         """xs [T, N, in] or None; dists_max, dists_argmax [T, N, A] ->

@@ -26,7 +26,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from ctgcn_torch.nn.gcn import _dropout
+from ctgcn_torch.nn.gcn import _dropout, skip_dropout
 from ctgcn_torch.nn.layers import Linear
 from ctgcn_torch.ops.neighbors import sample_neighbors
 
@@ -96,6 +96,16 @@ class SAGE(nn.Module):
         h = self.sage1(h, nbr_t, deg_t, generator)
         h = _dropout(h, self.dropout, generator)
         return self.sage2(h, nbr_t, deg_t, generator)
+
+    def skip_draws(self, n, width, generator, device):
+        """Draw what ``single`` draws for a snapshot of n nodes whose
+        neighbour table is ``width`` wide."""
+        for layer in (self.sage1, self.sage2):
+            if layer.num_sample is not None:
+                torch.rand((n, width), generator=generator, device=device)
+            if layer is self.sage1:
+                skip_dropout((n, layer.linear.weight.shape[1]), self.dropout,
+                             generator, device)
 
     def forward(self, xs, neighbor_data, generator=None):
         """xs [T, N, in] or None; neighbor_data (nbr [T, N, D], deg [T, N])

@@ -23,7 +23,10 @@ uses them:
   * ``gather_summed``: an all-gather whose outputs feed parts' own rows
     only (the all-gather SpMM); the backward sums the parts' gradients.
   * ``start_exchange``: the halo's ``all_to_all_single``, started without
-    waiting, so the local product runs while it is in flight.
+    waiting, so the local product runs while it is in flight;
+  * ``ring_shift``: part r's tensors to part r + 1 mod P (the pipeline's
+    carry hand-off), one ``all_to_all_single`` a call; the backward ships
+    the gradient back to part r - 1 mod P.
 """
 from __future__ import annotations
 
@@ -191,6 +194,16 @@ def start_exchange(x, send, parts: Parts):
     return recv, pending.work.wait
 
 
+def part0_flag(flag, parts: Parts, device):
+    """Part 0's bool ``flag`` on every part: a choice that the parts must
+    make together (a collective)."""
+    if parts.local:
+        return flag
+    buf = torch.tensor([int(flag)], device=device)
+    dist.broadcast(buf, src=0, group=parts.group)
+    return bool(buf.item())
+
+
 def all_reduce_grads(params, parts: Parts, average=False):
     """Sum (or average) the parameters' gradients over the parts in one
     collective; a parameter without a gradient counts as zeros."""
@@ -209,3 +222,52 @@ def all_reduce_grads(params, parts: Parts, average=False):
         n = p.grad.numel()
         p.grad.copy_(flat[offset:offset + n].view_as(p.grad))
         offset += n
+
+
+class _RingShift(torch.autograd.Function):
+    """x [rows, d] of part r to part r + 1 mod P (backward: r - 1 mod P).
+    ``anchor`` is a scalar that requires grad, so that every part records
+    the node and runs its backward, whatever x requires: each call's
+    collective then runs on every part, forward and backward alike."""
+
+    @staticmethod
+    def forward(ctx, anchor, x, parts):
+        ctx.parts = parts
+        return _shift(x.contiguous(), parts, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, _shift(g.contiguous(), ctx.parts, -1), None
+
+
+def _shift(x, parts, step):
+    """One ``all_to_all_single`` that ships all of x to part index + step
+    and receives the same shape from part index - step (mod P)."""
+    p, r = parts.count, parts.index
+    n = x.shape[0]
+    send = [n if q == (r + step) % p else 0 for q in range(p)]
+    recv = [n if q == (r - step) % p else 0 for q in range(p)]
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, output_split_sizes=recv,
+                           input_split_sizes=send, group=parts.group)
+    ring_shift.calls += 1
+    return out
+
+
+def ring_shift(carry, parts: Parts, anchor):
+    """The carry (a tensor [rows, d], or a tuple of them, LSTM's (h, c)) of
+    part r, received by part r + 1 mod P: part r gets part r - 1's.  The
+    tuple's tensors travel as one (concatenated along dim 1).  ``anchor``:
+    a scalar that requires grad (``_RingShift``).  One part without a group
+    returns the carry.  ``ring_shift.calls`` counts the collectives made,
+    forward and backward."""
+    if parts.local:
+        return carry
+    if not isinstance(carry, tuple):
+        return _RingShift.apply(anchor, carry, parts)
+    widths = [c.shape[1] for c in carry]
+    out = _RingShift.apply(anchor, torch.cat(carry, dim=1), parts)
+    return tuple(out.split(widths, dim=1))
+
+
+ring_shift.calls = 0

@@ -1,49 +1,81 @@
 # coding: utf-8
-"""Time sharding of the CTGCN family and the gradient rule of every
-partitioned path (port of ``embedding_shardings`` and
+"""Time sharding of the family and the zoo, and the gradient rule of
+every partitioned path (port of ``embedding_shardings`` and
 ``make_ctgcn_train_step`` in ``ctgcn_tpu/parallel/mesh.py``).
 
 Time sharding (config ``n_devices``): part r owns the contiguous chunk
 [r·T/P, (r+1)·T/P) of the window's timesteps.  It keeps only its slice of
-the time-stacked containers (``mlps``, ``cdns``, ``gcns``: one module a
-timestep) and only its snapshots' pyramids, which the loader builds on the
-backend one device would choose for the whole window.  The JAX package
-pads every snapshot's blocks to one shape (``uniform_blocks``) so that
-``vmap`` can shard the [T] axis; here each snapshot keeps its own ragged
-blocks, and nothing needs that padding.  The part's own MLP + CDN run on
-its timesteps; an all-gather over T feeds the time RNN, the LayerNorm and
-the loss, which every part computes whole.
+the model's time-stacked containers (``TimeRule.stacked``: one module a
+timestep) and only its snapshots' inputs (the family's pyramids, which the
+loader builds on the backend one device would choose for the whole window;
+the zoo's graphs and PGNN's proximity matrices).  The JAX package pads
+every snapshot's blocks to one shape (``uniform_blocks``) so that ``vmap``
+can shard the [T] axis; here each snapshot keeps its own ragged blocks,
+and nothing needs that padding.  The part runs its own snapshots; an
+all-gather over T feeds what follows (the time RNN and the LayerNorm of
+CTGCN and GCRN) and the loss, which every part computes whole.
+EvolveGCN and VGRNN are sequential in time (their weights, or their
+hidden state, run from step to step), so no part can run its snapshots
+alone: every part runs their whole window ("replica"), as GSPMD gives
+them the single-device result.
 
 Every part builds the whole model from the config's seed and keeps its
 slice, so the sharded model is the single-device model, and
-``state_dict`` gives the single-device model file.
+``state_dict`` gives the single-device model file.  A part draws what one
+device draws (dropout masks, SAGE's samples, PGNN's anchors), in the same
+order, and keeps its own snapshots' draws (``snapshot_loop``).
 
 The gradient rule (``Sharding.reduce_grads``), for a loss that every part
 computes whole from gathered tensors:
   * the gather's backward takes the part's own slice (``dist.gather_own``);
   * replicated parameters used before the gather (CGCN's shared MLP / CDN,
-    every weight of the halo paths) hold this part's share: summed;
-  * parameters used only after it (CTGCN's time RNN and norm) hold the
-    whole gradient on every part: averaged, only to keep the parts'
-    copies bit-identical;
+    the weights of the per-snapshot zoo methods, every weight of the halo
+    paths, CTGCN's time RNN and norm under ``temporal_pipeline``) hold
+    this part's share: summed;
+  * parameters used only after it (``TimeRule.after_gather``: CTGCN's
+    and GCRN's time RNN and norm, a supervised classifier) and every
+    parameter of a replica hold the whole gradient on every part:
+    averaged, only to keep the parts' copies bit-identical;
   * a time-stacked parameter lives on one part and keeps its gradient.
 Adam then runs on each part over what that part holds.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 from torch import nn
 import torch.distributed as dist
 
 from ctgcn_torch.nn.core_models import CTGCN
+from ctgcn_torch.nn.gcn import GCRN
 from ctgcn_torch.ops.pyramid import CorePyramid
 from ctgcn_torch.ops.rnn import rnn_scan
 from ctgcn_torch.parallel.dist import Parts, all_reduce_grads, gather_own
 
-#: containers with one module a timestep
-STACKED = ("mlps", "cdns", "gcns")
-#: CTGCN's parameters used after the gather over T
-AFTER_GATHER = ("rnn", "norm")
+
+@dataclasses.dataclass(frozen=True)
+class TimeRule:
+    """How a model splits over time parts: ``stacked``, its top-level
+    containers with one module a timestep (a part keeps its slice);
+    ``after_gather``, its top-level children used only after the gather
+    over T (averaged).  Every other parameter is summed."""
+
+    stacked: tuple = ()
+    after_gather: tuple = ()
+
+
+def time_rule(model, pipeline=False):
+    """The ``TimeRule`` of ``model``: CTGCN's per-timestep MLPs and CDNs
+    and GCRN's per-timestep GCNs are stacked, their time RNN and norm come
+    after the gather (before it under ``temporal_pipeline``: summed); the
+    per-snapshot zoo methods and CGCN share every weight across
+    snapshots."""
+    if isinstance(model, CTGCN):
+        return TimeRule(("mlps", "cdns"), () if pipeline else ("rnn", "norm"))
+    if isinstance(model, GCRN):
+        return TimeRule(("gcns",), ("rnn", "norm"))
+    return TimeRule()
 
 
 def time_chunk(parts: Parts, time_length):
@@ -59,11 +91,25 @@ def shard_time(model, parts: Parts, time_length):
     """Keep this part's slice of ``model``'s time-stacked containers (in
     place; the model came whole from the config's seed)."""
     lo, hi = time_chunk(parts, time_length)
-    for name in STACKED:
-        mods = getattr(model, name, None)
-        if isinstance(mods, nn.ModuleList):
-            setattr(model, name, nn.ModuleList(list(mods)[lo:hi]))
+    for name in time_rule(model).stacked:
+        setattr(model, name, nn.ModuleList(list(getattr(model, name))[lo:hi]))
     return model
+
+
+def snapshot_loop(parts: Parts, time_length, own, skip):
+    """A per-snapshot forward on this part's snapshots: ``own(i)`` gives
+    the part's i-th snapshot's output, ``skip(t)`` draws what snapshot t's
+    forward draws from the generator and nothing else, for every snapshot
+    of another part, in window order.  Returns the part's outputs
+    stacked, [T/P, ...]."""
+    lo, hi = time_chunk(parts, time_length)
+    outs = []
+    for t in range(time_length):
+        if lo <= t < hi:
+            outs.append(own(t - lo))
+        else:
+            skip(t)
+    return torch.stack(outs)
 
 
 def time_sharded_forward(model, xs, pyramids: CorePyramid, parts: Parts):
@@ -85,35 +131,55 @@ def time_sharded_forward(model, xs, pyramids: CorePyramid, parts: Parts):
 
 
 class Sharding:
-    """What the engine does for a model split over ``parts``: reduce the
+    """What the engines do for a model split over ``parts``: reduce the
     gradients by the rule above, and read and write the whole model file.
 
-    kind: "time" (time-stacked containers split, ``time_length`` T) or
-    "graph" (every parameter replicated, rows split)."""
+    kind: "time" (the model's ``time_rule``: its stacked containers split
+    over ``time_length`` T; ``pipeline`` for ``temporal_pipeline``),
+    "graph" (rows split, every parameter replicated: summed, but for those
+    used after the gather) or "replica" (every part runs the whole window:
+    averaged)."""
 
-    def __init__(self, parts: Parts, kind, time_length=None):
-        if kind not in ("time", "graph"):
+    KINDS = ("time", "graph", "replica")
+
+    def __init__(self, parts: Parts, kind, time_length=None, pipeline=False):
+        if kind not in self.KINDS:
             raise ValueError(f"kind {kind!r}")
         self.parts = parts
         self.kind = kind
         self.time_length = time_length
+        self.pipeline = pipeline
+
+    def _rule(self, model):
+        """The model's ``TimeRule``; on the halo paths nothing is stacked,
+        and CTGCN's time RNN and norm still run after the gather (of the
+        rows)."""
+        if self.kind == "replica":
+            return TimeRule()
+        rule = time_rule(model, self.pipeline)
+        return rule if self.kind == "time" else TimeRule(
+            after_gather=rule.after_gather)
 
     def _split(self, model):
         """(summed, averaged) parameters; time-stacked ones are in
         neither."""
+        rule = self._rule(model)
         summed, averaged = [], []
         for name, p in model.named_parameters():
             top = name.split(".")[0]
-            if self.kind == "time" and top in STACKED:
+            if top in rule.stacked:
                 continue
-            if isinstance(model, CTGCN) and top in AFTER_GATHER:
+            if self.kind == "replica" or top in rule.after_gather:
                 averaged.append(p)
             else:
                 summed.append(p)
         return summed, averaged
 
-    def reduce_grads(self, model):
+    def reduce_grads(self, model, *after):
+        """Reduce ``model``'s gradients by the rule, and average those of
+        ``after`` (modules used after the gather: a classifier)."""
         summed, averaged = self._split(model)
+        averaged += [p for m in after for p in m.parameters()]
         all_reduce_grads(summed, self.parts)
         all_reduce_grads(averaged, self.parts, average=True)
 
@@ -122,38 +188,44 @@ class Sharding:
         would have them (a collective: every part calls it).  Under time
         sharding each timestep's tensors come from the part that owns it;
         the replicated ones are the same on every part."""
-        if self.kind == "graph":
-            return model.state_dict()
+        local = model.state_dict()
+        stacked = self._rule(model).stacked
+        if not stacked:
+            return local
         lo, _ = time_chunk(self.parts, self.time_length)
         per = self.time_length // self.parts.count
-        out = {}
-        for name, child in model.named_children():
-            if name not in STACKED or not isinstance(child, nn.ModuleList):
-                out.update(child.state_dict(prefix=f"{name}."))
+        out, done = {}, set()
+        for key, val in local.items():
+            top = key.partition(".")[0]
+            if top not in stacked:
+                out[key] = val
                 continue
-            template = child[0].state_dict()
+            if top in done:
+                continue
+            done.add(top)
+            template = getattr(model, top)[0].state_dict()
             for t in range(self.time_length):
                 owner = t // per
-                mine = child[t - lo].state_dict() if owner == \
-                    self.parts.index else None
                 for sub, ref in template.items():
-                    buf = (mine[sub].clone() if mine is not None
+                    buf = (local[f"{top}.{t - lo}.{sub}"].clone()
+                           if owner == self.parts.index
                            else torch.empty_like(ref))
                     if not self.parts.local:
                         dist.broadcast(buf, src=owner, group=self.parts.group)
-                    out[f"{name}.{t}.{sub}"] = buf
+                    out[f"{top}.{t}.{sub}"] = buf
         return out
 
     def load_state_dict(self, model, state):
         """Load the whole model's ``state_dict`` into this part's slice."""
-        if self.kind == "graph":
+        if self.kind != "time":
             model.load_state_dict(state)
             return
+        stacked = self._rule(model).stacked
         lo, hi = time_chunk(self.parts, self.time_length)
         local = {}
         for key, val in state.items():
             top, _, rest = key.partition(".")
-            if top in STACKED:
+            if top in stacked:
                 t, _, sub = rest.partition(".")
                 if lo <= int(t) < hi:
                     local[f"{top}.{int(t) - lo}.{sub}"] = val

@@ -82,15 +82,19 @@ the link splits, in the order the JAX package draws them from the global
 ``np.random``; the classifier's parameters come from a generator seeded
 with the window's seed + 1000.
 
-Several parts (``parallel/``, under ``torchrun``): the config's
-``n_devices`` (> 1) splits a window over min(n_devices, world size)
-processes.  With ``graph_partition`` the family and GCN / TgGCN split each
-snapshot's rows (the halo paths); without it the family's windows split
-over time, the part count clamped to a divisor of T (the JAX driver's
-notice when none is left).  With one part the run is the single-device
-run.  A rank past the part count builds the window's draws (to keep its
-generators in step) and waits.  ``temporal_pipeline``, the zoo's time
-sharding and the supervised types under several parts raise.
+Several parts (``parallel/``, under ``torchrun``), under every learning
+type: the config's ``n_devices`` (> 1) splits a window over min(n_devices,
+world size) processes.  With ``graph_partition`` the family and GCN /
+TgGCN split each snapshot's rows (the halo paths); without it the windows
+split over time, the part count clamped to a divisor of T (the JAX
+driver's notice when none is left): each part runs its own snapshots
+(the family, the per-snapshot zoo methods and GCRN; PGNN builds only its
+snapshots' proximity matrices), or, with ``temporal_pipeline``, CTGCN-C
+and CTGCN-S run their time RNN GPipe-pipelined over the parts
+(``parallel.pipeline``); EvolveGCN and VGRNN, sequential in time, run
+their whole window on every part.  With one part the run is the
+single-device run.  A rank past the part count builds the window's draws
+(to keep its generators in step) and waits.
 
 The JAX driver's memory knobs, which it reads from ``CTGCN_TPU_*``
 environment variables, reach the model as constructor arguments here:
@@ -107,6 +111,7 @@ import time
 import numpy as np
 import scipy.sparse as sp
 import torch
+from torch.nn import functional as F
 
 from ctgcn_torch.data.formats import read_node_list, write_time_csv
 from ctgcn_torch.data.loader import DataLoader
@@ -119,19 +124,21 @@ from ctgcn_torch.nn.egcn import EvolveGCN
 from ctgcn_torch.nn.gcn import GCN, GCRN
 from ctgcn_torch.nn.gin import GIN
 from ctgcn_torch.nn.heads import EdgeClassifier, MLPClassifier, inner_product
-from ctgcn_torch.nn.pgnn import (PGNN, anchor_sizes, precompute_dist_data,
-                                 select_anchor_dists)
+from ctgcn_torch.nn.pgnn import (PGNN, anchor_sizes, draw_anchor_sets,
+                                 precompute_dist_data, select_anchor_dists)
 from ctgcn_torch.nn.sage import SAGE
 from ctgcn_torch.nn.vgrnn import VGRNN
 from ctgcn_torch.ops.neighbors import neighbor_table_from_scipy
-from ctgcn_torch.ops.rnn import CVJP_BATCH_BUDGET
+from ctgcn_torch.ops.rnn import CVJP_BATCH_BUDGET, rnn_scan
 from ctgcn_torch.parallel import dist as pdist
+from ctgcn_torch.parallel.dist import gather_own
 from ctgcn_torch.parallel.core_partition import (halo_core_forward,
                                                  partition_pyramid_halo)
 from ctgcn_torch.parallel.graph_partition import (halo_gcn_forward,
                                                   partition_graph_halo)
-from ctgcn_torch.parallel.mesh import (Sharding, shard_time, time_chunk,
-                                       time_sharded_forward)
+from ctgcn_torch.parallel.mesh import (Sharding, shard_time, snapshot_loop,
+                                       time_chunk, time_sharded_forward)
+from ctgcn_torch.parallel.pipeline import ctgcn_pipelined_forward
 from ctgcn_torch.training.engine import (SupervisedEmbedding,
                                          UnsupervisedEmbedding)
 from ctgcn_torch.training.splits import (binary_auc, build_label_splits,
@@ -157,14 +164,18 @@ DEGREE_FEATURE_METHODS = S_VARIANTS + ("EvolveGCN",)
 FAMILY = ("CGCN-C", "CGCN-S", "CTGCN-C", "CTGCN-S")
 #: the methods that ``graph_partition`` splits by rows
 PARTITIONED_METHODS = FAMILY + ("GCN", "TgGCN")
+#: the methods sequential in time, whose whole window every part runs
+SEQUENTIAL_METHODS = ("EvolveGCN", "VGRNN")
+#: the methods ``temporal_pipeline`` pipelines
+PIPELINE_METHODS = ("CTGCN-C", "CTGCN-S")
 SUPERVISED_TYPES = ("S-node", "S-edge", "S-link-st", "S-link-dy")
 LEARNING_TYPES = ("U-neg", "U-own") + SUPERVISED_TYPES
 MATMUL_PRECISIONS = ("highest", "high", "bf16")
 
 
-def _check_scope(method, args, world_size=None):
-    """Raise for what the port does not run; ``world_size`` (the process
-    group's by default) decides whether more than one part would run."""
+def _check_scope(method, args):
+    """Raise for what the port does not run (on any number of parts: every
+    method and learning type runs over several)."""
     if method not in PORTED_METHODS:
         raise ValueError(
             f"gnn_embedding runs {sorted(PORTED_METHODS)}, not {method!r} "
@@ -185,24 +196,6 @@ def _check_scope(method, args, world_size=None):
         raise NotImplementedError(
             "remat_policy 'save_spmm' is not ported yet; only 'full' "
             "(ROADMAP.md queue 1: CoreDiffusion's memory knobs)")
-    world = pdist.world_size() if world_size is None else world_size
-    if min(args.get("n_devices") or 1, world) > 1:
-        where = "(ROADMAP.md queue 1 item 4: multi-device)"
-        partitioned = (args.get("graph_partition", False)
-                       and method in PARTITIONED_METHODS)
-        if lt in SUPERVISED_TYPES:
-            raise NotImplementedError(
-                f"the supervised learning types over several parts are not "
-                f"ported yet {where}")
-        if not partitioned and method in ZOO_METHODS:
-            raise NotImplementedError(
-                f"time sharding of the zoo ({method}) is not ported yet "
-                f"{where}")
-        if (not partitioned and args.get("temporal_pipeline", False)
-                and method in ("CTGCN-C", "CTGCN-S")):
-            raise NotImplementedError(
-                f"temporal_pipeline (GPipe over time) is not ported yet "
-                f"{where}")
     prec = args.get("matmul_precision", "highest")
     if prec not in MATMUL_PRECISIONS:
         raise ValueError(f"matmul_precision {prec!r}, not one of "
@@ -322,12 +315,17 @@ def get_input_data(method, idx, time_length, data_loader: DataLoader, args,
     them, degree features drawn from ``rng`` (a numpy ``RandomState``).
 
     ``layout`` (``make_layout``'s): "graph" gives this part's halo plans
-    (``data["halo_adjs"]``, no ``data["adjs"]``); "time" this part's
-    timesteps of the pyramids and of xs; a rank without a part gets only
-    xs (its draws)."""
+    (``data["halo_adjs"]``, no ``data["adjs"]``); "time" and "pipeline"
+    this part's timesteps of the pyramids, of the zoo's graphs and
+    neighbour tables (GAT also gets every snapshot's stored edge count,
+    ``data["edge_counts"]``: its dropout draws one value an edge), of
+    PGNN's proximity matrices and of xs; "replica" the whole window; a
+    rank without a part gets only xs (its draws)."""
     kind, parts = layout if layout is not None else (None, None)
     if parts is not None and parts.index is None:
         kind = "idle"
+    own = (range(*time_chunk(parts, time_length))
+           if kind in ("time", "pipeline") else range(time_length))
     data = {}
     if kind == "idle":
         pass
@@ -339,14 +337,21 @@ def get_input_data(method, idx, time_length, data_loader: DataLoader, args,
             args["origin_base_path"], idx, time_length,
             sep=args.get("file_sep", "\t"))
         data["pgnn_dists"] = precompute_dist_data(
-            edge_list, data_loader.node_num,
+            [edge_list[t] for t in own], data_loader.node_num,
             approximate=args.get("approximate", -1), device=device)
     elif method == "VGRNN":
         data["adjs"], data["vgrnn_adjs"] = _vgrnn_adjacency(
             idx, time_length, data_loader, args)
     elif method in ZOO_METHODS:
-        data["adjs"], data["neighbor_data"] = _zoo_adjacency(
-            method, idx, time_length, data_loader, args)
+        adjs, nbrs = _zoo_adjacency(method, idx, time_length, data_loader,
+                                    args)
+        if PORTED_METHODS[method] is GAT and kind == "time":
+            data["edge_counts"] = torch.tensor([g.rows.numel()
+                                                for g in adjs])
+        data["adjs"] = tuple(adjs[t] for t in own)
+        data["neighbor_data"] = (None if nbrs is None
+                                 else tuple(a[own.start:own.stop]
+                                            for a in nbrs))
     else:
         prec = args.get("matmul_precision", "highest")
         data["adjs"] = data_loader.get_core_adj_list(
@@ -356,8 +361,7 @@ def get_input_data(method, idx, time_length, data_loader: DataLoader, args,
             dense_budget_bytes=args.get("dense_budget_bytes", 4 << 30),
             dense_dtype=torch.bfloat16 if prec == "bf16" else None,
             dense_prec="high" if prec == "high" else "highest",
-            keep=(range(*time_chunk(parts, time_length)) if kind == "time"
-                  else None))
+            keep=own)
     sep = args.get("file_sep", "\t")
     if method in DEGREE_FEATURE_METHODS and args.get("nfeature_path") is None:
         data["xs"], input_dim = data_loader.get_degree_feature_list(
@@ -366,9 +370,8 @@ def get_input_data(method, idx, time_length, data_loader: DataLoader, args,
     else:
         data["xs"], input_dim = data_loader.get_feature_list(
             args.get("nfeature_path"), idx, time_length, sep=sep)
-    if kind == "time" and data["xs"] is not None:
-        lo, hi = time_chunk(parts, time_length)
-        data["xs"] = data["xs"][lo:hi]
+    if data["xs"] is not None:
+        data["xs"] = data["xs"][own.start:own.stop]
     return input_dim, data
 
 
@@ -391,17 +394,34 @@ def _make_product_mesh(args, time_length, world_size):
 
 def make_layout(method, args, time_length, groups=None):
     """(kind, ``Parts``) of a window: ("graph", P) for ``graph_partition``
-    on the family and GCN / TgGCN (P = min(n_devices, world size)), ("time",
-    P) for the family's time sharding, (None, 1 part) for the
-    single-device run.  Every rank calls this (it may make a subgroup);
-    ``groups`` caches them across windows."""
+    on the family and GCN / TgGCN (P = min(n_devices, world size)); over
+    ``_make_product_mesh``'s P time parts, ("replica", P) for the methods
+    sequential in time, ("pipeline", P) for CTGCN-C / CTGCN-S under
+    ``temporal_pipeline`` and ("time", P) for the others; (None, 1 part)
+    for the single-device run.  Every rank calls this (it may make a
+    subgroup); ``groups`` caches them across windows."""
     world = pdist.world_size()
     n = args.get("n_devices", 0) or 0
     if (args.get("graph_partition", False) and n > 1
             and method in PARTITIONED_METHODS):
         return "graph", pdist.make_parts(min(n, world), groups)
     count = _make_product_mesh(args, time_length, world)
-    return ("time" if count > 1 else None), pdist.make_parts(count, groups)
+    kind = None
+    if count > 1:
+        kind = ("replica" if method in SEQUENTIAL_METHODS else
+                "pipeline" if (args.get("temporal_pipeline", False)
+                               and method in PIPELINE_METHODS) else "time")
+    return kind, pdist.make_parts(count, groups)
+
+
+def _sharding(layout, time_length):
+    """The engines' ``Sharding`` of a window's layout (None for one
+    part)."""
+    kind, parts = layout if layout is not None else (None, None)
+    if kind is None:
+        return None
+    return Sharding(parts, "time" if kind == "pipeline" else kind,
+                    time_length=time_length, pipeline=kind == "pipeline")
 
 
 def _data_to(data, device):
@@ -528,7 +548,91 @@ def _pgnn_forward(model, data, generator=None, anchor_sets=None):
                  generator=generator)
 
 
-def make_forward(method, layout=None, node_num=None):
+def _zoo_time_forward(cls, parts, time_length, node_num):
+    """The zoo's per-snapshot methods and GCRN over this part's snapshots
+    (``data`` holds only those), each drawing what the single-device
+    forward draws for every snapshot in window order (``snapshot_loop``),
+    the parts' outputs gathered over T; GCRN's time RNN and LayerNorm then
+    run on every part.  PGNN draws every snapshot's anchor sets first, as
+    ``_pgnn_forward`` does, and reduces only its own."""
+    def fwd(model, data, generator=None, anchor_sets=None):
+        xs, adjs = data["xs"], data.get("adjs")
+        dev = next(model.parameters()).device
+        n = node_num
+
+        def x(i):
+            return None if xs is None else xs[i]
+
+        if cls in (SAGE, PGNN) and generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        if cls is GCN:
+            def own(i):
+                return model.single(x(i), adjs[i], generator)
+
+            def skip(t):
+                model.skip_draws(n, generator, dev)
+        elif cls is GCRN:
+            def own(i):
+                return F.normalize(model.gcns[i].single(x(i), adjs[i],
+                                                        generator),
+                                   dim=1, eps=1e-12)
+
+            def skip(t):
+                model.gcns[0].skip_draws(n, generator, dev)
+        elif cls is GIN:
+            nbr, deg = data["neighbor_data"] or (
+                torch.zeros(len(adjs), n, 1, dtype=torch.long, device=dev),
+                torch.zeros(len(adjs), n, dtype=torch.long, device=dev))
+
+            def own(i):
+                return model.single(x(i), adjs[i], nbr[i], deg[i], generator)
+
+            def skip(t):
+                model.skip_draws(n, generator, dev)
+        elif cls is GAT:
+            counts = data["edge_counts"].tolist()
+            in_dim = None if xs is None else xs.shape[-1]
+
+            def own(i):
+                return model.single(x(i), adjs[i], generator)
+
+            def skip(t):
+                model.skip_draws(n, counts[t], generator, dev, in_dim)
+        elif cls is SAGE:
+            nbr, deg = data["neighbor_data"]
+
+            def own(i):
+                return model.single(x(i), nbr[i], deg[i], generator)
+
+            def skip(t):
+                model.skip_draws(n, nbr.shape[2], generator, dev)
+        else:
+            dists = data["pgnn_dists"]
+            sizes = anchor_sizes(n)
+            lo, hi = time_chunk(parts, time_length)
+            reduced = []
+            for t in range(time_length):
+                sets = (draw_anchor_sets(n, sizes, generator, dists.device)
+                        if anchor_sets is None else anchor_sets[t])
+                if lo <= t < hi:
+                    reduced.append(select_anchor_dists(
+                        dists[t - lo], sizes, anchor_sets=sets))
+
+            def own(i):
+                return model.single(x(i), *reduced[i], generator)
+
+            def skip(t):
+                model.skip_draws(n, generator, dev)
+        hx = gather_own(snapshot_loop(parts, time_length, own, skip), parts)
+        if cls is GCRN:
+            outs, _ = rnn_scan(model.rnn, hx)
+            return model.norm(outs)
+        return hx
+
+    return fwd
+
+
+def make_forward(method, layout=None, node_num=None, time_length=None):
     """(model, data, generator=None) -> embeddings of ``method`` (VGRNN's
     forward also takes ``hx`` and returns more, ``_vgrnn_forward``); the
     zoo draws its dropout masks (SAGE its samples, EvolveGCN its rrelu
@@ -537,7 +641,9 @@ def make_forward(method, layout=None, node_num=None):
     slope, and SAGE, VGRNN and PGNN draw from a generator seeded 0.
 
     ``layout`` "graph" gives the halo forwards over ``data["halo_adjs"]``
-    (``node_num`` nodes), "time" the time-sharded forward."""
+    (``node_num`` nodes), "time" the time-sharded forwards of a window of
+    ``time_length`` snapshots, "pipeline" the pipelined CTGCN forward;
+    "replica" the single-device forward."""
     kind, parts = layout if layout is not None else (None, None)
     if kind == "graph" and method in FAMILY:
         def fwd(model, data, generator=None):
@@ -549,12 +655,19 @@ def make_forward(method, layout=None, node_num=None):
             return halo_gcn_forward(model, data["xs"], data["halo_adjs"],
                                     node_num, parts, generator=generator)
         return fwd
-    if kind == "time":
+    if kind == "pipeline":
+        def fwd(model, data, generator=None):
+            return ctgcn_pipelined_forward(model, data["xs"], data["adjs"],
+                                           parts)
+        return fwd
+    if kind == "time" and method in FAMILY:
         def fwd(model, data, generator=None):
             return time_sharded_forward(model, data["xs"], data["adjs"],
                                         parts)
         return fwd
     cls = PORTED_METHODS[method]
+    if kind == "time":
+        return _zoo_time_forward(cls, parts, time_length, node_num)
     if cls in (GCN, GAT, GCRN, EvolveGCN):
         return _adj_forward
     if cls is GIN:
@@ -737,7 +850,7 @@ def _supervised_parts(method, args, data_loader, idx, time_length, rng,
         splits = build_link_splits(edge_list, data_loader.node_num, *ratios,
                                    lt, rng)
         auc_fn = binary_auc
-    fwd = make_forward(method, layout, data_loader.node_num)
+    fwd = make_forward(method, layout, data_loader.node_num, time_length)
     forward_fn = (_vgrnn_supervised_forward(fwd, lt) if method == "VGRNN"
                   else _supervised_forward(fwd, lt, method in S_VARIANTS))
     return (classifier, forward_fn,
@@ -757,19 +870,30 @@ def build_trainer(method, args, data_loader, idx, time_length, device,
     without a part draws what the others draw and gets None."""
     base_path = args["base_path"]
     rng = rng if rng is not None else np.random.RandomState(seed)
+    lt = args["learning_type"]
     input_dim, data = get_input_data(method, idx, time_length, data_loader,
                                      args, rng=rng, device=device,
                                      layout=layout)
     args["input_dim"] = input_dim
     kind, parts = layout if layout is not None else (None, None)
     if parts is not None and parts.index is None:
+        if lt in SUPERVISED_TYPES:
+            _supervised_parts(method, args, data_loader, idx, time_length,
+                              rng, seed, layout)
         get_gnn_model(method, time_length, args, generator)
         return None
     data = _data_to(data, device)
     s_variant = method in S_VARIANTS
     vgrnn = method == "VGRNN"
-    lt = args["learning_type"]
-    fwd = make_forward(method, layout, data_loader.node_num)
+    fwd = make_forward(method, layout, data_loader.node_num, time_length)
+    sharding = _sharding(layout, time_length)
+
+    def new_model():
+        model = get_gnn_model(method, time_length, args, generator)
+        if kind in ("time", "pipeline"):
+            shard_time(model, parts, time_length)
+        return model.to(device)
+
     if s_variant:
         embed_fn = _embed_trans(fwd)
     elif vgrnn:
@@ -789,14 +913,14 @@ def build_trainer(method, args, data_loader, idx, time_length, device,
         classifier, forward_fn, loss_fn, auc_fn, splits = _supervised_parts(
             method, args, data_loader, idx, time_length, rng, seed, layout)
         split_seconds = time.time() - t0
-        model = get_gnn_model(method, time_length, args, generator).to(device)
         trainer = SupervisedEmbedding(
-            model=model,
+            model=new_model(),
             classifier=None if classifier is None else classifier.to(device),
             forward_fn=forward_fn, loss_fn=loss_fn, auc_fn=auc_fn,
             splits={k: tuple(a.to(device) for a in v)
                     for k, v in splits.items()},
-            state_init=_vgrnn_state_init if vgrnn else None, **common)
+            state_init=_vgrnn_state_init if vgrnn else None,
+            sharding=sharding, **common)
         trainer.split_seconds = split_seconds
         return trainer
     if lt == "U-neg":
@@ -816,12 +940,7 @@ def build_trainer(method, args, data_loader, idx, time_length, device,
     if vgrnn:
         common.update(state_init=_vgrnn_state_init,
                       embed_state_fn=_embed_fn_stateful(fwd))
-    model = get_gnn_model(method, time_length, args, generator)
-    if kind == "time":
-        shard_time(model, parts, time_length)
-    sharding = (None if kind is None
-                else Sharding(parts, kind, time_length=time_length))
-    return UnsupervisedEmbedding(model=model.to(device), loss_fn=loss_fn,
+    return UnsupervisedEmbedding(model=new_model(), loss_fn=loss_fn,
                                  sharding=sharding, **common)
 
 

@@ -23,16 +23,22 @@ whose embeddings are exported.
 The optimizer is ``torch.optim.Adam(lr, weight_decay=wd)``: L2 added to
 the gradient before the moment updates, eps 1e-8 -- the same update as
 the JAX package's ``optax.chain(add_decayed_weights, scale_by_adam,
-scale(-lr))``.  Parameters are saved with ``torch.save(state_dict)``;
+scale(-lr))``.  optax updates every leaf, so a parameter that no loss
+reached (PGNN's first position head) gets a zero gradient before each
+step and its weight decay still moves it; torch's Adam would skip it.
+Parameters are saved with ``torch.save(state_dict)``;
 ``load_model_file`` reads them back and refuses a file that ``torch.save``
 did not write (the JAX package writes flax msgpack at the same path).
 
-Under several parts (``parallel.mesh.Sharding``, U-neg and U-own): every
-part draws the same batches and negatives from the same seeded generators,
-the gradients are reduced by the sharding's rule before each optimizer
-step, rank 0 alone writes the CSVs and the model file, and the model file
-is the whole model's ``state_dict`` (time-stacked slices gathered first),
-the keys of the single-device file, so ``load_model_file`` reads either.
+Under several parts (``parallel.mesh.Sharding``, every learning type):
+every part draws the same batches, negatives and dropout from the same
+seeded generators, the gradients are reduced by the sharding's rule before
+each optimizer step (a classifier's averaged: it is used after the
+gather), rank 0 alone writes the CSVs and the model files, and the model
+file is the whole model's ``state_dict`` (time-stacked slices gathered
+first), the keys of the single-device file, so ``load_model_file`` reads
+either.  The supervised trainer keeps the best-on-validation parameters
+when part 0 says so: every part makes that choice together.
 """
 from __future__ import annotations
 
@@ -45,7 +51,7 @@ import numpy as np
 import torch
 
 from ctgcn_torch.data.formats import write_embedding_csvs
-from ctgcn_torch.parallel.dist import is_primary
+from ctgcn_torch.parallel.dist import is_primary, part0_flag
 from ctgcn_torch.utils import check_and_make_path
 
 
@@ -85,9 +91,20 @@ def load_model_file(model, path, device, sharding=None):
         sharding.load_state_dict(model, state)
 
 
+class _Adam(torch.optim.Adam):
+    """``torch.optim.Adam`` over every parameter, each without a gradient
+    given zeros first (optax's update of every leaf)."""
+
+    def step(self, closure=None):
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None and p.requires_grad:
+                    p.grad = torch.zeros_like(p)
+        return super().step(closure)
+
+
 def make_optimizer(params, lr, weight_decay=0.0):
-    return torch.optim.Adam(params, lr=lr, weight_decay=weight_decay,
-                            eps=1e-8)
+    return _Adam(params, lr=lr, weight_decay=weight_decay, eps=1e-8)
 
 
 class BaseEmbedding:
@@ -266,13 +283,16 @@ class SupervisedEmbedding(BaseEmbedding):
         parameters; the test forward starts from it (from a fresh state
         when no validation epoch ran) and its embeddings are the ones
         exported.
+      sharding: optional ``parallel.mesh.Sharding`` of a model split over
+        parts, as ``UnsupervisedEmbedding``'s; the classifier is
+        replicated.
       The others as ``BaseEmbedding``'s.
     """
 
     def __init__(self, base_path, origin_folder, embedding_folder, node_list,
                  model, classifier, forward_fn, loss_fn, embed_fn, auc_fn,
                  data, splits, device, model_folder="model", file_sep="\t",
-                 state_init=None):
+                 state_init=None, sharding=None):
         super().__init__(base_path, origin_folder, embedding_folder,
                          node_list, model, embed_fn, data, device,
                          model_folder=model_folder, file_sep=file_sep)
@@ -282,6 +302,7 @@ class SupervisedEmbedding(BaseEmbedding):
         self.auc_fn = auc_fn
         self.splits = splits
         self.state_init = state_init
+        self.sharding = sharding
 
     def _modules(self):
         return [m for m in (self.model, self.classifier) if m is not None]
@@ -319,11 +340,13 @@ class SupervisedEmbedding(BaseEmbedding):
         ``best_acc_val``, ``acc_test``, ``auc_test``, ``loss_test`` and
         ``export_seconds`` (embedding export)."""
         model, cls = self.model, self.classifier
+        sharding = self.sharding
         stateful = self.state_init is not None
+        verbose = verbose and is_primary()
         model_path = os.path.join(self.model_base_path, model_file or "")
         cls_path = os.path.join(self.model_base_path, classifier_file or "")
         if load_model and model_file and os.path.exists(model_path):
-            load_model_file(model, model_path, self.device)
+            load_model_file(model, model_path, self.device, sharding)
             if (cls is not None and classifier_file
                     and os.path.exists(cls_path)):
                 load_model_file(cls, cls_path, self.device)
@@ -341,6 +364,8 @@ class SupervisedEmbedding(BaseEmbedding):
             state = self.state_init(model, self.data) if stateful else None
             loss, acc, _, *rest = self._run("train", gen, state)
             loss.backward()
+            if sharding is not None:
+                sharding.reduce_grads(model, *self._modules()[1:])
             optimizer.step()
             losses.append(float(loss.detach()))
             if e == 0:
@@ -355,7 +380,10 @@ class SupervisedEmbedding(BaseEmbedding):
                 loss_v, acc_v, preds_v, *rest_v = self._run("val", None,
                                                             state)
             acc_vals.append(float(acc_v))
-            if acc_vals[-1] > best_acc:
+            better = acc_vals[-1] > best_acc
+            if sharding is not None:
+                better = part0_flag(better, sharding.parts, self.device)
+            if better:
                 best_acc, best = acc_vals[-1], self._params()
                 best_state = rest_v[0] if stateful else None
             if verbose:
@@ -371,8 +399,11 @@ class SupervisedEmbedding(BaseEmbedding):
         for m, params in zip(self._modules(), best):
             m.load_state_dict(params)
         if model_file:
-            torch.save(model.state_dict(), model_path)
-        if classifier_file and cls is not None:
+            state = (model.state_dict() if sharding is None
+                     else sharding.state_dict(model))
+            if is_primary():
+                torch.save(state, model_path)
+        if classifier_file and cls is not None and is_primary():
             torch.save(cls.state_dict(), cls_path)
         with torch.no_grad():
             if stateful and best_state is None:
@@ -381,8 +412,10 @@ class SupervisedEmbedding(BaseEmbedding):
                                                             best_state)
         _, labels_te, mask_te = self.splits["test"]
         auc_te = self.auc_fn(preds_te, labels_te, mask_te)
-        print(f"Test set results: loss= {float(loss_te):.4f} "
-              f"accuracy= {float(acc_te):.4f} auc= {auc_te:.4f}", flush=True)
+        if is_primary():
+            print(f"Test set results: loss= {float(loss_te):.4f} "
+                  f"accuracy= {float(acc_te):.4f} auc= {auc_te:.4f}",
+                  flush=True)
         cost_time = time.time() - st
         t_export = time.time()
         if export:
@@ -391,7 +424,8 @@ class SupervisedEmbedding(BaseEmbedding):
             else:
                 with torch.no_grad():
                     output = self.embed_fn(model, self.data)
-            self.save_embedding(output, start_idx)
+            if is_primary():
+                self.save_embedding(output, start_idx)
         return {"cost_time": cost_time, "losses": losses,
                 "epoch_seconds": epoch_seconds, "acc_val": acc_vals,
                 "best_acc_val": best_acc, "acc_test": float(acc_te),

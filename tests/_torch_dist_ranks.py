@@ -1,5 +1,7 @@
 # coding: utf-8
-"""Rank entry of ``tests/test_torch_dist.py``: one gloo process of a
+"""Rank entry of the port's multi-rank tests (``tests/test_torch_dist.py``,
+``tests/test_torch_pipeline.py``, ``tests/test_torch_zoo_dist.py``,
+``tests/test_torch_supervised_dist.py``): one gloo process of a
 ``torch.multiprocessing`` spawn (which re-imports this module, so it
 imports no JAX).
 
@@ -32,6 +34,9 @@ from ctgcn_torch.parallel.graph_partition import (
     sharded_gcn_layer, sharded_spmm, sharded_spmm_halo)
 from ctgcn_torch.parallel.mesh import (Sharding, shard_time, time_chunk,
                                        time_sharded_forward)
+from ctgcn_torch.parallel.pipeline import (ctgcn_pipelined_forward,
+                                           pipelined_rnn_scan)
+from ctgcn_torch.ops.rnn import GRUCell, LSTMCell
 from ctgcn_torch.training.engine import make_optimizer
 
 
@@ -139,10 +144,25 @@ def _pyramids(mats, n, k, keep):
                            for t in keep])
 
 
+def _grad_state(sharding, model):
+    """The whole model's gradients, keys as its ``state_dict`` (each
+    parameter's data swapped for its gradient while ``Sharding.state_dict``
+    assembles them)."""
+    params = list(model.parameters())
+    data = [p.data for p in params]
+    for p in params:
+        p.data = p.grad
+    try:
+        return {k: _np(v) for k, v in sharding.state_dict(model).items()}
+    finally:
+        for p, d in zip(params, data):
+            p.data = d
+
+
 def _time(rank, world, inp):
-    """The time-sharded step of each case: loss, the whole model's
-    gradients and its parameters after one Adam step; and the gather's
-    gradient rule."""
+    """The time-sharded step of each case (the pipelined one for a case
+    with ``pipeline``): loss, the whole model's gradients and its
+    parameters after one Adam step; and the gather's gradient rule."""
     parts = make_parts(world)
     out = {}
     for name, case in inp["cases"].items():
@@ -153,8 +173,10 @@ def _time(rank, world, inp):
         shard_time(model, parts, T)
         lo, hi = time_chunk(parts, T)
         k = max(len(m) for m in case["mats"])
-        res = time_sharded_forward(model, None,
-                                   _pyramids(case["mats"], n, k,
+        pipeline = case.get("pipeline", False)
+        forward = ctgcn_pipelined_forward if pipeline else \
+            time_sharded_forward
+        res = forward(model, None, _pyramids(case["mats"], n, k,
                                              range(lo, hi)), parts)
         b_idx = torch.from_numpy(case["b_idx"]).long()
         b_mask = torch.from_numpy(case["b_mask"])
@@ -167,17 +189,13 @@ def _time(rank, world, inp):
                                 torch.from_numpy(case["j"]),
                                 torch.from_numpy(case["neg"]), Q=case["Q"])
         loss.backward()
-        sharding = Sharding(parts, "time", time_length=T)
+        sharding = Sharding(parts, "time", time_length=T, pipeline=pipeline)
         sharding.reduce_grads(model)
-        grads = CTGCN(*case["dims"], **case["kw"])
-        shard_time(grads, parts, T)
-        for g, p in zip(grads.parameters(), model.parameters()):
-            g.data = p.grad.clone()
-        grad_state = sharding.state_dict(grads)
+        grad_state = _grad_state(sharding, model)
         make_optimizer(list(model.parameters()), case["lr"],
                        case["wd"]).step()
         out[name] = {"loss": float(loss),
-                     "grads": {kk: _np(v) for kk, v in grad_state.items()},
+                     "grads": grad_state,
                      "params": {kk: _np(v) for kk, v in
                                 sharding.state_dict(model).items()},
                      "own": [lo, hi],
@@ -192,21 +210,192 @@ def _time(rank, world, inp):
     return out
 
 
+#: what ``_cli`` returns of each window's results, where present
+CLI_KEYS = ("idx", "parts", "core_backend", "losses", "acc_val",
+            "best_acc_val", "acc_test")
+
+
 def _cli(rank, world, inp):
-    """The port's CLI under each of the test's configs; rank 0 writes the
+    """The port's CLI under each of the test's configs (the method of
+    ``inp["methods"][tag]``, else ``inp["method"]``); rank 0 writes the
     CSVs and the model file."""
     from ctgcn_torch import main as cli
 
     out = {}
     for tag, cfg in inp["configs"].items():
+        method = inp.get("methods", {}).get(tag, inp.get("method"))
         res = cli.main([f"--config={cfg}", "--task=embedding",
-                        f"--method={inp['method']}", "--device=cpu"])
-        out[tag] = [{k: r[k] for k in ("idx", "parts", "core_backend",
-                                       "losses")} for r in res]
+                        f"--method={method}", "--device=cpu"])
+        out[tag] = [{k: r[k] for k in CLI_KEYS if k in r} for r in res]
     return out
 
 
-JOBS = {"halo": _halo, "time": _time, "cli": _cli}
+def _window(method, args, rng_seed=8):
+    """The driver's trainer of window 0 of ``args`` (its layout over the
+    group) on the CPU, the model drawn from a generator seeded 0 and the
+    window's ``RandomState`` seeded ``rng_seed``."""
+    from ctgcn_torch.training import driver as TD
+
+    args = dict(args)
+    loader = TD.get_data_loader(args)
+    T = args["duration"]
+    layout = TD.make_layout(method, args, T)
+    trainer = TD.build_trainer(method, args, loader, 0, T,
+                               torch.device("cpu"),
+                               torch.Generator().manual_seed(0),
+                               rng=np.random.RandomState(rng_seed),
+                               layout=layout)
+    return trainer, TD.make_forward(method, layout, loader.node_num, T), \
+        layout
+
+
+def _given(case):
+    """The draws a case gives the forward: PGNN's anchor sets, VGRNN's
+    noise."""
+    extra = {}
+    if "anchors" in case:
+        extra["anchor_sets"] = [[torch.from_numpy(a) for a in sets]
+                                for sets in case["anchors"]]
+    if "noise" in case:
+        extra["noise"] = [torch.from_numpy(z) for z in case["noise"]]
+    return extra
+
+
+def _zoo_step(rank, world, inp):
+    """Each zoo method's U-neg step through the driver's layout over the
+    group (the JAX parameters loaded through the sharding, the JAX
+    sampler's draws): loss, the whole model's gradients and its
+    parameters after one Adam step; and, under each method's config as
+    written (its dropout), the forward with a generator seeded
+    ``inp["seed"]`` and the generator's next draws after it."""
+    out = {}
+    for method, case in inp["cases"].items():
+        trainer, fwd, layout = _window(method, case["config"])
+        model, sharding = trainer.model, trainer.sharding
+        sharding.load_state_dict(model, {k: torch.from_numpy(v)
+                                         for k, v in case["state"].items()})
+        res = fwd(model, trainer.data, None, **_given(case))
+        embs = res[0] if method == "VGRNN" else res
+        loss = TL.uneg_loss(embs, torch.from_numpy(case["b_idx"]).long(),
+                            torch.from_numpy(case["b_mask"]),
+                            trainer.data["walk"], torch.from_numpy(case["j"]),
+                            torch.from_numpy(case["neg"]), Q=case["Q"])
+        loss.backward()
+        sharding.reduce_grads(model)
+        grads = _grad_state(sharding, model)
+        make_optimizer(list(model.parameters()), case["lr"],
+                       case["wd"]).step()
+        out[method] = {"loss": float(loss.detach()), "grads": grads,
+                       "params": {k: _np(v) for k, v in
+                                  sharding.state_dict(model).items()},
+                       "kind": layout[0], "parts": layout[1].count,
+                       "own_keys": sorted(model.state_dict())}
+    for method, case in inp["draws"].items():
+        trainer, fwd, _ = _window(method, case["config"])
+        trainer.sharding.load_state_dict(
+            trainer.model, {k: torch.from_numpy(v)
+                            for k, v in case["state"].items()})
+        gen = torch.Generator().manual_seed(inp["seed"])
+        res = fwd(trainer.model, trainer.data, gen)
+        out[method]["drawn"] = _np(res[0] if method == "VGRNN" else res)
+        out[method]["next"] = _np(torch.rand(8, generator=gen))
+    return out
+
+
+def _pipeline(rank, world, inp):
+    """``pipelined_rnn_scan`` of each cell (its outputs, the cell's summed
+    gradients and xs's gradient, gathered) and ``ctgcn_pipelined_forward``
+    of each model (its outputs and the whole model's gradients, reduced by
+    the pipeline's rule), for the loss sum(tanh(y) * w)."""
+    parts = make_parts(world)
+    out = {}
+    xs, w = inp["xs"], torch.from_numpy(inp["w"])
+    T, n = xs.shape[0], xs.shape[1]
+    lo, hi = time_chunk(parts, T)
+    for rnn_type, state in inp["cells"].items():
+        cell = (GRUCell if rnn_type == "GRU" else LSTMCell)(
+            xs.shape[2], state["w_hh"].shape[1])
+        cell.load_state_dict({k: torch.from_numpy(v)
+                              for k, v in state.items()})
+        x = torch.tensor(xs[lo:hi], requires_grad=True)
+        y = gather_own(pipelined_rnn_scan(cell, x, parts, inp["K"]), parts)
+        (torch.tanh(y) * w).sum().backward()
+        all_reduce_grads(cell.parameters(), parts)
+        out[rnn_type] = {"y": _np(y), "grads": _grads(cell),
+                         "dx": _np(_gather_rows(x.grad, parts))}
+    for name, case in inp["models"].items():
+        model = CTGCN(*case["dims"], **case["kw"])
+        model.load_state_dict({k: torch.from_numpy(v)
+                               for k, v in case["state"].items()})
+        shard_time(model, parts, T)
+        k = max(len(m) for m in case["mats"])
+        res = ctgcn_pipelined_forward(
+            model, None, _pyramids(case["mats"], case["n"], k,
+                                   range(lo, hi)), parts)
+        embs, trans = res if model.model_type == "S" else (res, None)
+        loss = (torch.tanh(embs) * torch.from_numpy(case["w"])).sum()
+        if trans is not None:
+            loss = loss + 0.5 * trans.square().sum()
+        loss.backward()
+        sharding = Sharding(parts, "time", time_length=T, pipeline=True)
+        sharding.reduce_grads(model)
+        out[name] = {"embs": _np(embs),
+                     "trans": None if trans is None else _np(trans),
+                     "grads": _grad_state(sharding, model)}
+    return out
+
+
+def _supervised_step(rank, world, inp):
+    """Each supervised case's train step through the driver's layout over
+    the group (the JAX parameters loaded, the JAX forward's draws given):
+    loss, accuracy, the whole model's gradients and the classifier's,
+    reduced by the sharding's rule, and both modules' parameters after one
+    Adam step."""
+    import functools
+
+    from ctgcn_torch.training import driver as TD
+
+    out = {}
+    for name, case in inp["cases"].items():
+        method, cfg = case["method"], case["config"]
+        trainer, fwd, layout = _window(method, cfg, rng_seed=cfg["seed"])
+        model, cls, sharding = (trainer.model, trainer.classifier,
+                                trainer.sharding)
+        sharding.load_state_dict(model, {k: torch.from_numpy(v)
+                                         for k, v in case["state"].items()})
+        if cls is not None:
+            cls.load_state_dict({k: torch.from_numpy(v)
+                                 for k, v in case["cls_state"].items()})
+        given = _given(case)
+        lt = cfg["learning_type"]
+        if method == "VGRNN":
+            trainer.forward_fn = TD._vgrnn_supervised_forward(
+                functools.partial(fwd, **given), lt)
+        elif given:
+            trainer.forward_fn = TD._supervised_forward(
+                functools.partial(fwd, **given), lt, False)
+        state = (trainer.state_init(model, trainer.data)
+                 if trainer.state_init is not None else None)
+        loss, acc, *_ = trainer._run("train", None, state)
+        loss.backward()
+        modules = [model] + ([cls] if cls is not None else [])
+        sharding.reduce_grads(model, *modules[1:])
+        out[name] = {"loss": float(loss.detach()), "acc": float(acc),
+                     "grads": _grad_state(sharding, model),
+                     "cls_grads": None if cls is None else _grads(cls),
+                     "kind": layout[0], "parts": layout[1].count}
+        make_optimizer([p for m in modules for p in m.parameters()],
+                       case["lr"], case["wd"]).step()
+        out[name]["params"] = {k: _np(v) for k, v in
+                               sharding.state_dict(model).items()}
+        out[name]["cls_params"] = (None if cls is None else
+                                   {k: _np(v) for k, v in
+                                    cls.state_dict().items()})
+    return out
+
+
+JOBS = {"halo": _halo, "time": _time, "cli": _cli, "pipeline": _pipeline,
+        "zoo_step": _zoo_step, "supervised_step": _supervised_step}
 
 
 def main(rank, world, workdir, jobs):

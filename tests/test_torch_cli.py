@@ -115,21 +115,21 @@ def test_default_device_without_gpu_raises(dataset):
 
 @pytest.mark.parametrize("change, error", [
     ({"remat_policy": "save_spmm"}, NotImplementedError),
-    ({"n_devices": 2, "temporal_pipeline": True}, NotImplementedError),
+    ({"n_devices": 2, "temporal_pipeline": True}, None),
     ({"matmul_precision": "fp8"}, ValueError),
     ({"profile_dir": "prof"}, NotImplementedError),
 ])
 def test_unported_options_raise(dataset, tmp_path, change, error):
-    """Options not ported yet raise.  ``temporal_pipeline`` raises where
-    more than one part would run: ``_check_scope`` at a world size of 2
-    (on one process the run is the single-device run)."""
+    """Options not ported yet raise; ``temporal_pipeline`` with
+    ``n_devices: 2`` is ported and passes ``_check_scope``, which no
+    longer reads the world size (``tests/test_torch_pipeline.py`` runs it
+    on 2 ranks)."""
     _, cfg, _, _ = dataset
     config = json.loads(Path(cfg).read_text())
     config["embedding"]["CTGCN-C"].update(change)
     if "n_devices" in change:
-        with pytest.raises(error, match="not ported.*ROADMAP.md"):
-            driver._check_scope("CTGCN-C", config["embedding"]["CTGCN-C"],
-                                world_size=2)
+        assert error is None
+        driver._check_scope("CTGCN-C", config["embedding"]["CTGCN-C"])
         return
     path = tmp_path / "cfg.json"
     path.write_text(json.dumps(config))
@@ -284,10 +284,11 @@ def test_embedding_without_core_backend_runs_auto(dataset, trained,
                                           ("embedding", "CTGCN-S")])
 def test_unported_tasks_and_methods_raise(dataset, tmp_path, task, method):
     """Every task and every method is ported: ``link_pred`` runs its
-    section, and an empty one stops at the first key it needs; what is
-    left to port are options, and a method's entry that asks for one (a
-    supervised learning type over several parts: ``_check_scope`` at a
-    world size of 2) raises ``NotImplementedError`` naming ROADMAP.md."""
+    section, and an empty one stops at the first key it needs; a
+    supervised learning type with ``n_devices: 2`` passes ``_check_scope``,
+    which no longer reads the world size
+    (``tests/test_torch_supervised_dist.py`` runs the supervised types on
+    2 ranks)."""
     _, cfg, _, _ = dataset
     config = json.loads(Path(cfg).read_text())
     config["link_pred"] = {}
@@ -303,6 +304,4 @@ def test_unported_tasks_and_methods_raise(dataset, tmp_path, task, method):
         with pytest.raises(KeyError, match="base_path"):
             cli.main(argv)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        driver._check_scope(method, config["embedding"][method],
-                            world_size=2)
+    driver._check_scope(method, config["embedding"][method])

@@ -379,15 +379,14 @@ def _cli_run(dataset, tmp_path, method, **change):
     ("GCN", {"remat_policy": "save_spmm"}), ("GCN", {"profile_dir": "prof"})])
 def test_unported_zoo_raises(dataset, tmp_path, method, change):
     """The options not ported yet raise under any zoo method, naming
-    ROADMAP.md: ``n_devices`` above 1 where more than one part would run
-    (the zoo's time sharding: ``_check_scope`` at a world size of 2), the
-    ``remat_policy: "save_spmm"`` knob and the ``profile_dir`` key (a
-    trace directory, which the JAX trainer writes)."""
+    ROADMAP.md: the ``remat_policy: "save_spmm"`` knob and the
+    ``profile_dir`` key (a trace directory, which the JAX trainer writes).
+    ``n_devices`` above 1 (the zoo's time sharding) is ported: it passes
+    ``_check_scope``, which no longer reads the world size
+    (``tests/test_torch_zoo_dist.py`` runs it on 2 ranks)."""
     _, _, emb = dataset
     if "n_devices" in change:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            TD._check_scope(method, dict(emb["GCN"], **change),
-                            world_size=2)
+        TD._check_scope(method, dict(emb["GCN"], **change))
         return
     path = tmp_path / "cfg.json"
     path.write_text(json.dumps({"embedding": {
