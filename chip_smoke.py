@@ -84,9 +84,7 @@ kernel against its plain PyTorch version:
                 hid 128, embed 128, gaussian degree features of width
                 1,149: 4.0 GB on the card) on a preprocessed copy of Enron
                 snapshots 000-009, 1 epoch: D^-1/2 (A + I) D^-1/2 on the
-                block-parallel kernel, both directions; its profile runs
-                on the trainer the CLI built (its host setup draws 1.0e9
-                gaussians: it is paid once);
+                block-parallel kernel, both directions;
   * math_egcn   ``configs/math.json`` EvolveGCN as written (N = 24,740,
                 T = 10, features of width 227) on a preprocessed copy of
                 Math snapshots 000-009 (longest rows 226-227), 3 epochs:
@@ -229,9 +227,15 @@ Phases, one line each:
                 and read just after: outputs and every gradient against
                 the plain run (rtol 1e-4), both step times, peak memory,
                 the launches (equal to the plain run's) and the exchanges
-                (K + P - 1 a forward);
+                (K + P - 1 a forward); and what the exchange carries: on
+                the group of one ``ring_shift`` sends part 0's carry to
+                itself, so a microbatch's h and LSTM's (h, c) must come
+                back bit-equal, and their gradients too;
      profile    an epoch's device time by kernel class (``torch.profiler``,
-                device activity only) on each path of ``PROFILED``;
+                device activity only) on each path of ``PROFILED``, right
+                after its counted run, on the trainer of that run's last
+                window (so a window's setup is paid once: enron_egcn's
+                draws 1.0e9 gaussians);
      memory     what lives at a VGRNN epoch's peak on uci_vgrnn and
                 math_vgrnn (window, parameters, gradients and Adam, the
                 tensors saved for the backward, the loss's z z^T chunk)
@@ -1166,8 +1170,8 @@ def phase_dist(runs, dev):
         out, losses = {}, {}
         for tag in DIST_RUNS:
             cfg = cfgs[tag]
-            res, wall, counts, peak = _run_cli_counted(cfg[0], method,
-                                                       dev)
+            res, wall, counts, peak, _ = _run_cli_counted(cfg[0], method,
+                                                          dev)
             ran = sorted(k for k, v in counts.items() if v)
             if ran != ([] if tag in ("plain", "rerun") else want):
                 raise AssertionError(f"{path} {tag}: launched {counts}")
@@ -1220,6 +1224,41 @@ PIPELINE_STEPS = 3
 PIPELINE_TOL = 1e-4
 
 
+def _ring_shift_check(parts, rows, width, dev):
+    """What ``ring_shift`` carries on the NCCL group of one, at a
+    microbatch's carry shape [rows, width]: part 0 is its own next and
+    previous part, so a GRU's h and an LSTM's (h, c) must come back
+    bit-equal, and the backward must hand the incoming gradients back
+    bit-equal.  (Inside the pipeline stage 0 replaces what it receives by
+    the zero carry, so the phase's output checks cannot see it.)  Returns
+    the collectives made."""
+    import torch
+
+    from ctgcn_torch.parallel import dist as pdist
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def randn():
+        return torch.randn(rows, width, generator=gen, device=dev)
+
+    anchor = torch.zeros((), device=dev, requires_grad=True)
+    calls = pdist.ring_shift.calls
+    for carry in ((randn(),), (randn(), randn())):
+        leaves = tuple(c.clone().requires_grad_(True) for c in carry)
+        out = pdist.ring_shift(leaves if len(leaves) > 1 else leaves[0],
+                               parts, anchor)
+        out = out if isinstance(out, tuple) else (out,)
+        grads = tuple(randn() for _ in out)
+        torch.autograd.backward(out, grads)
+        for name, got, want in (("carry", out, carry),
+                                ("gradient", tuple(x.grad for x in leaves),
+                                 grads)):
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"ring_shift of {len(carry)} "
+                                     f"tensor(s): the {name} changed")
+    return pdist.ring_shift.calls - calls
+
+
 def phase_pipeline(cfg, dev):
     """``temporal_pipeline``'s forward at full width, on the NCCL group of
     one (``_nccl_group_of_one``): window 0 of ``cfg`` (``configs/as.json``
@@ -1232,7 +1271,8 @@ def phase_pipeline(cfg, dev):
     just after.  The pipeline's outputs, loss and every gradient must lie
     within ``PIPELINE_TOL`` of the plain run's, its launches must equal
     the plain run's and reach both f32 kernels, and its forward must make
-    K + P - 1 exchanges.  Returns the pipeline's launches."""
+    K + P - 1 exchanges; then ``_ring_shift_check`` at the microbatch's
+    carry shape.  Returns the pipeline's launches."""
     import numpy as np
     import torch
 
@@ -1313,6 +1353,8 @@ def phase_pipeline(cfg, dev):
     if any(fwd != want for fwd, _ in pipe["exchanges"]):
         raise AssertionError(f"pipeline exchanges {pipe['exchanges']}, "
                              f"want {want} a forward")
+    shift_calls = _ring_shift_check(parts, loader.node_num // k,
+                                    model.rnn.hidden_dim, dev)
     _phase("pipeline", path="as_pipeline", method="CTGCN-C", time_length=T,
            nodes=loader.node_num, core_backend=data["adjs"].backend,
            parts=parts.count, microbatches=k,
@@ -1325,7 +1367,11 @@ def phase_pipeline(cfg, dev):
            losses={t: r["loss"] for t, r in runs.items()},
            loss_rel_gap=loss_gap, embeddings_max_abs_err=out_err,
            grads_max_abs_err=grad_err,
-           tolerance=f"rtol {PIPELINE_TOL}, atol {PIPELINE_TOL} * max|ref|")
+           tolerance=f"rtol {PIPELINE_TOL}, atol {PIPELINE_TOL} * max|ref|",
+           ring_shift="h and (h, c) of [%d, %d] and their gradients "
+                      "bit-equal through the group of one, %d collectives"
+                      % (loader.node_num // k, model.rnn.hidden_dim,
+                         shift_calls))
     return pipe["launches"]
 
 
@@ -2188,42 +2234,16 @@ def _epoch_kw(args):
     return kw
 
 
-@contextlib.contextmanager
-def _keeping_trainers():
-    """Within it, every trainer the driver builds is kept in the list it
-    yields (a path's profile then runs on the trainer its CLI run built)."""
-    from ctgcn_torch.training import driver
-
-    build, kept = driver.build_trainer, []
-
-    def keeping(*args, **kw):
-        kept.append(build(*args, **kw))
-        return kept[-1]
-
-    driver.build_trainer = keeping
-    try:
-        yield kept
-    finally:
-        driver.build_trainer = build
-
-
-def phase_profile(path, method, cfg, dev, epochs=2):
-    """Where a training epoch's time goes on the card on ``path``: the
-    window's setup (plans, walk tables, model, all moved to the card), then
-    the trainer after one warm-up epoch, ``epochs`` epochs timed on the
-    host clock, then ``epochs`` more under ``torch.profiler`` for the
+def phase_profile(path, trainer, kw, setup_s, epochs):
+    """Where a training epoch's time goes on the card on ``path``, on a
+    ready ``trainer`` (the one the path's CLI run built, whose window's
+    setup took ``setup_s``): one warm-up epoch, ``epochs`` epochs timed on
+    the host clock, then ``epochs`` more under ``torch.profiler`` for the
     device time by kernel class.  The profiler records the device's
     activity only: with the host's too, summing the events of the
     launch-heavy paths (Enron, America-Air) took it over a minute a path.
-    The idle share is 1 - device busy time / the unprofiled epoch time."""
-    t0 = time.time()
-    trainer, kw = _trainer(method, cfg, dev)
-    _profile_epochs(path, trainer, kw, time.time() - t0, epochs)
-
-
-def _profile_epochs(path, trainer, kw, setup_s, epochs):
-    """``phase_profile``'s measurement on a ready trainer; returns the
-    device busy ms of an epoch."""
+    The idle share is 1 - device busy time / the unprofiled epoch time.
+    Returns the device busy ms of an epoch."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2339,7 +2359,7 @@ def _saved_bytes(fn):
 def phase_pgnn(path, cfg, dev, epochs=2):
     """PGNN on ``path``: the window's setup (the proximity matrices on the
     host by row chunks of ``dijkstra``, each snapshot copied to the card),
-    then ``_profile_epochs``; the anchor selection's device time (CUDA
+    then ``phase_profile``; the anchor selection's device time (CUDA
     events: a window's draws, ``draw_anchor_sets``, and reductions,
     ``anchor_reduce``, each snapshot's) and its share of the profiled
     device epoch, beside the bytes its gathers move: the profiled
@@ -2356,7 +2376,7 @@ def phase_pgnn(path, cfg, dev, epochs=2):
     t0 = time.time()
     trainer, kw = _trainer("PGNN", cfg, dev)
     setup_s = time.time() - t0
-    busy = _profile_epochs(path, trainer, kw, setup_s, epochs)
+    busy = phase_profile(path, trainer, kw, setup_s, epochs)
 
     dists = trainer.data["pgnn_dists"]
     T, n = dists.shape[:2]
@@ -2522,7 +2542,7 @@ def _dyn_trainer(method, cfg, dev):
 
 
 def phase_dyn(path, method, cfg, dev, epochs=2):
-    """A non-GNN path's profile (``_profile_epochs`` after the window's
+    """A non-GNN path's profile (``phase_profile`` after the window's
     setup: its matrices, the dense [W, N, N] copy on the card, the model),
     then ``[memory]``: the dense window, the parameters, what one batch's
     loss saves for its backward, beside the measured peaks of that batch's
@@ -2533,7 +2553,7 @@ def phase_dyn(path, method, cfg, dev, epochs=2):
 
     t0 = time.time()
     trainer, kw = _dyn_trainer(method, cfg, dev)
-    _profile_epochs(path, trainer, kw, time.time() - t0, epochs)
+    phase_profile(path, trainer, kw, time.time() - t0, epochs)
     model, window = trainer.model, trainer.data[0]
     params = sum(p.numel() * p.element_size() for p in model.parameters())
     batch = dynae.draw_batches(trainer.row_num,
@@ -2617,7 +2637,8 @@ DYN_QUALITY_PATHS = {"uci_dyngem": "DynGEM", "uci_dynae": "DynAE",
                      "uci_timers": "TIMERS"}
 #: the non-GNN paths ``phase_dyn`` profiles
 DYN_PROFILED = ("math_dyngem", "math_dynae", "math_dynaernn", "as_dynrnn")
-#: the paths profiled, with their epochs under the profiler (aa_snode's
+#: the paths profiled, each on the trainer of its CLI run's last window,
+#: right after it, with their epochs under the profiler (aa_snode's
 #: 52,000 launches an epoch take the profiler minutes to sum; aa_sedge
 #: runs the same model); the PGNN paths are profiled by ``phase_pgnn``
 PROFILED = {"uci_auto": 2, "uci_pallas": 2, "as_auto": 2, "as_ctgcn_s": 2,
@@ -2626,9 +2647,6 @@ PROFILED = {"uci_auto": 2, "uci_pallas": 2, "as_auto": 2, "as_ctgcn_s": 2,
             "enron_gcn": 2, "math_gin": 2, "enron_gat": 2, "enron_sage": 2,
             "enron_gcrn": 2, "enron_egcn": 2, "uci_vgrnn": 2,
             "math_vgrnn": 2}
-#: the profiled paths whose profile runs on the trainer of their CLI run,
-#: right after it (enron_egcn's host setup draws 1.0e9 gaussians)
-PROFILED_FROM_PATH = ("enron_egcn",)
 
 
 def _write_config(path, method, pre, emb):
@@ -2658,7 +2676,9 @@ def _embedding_csv_shape(path, nodes, embed_dim):
 def _run_cli_counted(cfg_path, method, dev):
     """The embedding task of the config at ``cfg_path`` through the CLI,
     the launch counters set to 0 just before and read just after: (what it
-    returns, its wall seconds, the launches, the peak device memory)."""
+    returns, its wall seconds, the launches, the peak device memory, the
+    last window's trainer, taken out of what it returns; None for a task
+    that keeps none)."""
     import torch
 
     from ctgcn_torch import main as cli
@@ -2675,7 +2695,8 @@ def _run_cli_counted(cfg_path, method, dev):
     wall = time.time() - t0
     return (results, wall,
             {name: getattr(B, name).launches for name in KERNELS},
-            torch.cuda.max_memory_allocated(dev))
+            torch.cuda.max_memory_allocated(dev),
+            results[-1].pop("trainer", None))
 
 
 def _check_exports(path, emb, method, count):
@@ -2713,11 +2734,12 @@ def run_timers_path(path, cfg, method, backend, kernels, dev):
     """TIMERS (host ARPACK and numpy) through the CLI as ``run_path`` runs
     the others: no kernel launched (``kernels`` is empty), every snapshot's
     loss and bound finite, one CSV a snapshot holding every node.  Returns
-    the launch counts and the per-snapshot results."""
+    the launch counts, the per-snapshot results and None (it keeps no
+    trainer)."""
     import numpy as np
 
     cfg_path, _, emb = cfg
-    out, wall, launches, peak = _run_cli_counted(cfg_path, method, dev)
+    out, wall, launches, peak, _ = _run_cli_counted(cfg_path, method, dev)
     if any(n > 0 for name, n in launches.items() if name not in kernels):
         raise AssertionError(f"{path}: launches {launches}")
     losses = [r["loss"] for r in out]
@@ -2731,7 +2753,7 @@ def run_timers_path(path, cfg, method, backend, kernels, dev):
            bounds=bounds, reruns=[r["rerun"] for r in out],
            launches=launches, max_memory_allocated=peak,
            embedding_csvs=shapes)
-    return launches, out
+    return launches, out, None
 
 
 def run_path(path, cfg, method, backend, kernels, dev):
@@ -2740,12 +2762,13 @@ def run_path(path, cfg, method, backend, kernels, dev):
     ``backend`` ran in every window, the losses are finite, (when the
     config exports) every embedding CSV holds every node and (for a
     supervised type) the test accuracy and AUC lie in [0, 1]; that each
-    kernel of ``kernels`` was launched and no other.  Returns the launch counts
-    and the window results."""
+    kernel of ``kernels`` was launched and no other.  Returns the launch
+    counts, the window results and the last window's trainer."""
     import numpy as np
 
     cfg_path, _, emb = cfg
-    results, wall, launches, peak = _run_cli_counted(cfg_path, method, dev)
+    results, wall, launches, peak, trainer = _run_cli_counted(cfg_path,
+                                                              method, dev)
     backends = [r["core_backend"] for r in results]
     if not results or backends != [backend] * len(results):
         raise AssertionError(f"{path}: backends {backends}, want "
@@ -2784,7 +2807,7 @@ def run_path(path, cfg, method, backend, kernels, dev):
            export_seconds=[r["export_seconds"] for r in results],
            losses=losses, launches=launches, max_memory_allocated=peak,
            embedding_csvs=shapes, **supervised)
-    return launches, results
+    return launches, results, trainer
 
 
 def _enron_acc_gate(cfg):
@@ -3279,21 +3302,19 @@ def main():
         phase_parity_supervised(dev)
         phase_parity_dyn(dev)
 
-        # 4. the paths, counters set to 0 just before and read just after
+        # 4. the paths, counters set to 0 just before and read just after,
+        # and where an epoch's time goes on the profiled ones (after the
+        # counted run, on the trainer it built)
         launches, results = {}, {}
         for path, (cfg, method, backend, kerns) in PATHS.items():
             run = run_timers_path if method == "TIMERS" else run_path
-            if path not in PROFILED_FROM_PATH:
-                launches[path], results[path] = run(
-                    path, cfgs[cfg], method, backend, kerns, dev)
-                continue
-            with _keeping_trainers() as kept:
-                launches[path], results[path] = run(
-                    path, cfgs[cfg], method, backend, kerns, dev)
-            _profile_epochs(path, kept[-1], _epoch_kw(cfgs[cfg][2]),
-                            results[path][0]["setup_seconds"],
-                            PROFILED[path])
-            del kept
+            launches[path], results[path], trainer = run(
+                path, cfgs[cfg], method, backend, kerns, dev)
+            if path in PROFILED:
+                phase_profile(path, trainer, _epoch_kw(cfgs[cfg][2]),
+                              results[path][-1]["setup_seconds"],
+                              PROFILED[path])
+            del trainer
         first = {p: results[p][0]["losses"][0]
                  for p in ("enron_bf16", "enron_highest")}
         gap = (abs(first["enron_bf16"] - first["enron_highest"])
@@ -3307,11 +3328,6 @@ def main():
         with _nccl_group_of_one(dev):
             launches.update(phase_dist(dist_runs, dev))
             launches["pipeline"] = phase_pipeline(cfgs["as"][2], dev)
-        # where an epoch's time goes (after the counted runs)
-        for path, epochs in PROFILED.items():
-            cfg, method = PATHS[path][:2]
-            if path not in PROFILED_FROM_PATH:
-                phase_profile(path, method, cfgs[cfg][2], dev, epochs=epochs)
         for path in ("uci_vgrnn", "math_vgrnn"):
             phase_vgrnn_memory(path, cfgs[path][2], dev)
         for path in ("uci_pgnn", "aa_pgnn", "math_pgnn"):

@@ -42,7 +42,7 @@ from torch import nn
 from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ctgcn_torch.nn.layers import MLP, LayerNorm
+from ctgcn_torch.nn.layers import MLP, LayerNorm, TimeRule
 from ctgcn_torch.ops.bsr_spmm import pyramid_spmm
 from ctgcn_torch.ops.ell import ell_spmm
 from ctgcn_torch.ops.pyramid import CorePyramid, pyramid_at
@@ -358,6 +358,8 @@ class CTGCN(nn.Module):
     """Temporal k-core GCN: per timestep an MLP and a CDN with their own
     parameters (the shapes of ``CGCN``'s variant), then one time-axis RNN
     and LayerNorm.  Returns [T, N, out], or (out, trans) for 'S'."""
+
+    time_rule = TimeRule(("mlps", "cdns"), ("rnn", "norm"))
 
     def __init__(self, input_dim, hidden_dim, output_dim, trans_num,
                  diffusion_num, duration, bias=True, rnn_type="GRU",

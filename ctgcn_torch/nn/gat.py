@@ -30,7 +30,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from ctgcn_torch.nn.gcn import _dropout, skip_dropout
+from ctgcn_torch.nn.gcn import _dropout, per_snapshot, skip_dropout
 from ctgcn_torch.ops.ell import ell_spmm_ev
 from ctgcn_torch.ops.spmm import spmm_ev
 
@@ -114,8 +114,17 @@ class GAT(nn.Module):
                      self.dropout, generator, device)
         skip_dropout((n_edges,), self.out_att.dropout, generator, device)
 
-    def forward(self, xs, adjs, generator=None):
-        """xs [T, N, in] or None; adjs: T ``SparseGraph``s -> [T, N, out]."""
-        return torch.stack([
-            self.single(None if xs is None else xs[t], adj, generator)
-            for t, adj in enumerate(adjs)])
+    def forward(self, xs, adjs, generator=None, own=None, time_length=None,
+                edge_counts=None):
+        """xs [T, N, in] or None; adjs: T ``SparseGraph``s -> [T, N, out]
+        (the ``own`` snapshots of ``time_length``: ``per_snapshot``; every
+        snapshot's stored edge count ``edge_counts[t]`` sizes the edge
+        dropout of the others)."""
+        n, dev = adjs[0].n_rows, adjs[0].vals.device
+        in_dim = None if xs is None else xs.shape[-1]
+        return per_snapshot(
+            lambda i: self.single(None if xs is None else xs[i], adjs[i],
+                                  generator),
+            lambda t: self.skip_draws(n, int(edge_counts[t]), generator, dev,
+                                      in_dim),
+            time_length or len(adjs), own)

@@ -11,6 +11,12 @@ normalization, a GRU or LSTM over time and a LayerNorm.
 and bias: out_dim, unlike ``torch.nn.Linear``.  Dropout draws its mask from
 the ``generator`` passed in (the engine's; GCRN's steps draw one after
 another), and is off without one (the export).
+
+A time part runs the per-snapshot forwards on its own snapshots only
+(``own``, a range of the window's ``time_length`` timesteps; all of them
+by default) and draws, for every other snapshot in window order, what its
+forward would draw (``skip_draws``), so that a part's generator gives what
+one device's gives (``per_snapshot``).
 """
 from __future__ import annotations
 
@@ -21,7 +27,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from ctgcn_torch.nn.core_models import _make_rnn
-from ctgcn_torch.nn.layers import LayerNorm
+from ctgcn_torch.nn.layers import LayerNorm, TimeRule
 from ctgcn_torch.ops.rnn import rnn_scan
 from ctgcn_torch.ops.spmm import spmm
 
@@ -42,6 +48,22 @@ def skip_dropout(shape, rate, generator, device):
     passes another part's snapshot this way)."""
     if generator is not None and rate:
         torch.rand(shape, generator=generator, device=device)
+
+
+def per_snapshot(single, skip, time_length, own=None):
+    """``single(i)`` stacked over the snapshots the caller holds, i counted
+    from 0: all ``time_length`` of the window, or those whose timesteps
+    lie in the range ``own`` (a time part's), with ``skip(t)`` called in
+    window order for every other timestep t, to draw what its snapshot's
+    forward draws."""
+    own = range(time_length) if own is None else own
+    outs = []
+    for t in range(time_length):
+        if t in own:
+            outs.append(single(t - own.start))
+        else:
+            skip(t)
+    return torch.stack(outs)
 
 
 class GraphConvolution(nn.Module):
@@ -83,17 +105,23 @@ class GCN(nn.Module):
         skip_dropout((n, self.gc1.weight.shape[1]), self.dropout, generator,
                      device)
 
-    def forward(self, xs, adjs, generator=None):
-        """xs [T, N, in] or None; adjs: T ``SparseGraph``s -> [T, N, out]."""
-        return torch.stack([
-            self.single(None if xs is None else xs[t], adj, generator)
-            for t, adj in enumerate(adjs)])
+    def forward(self, xs, adjs, generator=None, own=None, time_length=None):
+        """xs [T, N, in] or None; adjs: T ``SparseGraph``s -> [T, N, out]
+        (the ``own`` snapshots of ``time_length``: ``per_snapshot``)."""
+        n, dev = adjs[0].n_rows, adjs[0].vals.device
+        return per_snapshot(
+            lambda i: self.single(None if xs is None else xs[i], adjs[i],
+                                  generator),
+            lambda t: self.skip_draws(n, generator, dev),
+            time_length or len(adjs), own)
 
 
 class GCRN(nn.Module):
     """One ``GCN`` per timestep (``duration`` of them), each output row
     divided by max(its L2 norm, 1e-12), then a GRU or LSTM (``rnn_type``)
     over time and a LayerNorm."""
+
+    time_rule = TimeRule(("gcns",), ("rnn", "norm"))
 
     def __init__(self, input_dim, hidden_dim, output_dim, duration,
                  dropout=0.5, bias=True, rnn_type="GRU", generator=None):
@@ -105,12 +133,22 @@ class GCRN(nn.Module):
                              generator)
         self.norm = LayerNorm(output_dim)
 
-    def forward(self, xs, adjs, generator=None):
-        """xs [T, N, in] or None; adjs: T ``SparseGraph``s -> [T, N, out]."""
-        hx = torch.stack([
-            F.normalize(gcn.single(None if xs is None else xs[t], adj,
-                                   generator), dim=1, eps=1e-12)
-            for t, (gcn, adj) in enumerate(
-                zip(self.gcns, adjs, strict=True))])
+    def forward(self, xs, adjs, generator=None, own=None, time_length=None,
+                gather=None):
+        """xs [T, N, in] or None; adjs: T ``SparseGraph``s -> [T, N, out].
+        A time part holds the GCNs, xs and adjs of its ``own`` snapshots
+        (``per_snapshot``); ``gather`` then assembles their normalized
+        outputs over T before the time RNN."""
+        if len(self.gcns) != len(adjs):
+            raise ValueError(f"{len(self.gcns)} GCNs, {len(adjs)} graphs")
+        n, dev = adjs[0].n_rows, adjs[0].vals.device
+        hx = per_snapshot(
+            lambda i: F.normalize(self.gcns[i].single(
+                None if xs is None else xs[i], adjs[i], generator),
+                dim=1, eps=1e-12),
+            lambda t: self.gcns[0].skip_draws(n, generator, dev),
+            time_length or len(adjs), own)
+        if gather is not None:
+            hx = gather(hx)
         outs, _ = rnn_scan(self.rnn, hx)
         return self.norm(outs)

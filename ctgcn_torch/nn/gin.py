@@ -20,7 +20,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from ctgcn_torch.nn.gcn import _dropout, skip_dropout
+from ctgcn_torch.nn.gcn import _dropout, per_snapshot, skip_dropout
 from ctgcn_torch.nn.layers import Linear
 from ctgcn_torch.ops.neighbors import masked_max_pool
 from ctgcn_torch.ops.spmm import spmm
@@ -112,17 +112,20 @@ class GIN(nn.Module):
             skip_dropout((n, norm.scale.shape[0]), self.dropout, generator,
                          device)
 
-    def forward(self, xs, adjs, neighbor_data=None, generator=None):
+    def forward(self, xs, adjs, neighbor_data=None, generator=None,
+                own=None, time_length=None):
         """xs [T, N, in] or None; adjs: T ``SparseGraph``s; neighbor_data:
         (nbr [T, N, D], deg [T, N]) for max pooling (without it every
-        node pools as isolated, as in the JAX package) -> [T, N, out]."""
+        node pools as isolated, as in the JAX package) -> [T, N, out]
+        (the ``own`` snapshots of ``time_length``: ``per_snapshot``)."""
+        n, dev = adjs[0].n_rows, adjs[0].vals.device
         if neighbor_data is None:
-            n, dev = adjs[0].n_rows, adjs[0].vals.device
             neighbor_data = (
                 torch.zeros(len(adjs), n, 1, dtype=torch.long, device=dev),
                 torch.zeros(len(adjs), n, dtype=torch.long, device=dev))
         nbr, deg = neighbor_data
-        return torch.stack([
-            self.single(None if xs is None else xs[t], adj, nbr[t], deg[t],
-                        generator)
-            for t, adj in enumerate(adjs)])
+        return per_snapshot(
+            lambda i: self.single(None if xs is None else xs[i], adjs[i],
+                                  nbr[i], deg[i], generator),
+            lambda t: self.skip_draws(n, generator, dev),
+            time_length or len(adjs), own)

@@ -7,14 +7,30 @@
   * MLP 'N' mode applies SELU after EVERY layer including the last; 'L'
     mode is linear.
   * LayerNorm: eps inside the sqrt, biased variance.
+
+``TimeRule`` is what a model declares of how it splits over time parts
+(its ``time_rule`` class attribute, read by ``parallel.mesh``).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+
+@dataclasses.dataclass(frozen=True)
+class TimeRule:
+    """How a model splits over time parts: ``stacked``, its top-level
+    containers with one module a timestep (a part keeps its slice);
+    ``after_gather``, its top-level children used only after the gather
+    over T (their gradients averaged).  Every other parameter is shared by
+    the snapshots and used before the gather (summed)."""
+
+    stacked: tuple = ()
+    after_gather: tuple = ()
 
 
 class Linear(nn.Module):

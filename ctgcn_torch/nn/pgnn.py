@@ -41,7 +41,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from ctgcn_torch.nn.gcn import _dropout, skip_dropout
+from ctgcn_torch.nn.gcn import _dropout, per_snapshot, skip_dropout
 from ctgcn_torch.nn.layers import Linear
 
 #: float64 elements of one ``dijkstra`` row chunk (256 MiB)
@@ -263,10 +263,14 @@ class PGNN(nn.Module):
         for _ in range(1 + len(self.conv_hidden)):
             skip_dropout((n, width), self.dropout, generator, device)
 
-    def forward(self, xs, dists_max, dists_argmax, generator=None):
+    def forward(self, xs, dists_max, dists_argmax, generator=None, own=None,
+                time_length=None):
         """xs [T, N, in] or None; dists_max, dists_argmax [T, N, A] ->
-        [T, N, A]."""
-        return torch.stack([
-            self.single(None if xs is None else xs[t], dists_max[t],
-                        dists_argmax[t], generator)
-            for t in range(dists_max.shape[0])])
+        [T, N, A] (the ``own`` snapshots of ``time_length``:
+        ``per_snapshot``)."""
+        return per_snapshot(
+            lambda i: self.single(None if xs is None else xs[i],
+                                  dists_max[i], dists_argmax[i], generator),
+            lambda t: self.skip_draws(dists_max.shape[1], generator,
+                                      dists_max.device),
+            time_length or dists_max.shape[0], own)

@@ -26,7 +26,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from ctgcn_torch.nn.gcn import _dropout, skip_dropout
+from ctgcn_torch.nn.gcn import _dropout, per_snapshot, skip_dropout
 from ctgcn_torch.nn.layers import Linear
 from ctgcn_torch.ops.neighbors import sample_neighbors
 
@@ -107,14 +107,18 @@ class SAGE(nn.Module):
                 skip_dropout((n, layer.linear.weight.shape[1]), self.dropout,
                              generator, device)
 
-    def forward(self, xs, neighbor_data, generator=None):
+    def forward(self, xs, neighbor_data, generator=None, own=None,
+                time_length=None):
         """xs [T, N, in] or None; neighbor_data (nbr [T, N, D], deg [T, N])
-        -> [T, N, out].  Draws from a generator seeded 0 when none is
+        -> [T, N, out] (the ``own`` snapshots of ``time_length``:
+        ``per_snapshot``).  Draws from a generator seeded 0 when none is
         given."""
         nbr, deg = neighbor_data
         if generator is None:
             generator = torch.Generator(device=nbr.device).manual_seed(0)
-        return torch.stack([
-            self.single(None if xs is None else xs[t], nbr[t], deg[t],
-                        generator)
-            for t in range(nbr.shape[0])])
+        return per_snapshot(
+            lambda i: self.single(None if xs is None else xs[i], nbr[i],
+                                  deg[i], generator),
+            lambda t: self.skip_draws(nbr.shape[1], nbr.shape[2], generator,
+                                      nbr.device),
+            time_length or nbr.shape[0], own)

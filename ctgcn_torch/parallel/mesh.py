@@ -5,25 +5,25 @@ every partitioned path (port of ``embedding_shardings`` and
 
 Time sharding (config ``n_devices``): part r owns the contiguous chunk
 [r·T/P, (r+1)·T/P) of the window's timesteps.  It keeps only its slice of
-the model's time-stacked containers (``TimeRule.stacked``: one module a
-timestep) and only its snapshots' inputs (the family's pyramids, which the
-loader builds on the backend one device would choose for the whole window;
-the zoo's graphs and PGNN's proximity matrices).  The JAX package pads
-every snapshot's blocks to one shape (``uniform_blocks``) so that ``vmap``
-can shard the [T] axis; here each snapshot keeps its own ragged blocks,
-and nothing needs that padding.  The part runs its own snapshots; an
-all-gather over T feeds what follows (the time RNN and the LayerNorm of
-CTGCN and GCRN) and the loss, which every part computes whole.
-EvolveGCN and VGRNN are sequential in time (their weights, or their
-hidden state, run from step to step), so no part can run its snapshots
-alone: every part runs their whole window ("replica"), as GSPMD gives
-them the single-device result.
+the model's time-stacked containers (the ``stacked`` of the model's
+``time_rule``, a ``nn.layers.TimeRule``: one module a timestep) and only
+its snapshots' inputs (the family's pyramids, which the loader builds on
+the backend one device would choose for the whole window; the zoo's graphs
+and PGNN's proximity matrices).  The JAX package pads every snapshot's
+blocks to one shape (``uniform_blocks``) so that ``vmap`` can shard the
+[T] axis; here each snapshot keeps its own ragged blocks, and nothing
+needs that padding.  The part runs its own snapshots; an all-gather over T
+feeds what follows (the time RNN and the LayerNorm of CTGCN and GCRN) and
+the loss, which every part computes whole.  EvolveGCN and VGRNN are
+sequential in time (their weights, or their hidden state, run from step to
+step), so no part can run its snapshots alone: the driver runs them on one
+part.
 
 Every part builds the whole model from the config's seed and keeps its
 slice, so the sharded model is the single-device model, and
 ``state_dict`` gives the single-device model file.  A part draws what one
 device draws (dropout masks, SAGE's samples, PGNN's anchors), in the same
-order, and keeps its own snapshots' draws (``snapshot_loop``).
+order, and keeps its own snapshots' draws (``nn.gcn.per_snapshot``).
 
 The gradient rule (``Sharding.reduce_grads``), for a loss that every part
 computes whole from gathered tensors:
@@ -32,50 +32,30 @@ computes whole from gathered tensors:
     the weights of the per-snapshot zoo methods, every weight of the halo
     paths, CTGCN's time RNN and norm under ``temporal_pipeline``) hold
     this part's share: summed;
-  * parameters used only after it (``TimeRule.after_gather``: CTGCN's
-    and GCRN's time RNN and norm, a supervised classifier) and every
-    parameter of a replica hold the whole gradient on every part:
-    averaged, only to keep the parts' copies bit-identical;
+  * parameters used only after it (the rule's ``after_gather``: CTGCN's
+    and GCRN's time RNN and norm, a supervised classifier) hold the whole
+    gradient on every part: averaged, only to keep the parts' copies
+    bit-identical;
   * a time-stacked parameter lives on one part and keeps its gradient.
 Adam then runs on each part over what that part holds.
 """
 from __future__ import annotations
-
-import dataclasses
 
 import torch
 from torch import nn
 import torch.distributed as dist
 
 from ctgcn_torch.nn.core_models import CTGCN
-from ctgcn_torch.nn.gcn import GCRN
+from ctgcn_torch.nn.layers import TimeRule
 from ctgcn_torch.ops.pyramid import CorePyramid
 from ctgcn_torch.ops.rnn import rnn_scan
 from ctgcn_torch.parallel.dist import Parts, all_reduce_grads, gather_own
 
 
-@dataclasses.dataclass(frozen=True)
-class TimeRule:
-    """How a model splits over time parts: ``stacked``, its top-level
-    containers with one module a timestep (a part keeps its slice);
-    ``after_gather``, its top-level children used only after the gather
-    over T (averaged).  Every other parameter is summed."""
-
-    stacked: tuple = ()
-    after_gather: tuple = ()
-
-
-def time_rule(model, pipeline=False):
-    """The ``TimeRule`` of ``model``: CTGCN's per-timestep MLPs and CDNs
-    and GCRN's per-timestep GCNs are stacked, their time RNN and norm come
-    after the gather (before it under ``temporal_pipeline``: summed); the
-    per-snapshot zoo methods and CGCN share every weight across
-    snapshots."""
-    if isinstance(model, CTGCN):
-        return TimeRule(("mlps", "cdns"), () if pipeline else ("rnn", "norm"))
-    if isinstance(model, GCRN):
-        return TimeRule(("gcns",), ("rnn", "norm"))
-    return TimeRule()
+def time_rule(model):
+    """The ``TimeRule`` ``model`` declares (none: every weight shared by
+    the snapshots, as in CGCN and the per-snapshot zoo methods)."""
+    return getattr(model, "time_rule", TimeRule())
 
 
 def time_chunk(parts: Parts, time_length):
@@ -94,22 +74,6 @@ def shard_time(model, parts: Parts, time_length):
     for name in time_rule(model).stacked:
         setattr(model, name, nn.ModuleList(list(getattr(model, name))[lo:hi]))
     return model
-
-
-def snapshot_loop(parts: Parts, time_length, own, skip):
-    """A per-snapshot forward on this part's snapshots: ``own(i)`` gives
-    the part's i-th snapshot's output, ``skip(t)`` draws what snapshot t's
-    forward draws from the generator and nothing else, for every snapshot
-    of another part, in window order.  Returns the part's outputs
-    stacked, [T/P, ...]."""
-    lo, hi = time_chunk(parts, time_length)
-    outs = []
-    for t in range(time_length):
-        if lo <= t < hi:
-            outs.append(own(t - lo))
-        else:
-            skip(t)
-    return torch.stack(outs)
 
 
 def time_sharded_forward(model, xs, pyramids: CorePyramid, parts: Parts):
@@ -135,12 +99,12 @@ class Sharding:
     gradients by the rule above, and read and write the whole model file.
 
     kind: "time" (the model's ``time_rule``: its stacked containers split
-    over ``time_length`` T; ``pipeline`` for ``temporal_pipeline``),
-    "graph" (rows split, every parameter replicated: summed, but for those
-    used after the gather) or "replica" (every part runs the whole window:
-    averaged)."""
+    over ``time_length`` T; ``pipeline`` for ``temporal_pipeline``, where
+    the time RNN and norm run before the gather) or "graph" (rows split,
+    every parameter replicated: summed, but for those used after the
+    gather)."""
 
-    KINDS = ("time", "graph", "replica")
+    KINDS = ("time", "graph")
 
     def __init__(self, parts: Parts, kind, time_length=None, pipeline=False):
         if kind not in self.KINDS:
@@ -151,12 +115,12 @@ class Sharding:
         self.pipeline = pipeline
 
     def _rule(self, model):
-        """The model's ``TimeRule``; on the halo paths nothing is stacked,
-        and CTGCN's time RNN and norm still run after the gather (of the
-        rows)."""
-        if self.kind == "replica":
-            return TimeRule()
-        rule = time_rule(model, self.pipeline)
+        """The model's ``TimeRule``: under the pipeline nothing comes after
+        the gather; on the halo paths nothing is stacked, and CTGCN's time
+        RNN and norm still run after the gather (of the rows)."""
+        rule = time_rule(model)
+        if self.pipeline:
+            return TimeRule(rule.stacked)
         return rule if self.kind == "time" else TimeRule(
             after_gather=rule.after_gather)
 
@@ -169,7 +133,7 @@ class Sharding:
             top = name.split(".")[0]
             if top in rule.stacked:
                 continue
-            if self.kind == "replica" or top in rule.after_gather:
+            if top in rule.after_gather:
                 averaged.append(p)
             else:
                 summed.append(p)

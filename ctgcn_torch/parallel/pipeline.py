@@ -116,7 +116,7 @@ def ctgcn_pipelined_forward(model, xs, pyramids, parts: Parts,
     ``pick_microbatch`` unless given) and the LayerNorm on the part's
     chunk, then the gather over T that feeds the loss.  The time RNN and
     the norm are used before the gather here: their gradients are summed
-    over the parts (``mesh.time_rule``).  Returns [T, N, out], or (embs,
+    over the parts (``mesh.Sharding``).  Returns [T, N, out], or (embs,
     trans) for 'S', on every part."""
     res = model.per_timestep(xs, pyramids)
     s_variant = model.model_type == "S"

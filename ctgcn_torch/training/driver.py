@@ -92,9 +92,10 @@ driver's notice when none is left): each part runs its own snapshots
 snapshots' proximity matrices), or, with ``temporal_pipeline``, CTGCN-C
 and CTGCN-S run their time RNN GPipe-pipelined over the parts
 (``parallel.pipeline``); EvolveGCN and VGRNN, sequential in time, run
-their whole window on every part.  With one part the run is the
-single-device run.  A rank past the part count builds the window's draws
-(to keep its generators in step) and waits.
+on one part, as one device runs them (splitting them gains nothing).
+With one part the run is the single-device run.  A rank past the part
+count builds the window's draws (to keep its generators in step) and
+waits.
 
 The JAX driver's memory knobs, which it reads from ``CTGCN_TPU_*``
 environment variables, reach the model as constructor arguments here:
@@ -111,7 +112,6 @@ import time
 import numpy as np
 import scipy.sparse as sp
 import torch
-from torch.nn import functional as F
 
 from ctgcn_torch.data.formats import read_node_list, write_time_csv
 from ctgcn_torch.data.loader import DataLoader
@@ -129,15 +129,15 @@ from ctgcn_torch.nn.pgnn import (PGNN, anchor_sizes, draw_anchor_sets,
 from ctgcn_torch.nn.sage import SAGE
 from ctgcn_torch.nn.vgrnn import VGRNN
 from ctgcn_torch.ops.neighbors import neighbor_table_from_scipy
-from ctgcn_torch.ops.rnn import CVJP_BATCH_BUDGET, rnn_scan
+from ctgcn_torch.ops.rnn import CVJP_BATCH_BUDGET
 from ctgcn_torch.parallel import dist as pdist
 from ctgcn_torch.parallel.dist import gather_own
 from ctgcn_torch.parallel.core_partition import (halo_core_forward,
                                                  partition_pyramid_halo)
 from ctgcn_torch.parallel.graph_partition import (halo_gcn_forward,
                                                   partition_graph_halo)
-from ctgcn_torch.parallel.mesh import (Sharding, shard_time, snapshot_loop,
-                                       time_chunk, time_sharded_forward)
+from ctgcn_torch.parallel.mesh import (Sharding, shard_time, time_chunk,
+                                       time_sharded_forward)
 from ctgcn_torch.parallel.pipeline import ctgcn_pipelined_forward
 from ctgcn_torch.training.engine import (SupervisedEmbedding,
                                          UnsupervisedEmbedding)
@@ -164,7 +164,7 @@ DEGREE_FEATURE_METHODS = S_VARIANTS + ("EvolveGCN",)
 FAMILY = ("CGCN-C", "CGCN-S", "CTGCN-C", "CTGCN-S")
 #: the methods that ``graph_partition`` splits by rows
 PARTITIONED_METHODS = FAMILY + ("GCN", "TgGCN")
-#: the methods sequential in time, whose whole window every part runs
+#: the methods sequential in time, which run on one part
 SEQUENTIAL_METHODS = ("EvolveGCN", "VGRNN")
 #: the methods ``temporal_pipeline`` pipelines
 PIPELINE_METHODS = ("CTGCN-C", "CTGCN-S")
@@ -319,8 +319,8 @@ def get_input_data(method, idx, time_length, data_loader: DataLoader, args,
     this part's timesteps of the pyramids, of the zoo's graphs and
     neighbour tables (GAT also gets every snapshot's stored edge count,
     ``data["edge_counts"]``: its dropout draws one value an edge), of
-    PGNN's proximity matrices and of xs; "replica" the whole window; a
-    rank without a part gets only xs (its draws)."""
+    PGNN's proximity matrices and of xs; a rank without a part gets only
+    xs (its draws)."""
     kind, parts = layout if layout is not None else (None, None)
     if parts is not None and parts.index is None:
         kind = "idle"
@@ -395,21 +395,22 @@ def _make_product_mesh(args, time_length, world_size):
 def make_layout(method, args, time_length, groups=None):
     """(kind, ``Parts``) of a window: ("graph", P) for ``graph_partition``
     on the family and GCN / TgGCN (P = min(n_devices, world size)); over
-    ``_make_product_mesh``'s P time parts, ("replica", P) for the methods
-    sequential in time, ("pipeline", P) for CTGCN-C / CTGCN-S under
-    ``temporal_pipeline`` and ("time", P) for the others; (None, 1 part)
-    for the single-device run.  Every rank calls this (it may make a
-    subgroup); ``groups`` caches them across windows."""
+    ``_make_product_mesh``'s P time parts, ("pipeline", P) for CTGCN-C /
+    CTGCN-S under ``temporal_pipeline`` and ("time", P) for the others;
+    (None, 1 part) for the single-device run and for the methods
+    sequential in time, which no part can split (the other ranks hold no
+    part: they draw what rank 0 draws and wait).  Every rank calls this
+    (it may make a subgroup); ``groups`` caches them across windows."""
     world = pdist.world_size()
     n = args.get("n_devices", 0) or 0
     if (args.get("graph_partition", False) and n > 1
             and method in PARTITIONED_METHODS):
         return "graph", pdist.make_parts(min(n, world), groups)
-    count = _make_product_mesh(args, time_length, world)
+    count = (1 if method in SEQUENTIAL_METHODS
+             else _make_product_mesh(args, time_length, world))
     kind = None
     if count > 1:
-        kind = ("replica" if method in SEQUENTIAL_METHODS else
-                "pipeline" if (args.get("temporal_pipeline", False)
+        kind = ("pipeline" if (args.get("temporal_pipeline", False)
                                and method in PIPELINE_METHODS) else "time")
     return kind, pdist.make_parts(count, groups)
 
@@ -507,19 +508,29 @@ def _family_forward(model, data, generator=None):
     return model(data["xs"], data["adjs"])
 
 
-def _adj_forward(model, data, generator=None):
-    """GCN, GAT, GCRN and EvolveGCN: the model over the window's
-    features and adjacency."""
-    return model(data["xs"], data["adjs"], generator=generator)
+def _adj_forward(model, data, generator=None, **window):
+    """GCN, GCRN and EvolveGCN: the model over the window's features and
+    adjacency; ``window`` (a time part's ``own`` snapshots and the
+    window's ``time_length``, GCRN's ``gather``) passes to the model."""
+    return model(data["xs"], data["adjs"], generator=generator, **window)
 
 
-def _gin_forward(model, data, generator=None):
+def _gat_forward(model, data, generator=None, **window):
+    """GAT as ``_adj_forward``; a time part also passes every snapshot's
+    stored edge count (the edge dropout of another part's snapshot)."""
+    if window:
+        window["edge_counts"] = data["edge_counts"]
+    return _adj_forward(model, data, generator, **window)
+
+
+def _gin_forward(model, data, generator=None, **window):
     return model(data["xs"], data["adjs"], data["neighbor_data"],
-                 generator=generator)
+                 generator=generator, **window)
 
 
-def _sage_forward(model, data, generator=None):
-    return model(data["xs"], data["neighbor_data"], generator=generator)
+def _sage_forward(model, data, generator=None, **window):
+    return model(data["xs"], data["neighbor_data"], generator=generator,
+                 **window)
 
 
 def _vgrnn_forward(model, data, generator=None, hx=None, noise=None):
@@ -530,106 +541,32 @@ def _vgrnn_forward(model, data, generator=None, hx=None, noise=None):
                  noise=noise)
 
 
-def _pgnn_forward(model, data, generator=None, anchor_sets=None):
+def _pgnn_forward(model, data, generator=None, anchor_sets=None, own=None,
+                  time_length=None):
     """PGNN over the window's proximity matrices: each snapshot's anchor
     sets drawn from ``generator`` (or given: ``anchor_sets[t]``, one index
     tensor a set), then the model with its dropout from the same
     generator; without one, both from a generator seeded 0 made for the
-    call."""
+    call.  A time part holds the matrices of its ``own`` snapshots of
+    ``time_length``: it draws every snapshot's anchor sets and reduces its
+    own."""
     dists = data["pgnn_dists"]
     if generator is None:
         generator = torch.Generator(device=dists.device).manual_seed(0)
-    sizes = anchor_sizes(dists.shape[1])
-    dm, da = zip(*(select_anchor_dists(
-        dists[t], sizes, generator,
-        anchor_sets=None if anchor_sets is None else anchor_sets[t])
-        for t in range(dists.shape[0])))
+    n = dists.shape[1]
+    sizes = anchor_sizes(n)
+    time_length = time_length or dists.shape[0]
+    own = range(time_length) if own is None else own
+    reduced = []
+    for t in range(time_length):
+        sets = (draw_anchor_sets(n, sizes, generator, dists.device)
+                if anchor_sets is None else anchor_sets[t])
+        if t in own:
+            reduced.append(select_anchor_dists(dists[t - own.start], sizes,
+                                               anchor_sets=sets))
+    dm, da = zip(*reduced)
     return model(data["xs"], torch.stack(dm), torch.stack(da),
-                 generator=generator)
-
-
-def _zoo_time_forward(cls, parts, time_length, node_num):
-    """The zoo's per-snapshot methods and GCRN over this part's snapshots
-    (``data`` holds only those), each drawing what the single-device
-    forward draws for every snapshot in window order (``snapshot_loop``),
-    the parts' outputs gathered over T; GCRN's time RNN and LayerNorm then
-    run on every part.  PGNN draws every snapshot's anchor sets first, as
-    ``_pgnn_forward`` does, and reduces only its own."""
-    def fwd(model, data, generator=None, anchor_sets=None):
-        xs, adjs = data["xs"], data.get("adjs")
-        dev = next(model.parameters()).device
-        n = node_num
-
-        def x(i):
-            return None if xs is None else xs[i]
-
-        if cls in (SAGE, PGNN) and generator is None:
-            generator = torch.Generator(device=dev).manual_seed(0)
-        if cls is GCN:
-            def own(i):
-                return model.single(x(i), adjs[i], generator)
-
-            def skip(t):
-                model.skip_draws(n, generator, dev)
-        elif cls is GCRN:
-            def own(i):
-                return F.normalize(model.gcns[i].single(x(i), adjs[i],
-                                                        generator),
-                                   dim=1, eps=1e-12)
-
-            def skip(t):
-                model.gcns[0].skip_draws(n, generator, dev)
-        elif cls is GIN:
-            nbr, deg = data["neighbor_data"] or (
-                torch.zeros(len(adjs), n, 1, dtype=torch.long, device=dev),
-                torch.zeros(len(adjs), n, dtype=torch.long, device=dev))
-
-            def own(i):
-                return model.single(x(i), adjs[i], nbr[i], deg[i], generator)
-
-            def skip(t):
-                model.skip_draws(n, generator, dev)
-        elif cls is GAT:
-            counts = data["edge_counts"].tolist()
-            in_dim = None if xs is None else xs.shape[-1]
-
-            def own(i):
-                return model.single(x(i), adjs[i], generator)
-
-            def skip(t):
-                model.skip_draws(n, counts[t], generator, dev, in_dim)
-        elif cls is SAGE:
-            nbr, deg = data["neighbor_data"]
-
-            def own(i):
-                return model.single(x(i), nbr[i], deg[i], generator)
-
-            def skip(t):
-                model.skip_draws(n, nbr.shape[2], generator, dev)
-        else:
-            dists = data["pgnn_dists"]
-            sizes = anchor_sizes(n)
-            lo, hi = time_chunk(parts, time_length)
-            reduced = []
-            for t in range(time_length):
-                sets = (draw_anchor_sets(n, sizes, generator, dists.device)
-                        if anchor_sets is None else anchor_sets[t])
-                if lo <= t < hi:
-                    reduced.append(select_anchor_dists(
-                        dists[t - lo], sizes, anchor_sets=sets))
-
-            def own(i):
-                return model.single(x(i), *reduced[i], generator)
-
-            def skip(t):
-                model.skip_draws(n, generator, dev)
-        hx = gather_own(snapshot_loop(parts, time_length, own, skip), parts)
-        if cls is GCRN:
-            outs, _ = rnn_scan(model.rnn, hx)
-            return model.norm(outs)
-        return hx
-
-    return fwd
+                 generator=generator, own=own, time_length=time_length)
 
 
 def make_forward(method, layout=None, node_num=None, time_length=None):
@@ -642,8 +579,10 @@ def make_forward(method, layout=None, node_num=None, time_length=None):
 
     ``layout`` "graph" gives the halo forwards over ``data["halo_adjs"]``
     (``node_num`` nodes), "time" the time-sharded forwards of a window of
-    ``time_length`` snapshots, "pipeline" the pipelined CTGCN forward;
-    "replica" the single-device forward."""
+    ``time_length`` snapshots (the zoo's models run their part's own
+    snapshots, ``nn.gcn.per_snapshot``, and their outputs are gathered
+    over T: GCRN's before its time RNN), "pipeline" the pipelined CTGCN
+    forward."""
     kind, parts = layout if layout is not None else (None, None)
     if kind == "graph" and method in FAMILY:
         def fwd(model, data, generator=None):
@@ -666,19 +605,21 @@ def make_forward(method, layout=None, node_num=None, time_length=None):
                                         parts)
         return fwd
     cls = PORTED_METHODS[method]
-    if kind == "time":
-        return _zoo_time_forward(cls, parts, time_length, node_num)
-    if cls in (GCN, GAT, GCRN, EvolveGCN):
-        return _adj_forward
-    if cls is GIN:
-        return _gin_forward
-    if cls is SAGE:
-        return _sage_forward
-    if cls is VGRNN:
-        return _vgrnn_forward
-    if cls is PGNN:
-        return _pgnn_forward
-    return _family_forward
+    base = {GCN: _adj_forward, GAT: _gat_forward, GCRN: _adj_forward,
+            EvolveGCN: _adj_forward, GIN: _gin_forward, SAGE: _sage_forward,
+            VGRNN: _vgrnn_forward, PGNN: _pgnn_forward}.get(cls,
+                                                             _family_forward)
+    if kind != "time":
+        return base
+    window = dict(own=range(*time_chunk(parts, time_length)),
+                  time_length=time_length)
+    gather = functools.partial(gather_own, parts=parts)
+    if cls is GCRN:
+        return functools.partial(base, gather=gather, **window)
+
+    def fwd(model, data, generator=None, **given):
+        return gather(base(model, data, generator, **window, **given))
+    return fwd
 
 
 @functools.lru_cache(maxsize=None)
@@ -952,7 +893,9 @@ def gnn_embedding(method, args, device="cuda"):
     host clock; for the supervised types ``split_seconds`` of it built the
     splits), ``core_backend`` ("halo" on the halo paths), ``parts`` (the
     window's part count; ``idle`` on a rank without a part, which returns
-    nothing else) and what the trainer's ``learn_embedding`` returns.
+    nothing else) and what the trainer's ``learn_embedding`` returns; the
+    last window's also holds its ``trainer`` (the trained model and the
+    window's inputs, for a caller that goes on with them).
 
     On the card the GEMMs run in full FP32: TF32 is turned off for the run
     and the caller's setting restored after it (``matmul_precision:
@@ -1043,6 +986,8 @@ def _run_windows(method, args, dev):
                         "setup_seconds": setup_seconds,
                         "core_backend": _adj_backend(trainer.data),
                         "parts": layout[1].count, **res})
+        if is_last:
+            results[-1]["trainer"] = trainer
         if record_time and pdist.is_primary():
             write_time_csv(os.path.join(base_path, method + "_time.csv"),
                            time_list)

@@ -144,16 +144,33 @@ def _pyramids(mats, n, k, keep):
                            for t in keep])
 
 
+def _whole_state(sharding, model):
+    """The whole model's ``state_dict``: assembled by ``sharding``, or the
+    model's own on one part (no sharding)."""
+    return (model.state_dict() if sharding is None
+            else sharding.state_dict(model))
+
+
+def _load_whole(sharding, model, state):
+    """Load the whole model's ``state`` (numpy arrays) into the part's
+    model."""
+    state = {k: torch.from_numpy(v) for k, v in state.items()}
+    if sharding is None:
+        model.load_state_dict(state)
+    else:
+        sharding.load_state_dict(model, state)
+
+
 def _grad_state(sharding, model):
     """The whole model's gradients, keys as its ``state_dict`` (each
-    parameter's data swapped for its gradient while ``Sharding.state_dict``
-    assembles them)."""
+    parameter's data swapped for its gradient while ``_whole_state``
+    assembles them; zeros where no loss reached it, as JAX gives)."""
     params = list(model.parameters())
     data = [p.data for p in params]
     for p in params:
-        p.data = p.grad
+        p.data = p.grad if p.grad is not None else torch.zeros_like(p)
     try:
-        return {k: _np(v) for k, v in sharding.state_dict(model).items()}
+        return {k: _np(v) for k, v in _whole_state(sharding, model).items()}
     finally:
         for p, d in zip(params, data):
             p.data = d
@@ -267,13 +284,15 @@ def _zoo_step(rank, world, inp):
     sampler's draws): loss, the whole model's gradients and its
     parameters after one Adam step; and, under each method's config as
     written (its dropout), the forward with a generator seeded
-    ``inp["seed"]`` and the generator's next draws after it."""
+    ``inp["seed"]`` and the generator's next draws after it.  A rank
+    without a part (EvolveGCN and VGRNN run on one) skips the method."""
     out = {}
     for method, case in inp["cases"].items():
         trainer, fwd, layout = _window(method, case["config"])
+        if trainer is None:
+            continue
         model, sharding = trainer.model, trainer.sharding
-        sharding.load_state_dict(model, {k: torch.from_numpy(v)
-                                         for k, v in case["state"].items()})
+        _load_whole(sharding, model, case["state"])
         res = fwd(model, trainer.data, None, **_given(case))
         embs = res[0] if method == "VGRNN" else res
         loss = TL.uneg_loss(embs, torch.from_numpy(case["b_idx"]).long(),
@@ -281,13 +300,14 @@ def _zoo_step(rank, world, inp):
                             trainer.data["walk"], torch.from_numpy(case["j"]),
                             torch.from_numpy(case["neg"]), Q=case["Q"])
         loss.backward()
-        sharding.reduce_grads(model)
+        if sharding is not None:
+            sharding.reduce_grads(model)
         grads = _grad_state(sharding, model)
         make_optimizer(list(model.parameters()), case["lr"],
                        case["wd"]).step()
         out[method] = {"loss": float(loss.detach()), "grads": grads,
                        "params": {k: _np(v) for k, v in
-                                  sharding.state_dict(model).items()},
+                                  _whole_state(sharding, model).items()},
                        "kind": layout[0], "parts": layout[1].count,
                        "own_keys": sorted(model.state_dict())}
     for method, case in inp["draws"].items():
@@ -350,7 +370,8 @@ def _supervised_step(rank, world, inp):
     the group (the JAX parameters loaded, the JAX forward's draws given):
     loss, accuracy, the whole model's gradients and the classifier's,
     reduced by the sharding's rule, and both modules' parameters after one
-    Adam step."""
+    Adam step.  A rank without a part (VGRNN runs on one) skips the
+    case."""
     import functools
 
     from ctgcn_torch.training import driver as TD
@@ -359,10 +380,11 @@ def _supervised_step(rank, world, inp):
     for name, case in inp["cases"].items():
         method, cfg = case["method"], case["config"]
         trainer, fwd, layout = _window(method, cfg, rng_seed=cfg["seed"])
+        if trainer is None:
+            continue
         model, cls, sharding = (trainer.model, trainer.classifier,
                                 trainer.sharding)
-        sharding.load_state_dict(model, {k: torch.from_numpy(v)
-                                         for k, v in case["state"].items()})
+        _load_whole(sharding, model, case["state"])
         if cls is not None:
             cls.load_state_dict({k: torch.from_numpy(v)
                                  for k, v in case["cls_state"].items()})
@@ -379,7 +401,8 @@ def _supervised_step(rank, world, inp):
         loss, acc, *_ = trainer._run("train", None, state)
         loss.backward()
         modules = [model] + ([cls] if cls is not None else [])
-        sharding.reduce_grads(model, *modules[1:])
+        if sharding is not None:
+            sharding.reduce_grads(model, *modules[1:])
         out[name] = {"loss": float(loss.detach()), "acc": float(acc),
                      "grads": _grad_state(sharding, model),
                      "cls_grads": None if cls is None else _grads(cls),
@@ -387,7 +410,7 @@ def _supervised_step(rank, world, inp):
         make_optimizer([p for m in modules for p in m.parameters()],
                        case["lr"], case["wd"]).step()
         out[name]["params"] = {k: _np(v) for k, v in
-                               sharding.state_dict(model).items()}
+                               _whole_state(sharding, model).items()}
         out[name]["cls_params"] = (None if cls is None else
                                    {k: _np(v) for k, v in
                                     cls.state_dict().items()})

@@ -10,7 +10,7 @@ weighted snapshots, node and edge labels, k-core pyramids), each method's
 
   * CTGCN-C under S-node (T = 4) and S-link-dy (T = 2), time-sharded; GCN
     under S-node on the halo path (``graph_partition``); VGRNN under
-    S-link-st, stateful, its whole window on every part; PGNN under
+    S-link-st, stateful, on one part (rank 1 holds none); PGNN under
     S-node, time-sharded: the train forward of window 0 through the
     driver's layout, the JAX parameters loaded, against the JAX driver's
     supervised objective (the trainer's inputs captured from the JAX
@@ -53,7 +53,7 @@ CASES = {
 }
 #: (kind, parts) of window 0 of each case
 LAYOUTS = {"ctgcn_snode": ("time", 2), "ctgcn_slink_dy": ("time", 2),
-           "gcn_snode_halo": ("graph", 2), "vgrnn_slink_st": ("replica", 2),
+           "gcn_snode_halo": ("graph", 2), "vgrnn_slink_st": (None, 1),
            "pgnn_snode": ("time", 2)}
 
 

@@ -8,16 +8,17 @@ dataset (N = 60, four snapshots, T = 4, preprocessed by the port's CLI),
 each zoo entry of ``configs/uci.json`` at test width under U-neg:
 
   * each of the 12 zoo methods' step through the driver's layout (time
-    sharding for the per-snapshot methods and GCRN, the whole window on
-    every part for EvolveGCN and VGRNN) against the JAX single-device step
-    with the same parameters (``interop``) and batch, the JAX sampler's
-    draws, and the JAX forward's own draws given where it draws without a
-    key (PGNN's anchor sets, VGRNN's noise; dropout 0; TgSAGE samples
-    every neighbour): the loss (1e-5), every parameter's gradient,
-    assembled (1e-4 of the model's largest gradient, at least 1: GIN's
-    BatchNorms), and the parameters after one Adam step (1e-6, where the
-    JAX gradient lies beyond that gradient tolerance: elsewhere Adam's
-    first step of lr goes either way on rounding);
+    sharding for the per-snapshot methods and GCRN; EvolveGCN and VGRNN,
+    sequential in time, on one part, rank 1 holding none) against the
+    JAX single-device step with the same parameters (``interop``) and
+    batch, the JAX sampler's draws, and the JAX forward's own draws given
+    where it draws without a key (PGNN's anchor sets, VGRNN's noise;
+    dropout 0; TgSAGE samples every neighbour): the loss (1e-5), every
+    parameter's gradient, assembled (1e-4 of the model's largest
+    gradient, at least 1: GIN's BatchNorms), and the parameters after one
+    Adam step (1e-6, where the JAX gradient lies beyond that gradient
+    tolerance: elsewhere Adam's first step of lr goes either way on
+    rounding);
   * under each config as written (dropout 0.5, TgSAGE's samples, PGNN's
     anchors) the 2-part forward with a seeded generator against the
     port's single-device forward with the same seed: the outputs (1e-6)
@@ -53,8 +54,8 @@ N, T, HID, EMB = 60, 4, 12, 6
 ZOO = ("GCN", "TgGCN", "GIN", "TgGIN", "GAT", "TgGAT", "SAGE", "TgSAGE",
        "GCRN", "EvolveGCN", "VGRNN", "PGNN")
 #: the methods whose forward draws under its config (dropout, samples,
-#: anchors); EvolveGCN's slopes and VGRNN's noise come from a whole window
-#: that every part runs
+#: anchors); EvolveGCN and VGRNN, whose slopes and noise one part draws,
+#: run on one part
 DRAWING = ("GCN", "TgGCN", "GIN", "TgGIN", "GAT", "TgGAT", "SAGE", "TgSAGE",
            "GCRN", "PGNN")
 SEED = 3
@@ -226,7 +227,7 @@ def test_zoo_time_sharded_step_equals_jax(two_ranks, method):
     got, ref = out["zoo_step"][method], refs[method]
     sequential = method in ("EvolveGCN", "VGRNN")
     assert (got["kind"], got["parts"]) == (
-        "replica" if sequential else "time", 2)
+        (None, 1) if sequential else ("time", 2))
     if method == "GCRN":       # rank 0 holds GCNs 0-1 of the four
         assert not any(k.startswith(("gcns.2", "gcns.3"))
                        for k in got["own_keys"])
