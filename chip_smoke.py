@@ -1375,6 +1375,215 @@ def phase_pipeline(cfg, dev):
     return pipe["launches"]
 
 
+#: epochs of the traced CLI run: the tracer's window is epochs 1-3
+TRACE_EPOCHS = 4
+#: [remat]: gradients of "save_spmm" within this share of max|g| of
+#: "full"'s
+REMAT_GRAD_TOL = 1e-5
+#: [window_tail]: epochs a side, and the largest relative loss gap
+TAIL_EPOCHS = 3
+TAIL_LOSS_TOL = 1e-5
+
+
+def phase_trace(path, cfg, dev):
+    """``profile_dir`` through the CLI: ``run_path``'s checks on the
+    traced run (``cfg``: AS window 0 CTGCN-C as configs/as.json gives it,
+    ``TRACE_EPOCHS`` epochs, ``profile_dir`` under the work directory),
+    then exactly one trace in the directory, whose "epoch" ranges are
+    epochs 1-3 and whose device events hold both f32 kernels.  Returns
+    the run's launches."""
+    cfg_path, _, emb = cfg
+    t0 = time.time()
+    launches, results, _ = run_path(path, cfg, "CTGCN-C", "ell",
+                                    tuple(F32_KERNELS), dev)
+    seconds = time.time() - t0
+    traces = sorted(Path(emb["profile_dir"]).iterdir())
+    if len(traces) != 1:
+        raise AssertionError(f"[trace]: {len(traces)} traces, want 1")
+    with open(traces[0]) as fp:
+        events = json.load(fp)["traceEvents"]
+    # the host's ranges (the device's projections of them are
+    # "gpu_user_annotation")
+    epochs = sum(1 for e in events if e.get("name") == "epoch"
+                 and e.get("cat") == "user_annotation")
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    found = {k: sum(k in name for name in kernels)
+             for k in ("rowwalk", "blockpar")}
+    if epochs != 3 or not all(found.values()):
+        raise AssertionError(f"[trace]: {epochs} epoch ranges (want 3, "
+                             f"epochs 1-3), kernel events {found}")
+    _phase("trace", path=path, seconds=seconds, epochs=TRACE_EPOCHS,
+           trace=traces[0].name, trace_bytes=traces[0].stat().st_size,
+           epoch_ranges=epochs, device_kernel_events=len(kernels),
+           kernel_events_ours=found,
+           epoch_seconds=results[0]["epoch_seconds"], launches=launches)
+    return launches
+
+
+def phase_remat(cfg, dev):
+    """``remat_policy`` on the card: window 0 of ``cfg`` (AS CTGCN-C as
+    configs/as.json gives it) with ``act_budget`` 0, so the backward
+    recomputes every timestep: "full" (the whole step) against
+    "save_spmm" (the MLP and each layer's tail, keeping the slot
+    products), on one model.  A warm-up step each, then one step each
+    (forward, U-neg loss on the first batch, backward; the sampler seeded
+    0), timed on the host clock to a synchronise, with its peak memory and
+    the launches of the forward plans' kernels ([K·N, N] plans) inside the
+    backward.  The losses must be equal, the gradients within
+    ``REMAT_GRAD_TOL`` · max|g|, and the backward must launch forward-plan
+    kernels under "full" and none under "save_spmm".  Returns the
+    launches of the timed steps."""
+    import numpy as np
+    import torch
+
+    from ctgcn_torch.losses import negative_sampling_loss
+    from ctgcn_torch.ops import bsr_spmm as B
+    from ctgcn_torch.training.driver import build_trainer, get_data_loader
+    from ctgcn_torch.training.engine import batch_matrix
+
+    args = dict(cfg)
+    loader = get_data_loader(args)
+    T = min(args["duration"], loader.max_time_num)
+    trainer = build_trainer("CTGCN-C", args, loader, 0, T, dev,
+                            torch.Generator().manual_seed(0))
+    model, data = trainer.model, trainer.data
+    model.act_budget = 0
+    batches, masks = batch_matrix(loader.node_num, args["batch_size"],
+                                  rng=np.random.default_rng(0))
+    b_idx = torch.from_numpy(batches[0]).to(dev)
+    b_mask = torch.from_numpy(masks[0]).to(dev)
+    raw = B.block_spmm_raw
+    phase = {"name": "forward"}
+    fwd_plan_calls = {"forward": 0, "backward": 0}
+
+    def counted(plan, x):
+        if plan.n_rows > plan.n_cols:
+            fwd_plan_calls[phase["name"]] += 1
+        return raw(plan, x)
+
+    def step(policy):
+        model.remat_policy = policy
+        model.zero_grad(set_to_none=True)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        phase["name"] = "forward"
+        loss = negative_sampling_loss(
+            model(data["xs"], data["adjs"]), b_idx, b_mask, data["walk"],
+            gen, neg_num=args["neg_num"], Q=args["Q"])
+        phase["name"] = "backward"
+        loss.backward()
+        return loss
+
+    runs, total = {}, {name: 0 for name in KERNELS}
+    B.block_spmm_raw = counted
+    try:
+        for policy in ("full", "save_spmm"):
+            step(policy)
+        for policy in ("full", "save_spmm"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            for name in KERNELS:
+                getattr(B, name).launches = 0
+            for key in fwd_plan_calls:
+                fwd_plan_calls[key] = 0
+            t0 = time.time()
+            loss = step(policy)
+            torch.cuda.synchronize()
+            runs[policy] = {
+                "step_ms": 1e3 * (time.time() - t0),
+                "loss": float(loss.detach()),
+                "peak": torch.cuda.max_memory_allocated(dev),
+                "forward_plan_launches": dict(fwd_plan_calls),
+                "launches": {name: getattr(B, name).launches
+                             for name in KERNELS},
+                "grads": {n: p.grad.detach().clone()
+                          for n, p in model.named_parameters()}}
+            for name in KERNELS:
+                total[name] += getattr(B, name).launches
+    finally:
+        B.block_spmm_raw = raw
+    full, save = runs["full"], runs["save_spmm"]
+    scale = max(float(g.abs().max()) for g in full["grads"].values())
+    grad_err = max(float((save["grads"][n] - g).abs().max())
+                   for n, g in full["grads"].items())
+    _phase("remat", path="as_remat", method="CTGCN-C", time_length=T,
+           nodes=loader.node_num, num_slots=int(data["adjs"].valid.shape[1]),
+           core_backend=data["adjs"].backend,
+           **{f"{k}_by_policy": {p: r[k] for p, r in runs.items()}
+              for k in ("step_ms", "loss", "peak", "forward_plan_launches",
+                        "launches")},
+           grads_max_abs_err=grad_err, grads_max_abs=scale,
+           tolerance=f"{REMAT_GRAD_TOL} * max|g|")
+    if save["loss"] != full["loss"]:
+        raise AssertionError(f"[remat] losses {save['loss']} against "
+                             f"{full['loss']}")
+    if not grad_err <= REMAT_GRAD_TOL * scale:
+        raise AssertionError(f"[remat] gradients {grad_err:.3e} apart")
+    if (save["forward_plan_launches"]["backward"] != 0
+            or full["forward_plan_launches"]["backward"] == 0):
+        raise AssertionError(f"[remat] forward-plan launches in the "
+                             f"backward: full {full['forward_plan_launches']},"
+                             f" save_spmm {save['forward_plan_launches']}")
+    return total
+
+
+def phase_window_tail(cfg, dev):
+    """``batch_window_tail`` on the card: window 0 of ``cfg`` (UCI CTGCN-C
+    as configs/uci.json gives it, blocks backend), off then on, on one
+    trainer: a warm-up epoch, then from the same initial parameters
+    ``TAIL_EPOCHS`` epochs each (host clock), then one epoch under
+    ``torch.profiler`` for the device time and the kernel launches.  The
+    losses must agree within ``TAIL_LOSS_TOL`` relative.  Returns the
+    launches of our kernels (the blocks backend runs none)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from ctgcn_torch.ops import bsr_spmm as B
+
+    trainer, kw = _trainer("CTGCN-C", cfg, dev)
+    model = trainer.model
+    if trainer.data["adjs"].backend != "blocks":
+        raise AssertionError(f"[window_tail] backend "
+                             f"{trainer.data['adjs'].backend}")
+    init = copy.deepcopy(model.state_dict())
+    for name in KERNELS:
+        getattr(B, name).launches = 0
+    runs = {}
+    for tail in (False, True):
+        model.batch_window_tail = tail
+        # the first epochs on a fresh trainer run slower (UCI's path
+        # epochs: 333, 341, then 212 ms)
+        trainer.learn_embedding(epoch=1, **kw)
+        model.load_state_dict(init)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        res = trainer.learn_embedding(epoch=TAIL_EPOCHS, **kw)
+        peak = torch.cuda.max_memory_allocated(dev)
+        epoch_ms = [1e3 * s for s in res["epoch_seconds"]]
+        per_kernel, profiled_ms = _device_epochs(trainer, kw, 1)
+        busy = sum(ms for ms, _ in per_kernel.values())
+        steady = float(np.median(epoch_ms))
+        runs["on" if tail else "off"] = {
+            "losses": res["losses"], "epoch_ms": epoch_ms,
+            "epoch_ms_profiled": profiled_ms, "device_busy_ms": busy,
+            "device_idle_share": max(0.0, 1 - busy / steady),
+            "kernel_launches": sum(n for _, n in per_kernel.values()),
+            "peak": peak}
+    launches = {name: getattr(B, name).launches for name in KERNELS}
+    off, on = runs["off"]["losses"], runs["on"]["losses"]
+    gap = max(abs(a - b) / abs(b) for a, b in zip(on, off))
+    _phase("window_tail", path="uci_window_tail", method="CTGCN-C",
+           time_length=int(trainer.data["adjs"].valid.shape[0]),
+           num_slots=int(trainer.data["adjs"].valid.shape[1]),
+           loss_rel_gap=gap, tolerance=TAIL_LOSS_TOL, launches=launches,
+           **{k: {t: r[k] for t, r in runs.items()}
+              for k in runs["off"]})
+    if not gap <= TAIL_LOSS_TOL:
+        raise AssertionError(f"[window_tail] losses {on} against {off}")
+    return launches
+
+
 def _check_bf16(name, got, ref_f32, out_dtype):
     """A bf16 kernel's output against its plain version's f32 sum: a bf16
     output within one bf16 ulp of the plain value (the plain version
@@ -2234,23 +2443,13 @@ def _epoch_kw(args):
     return kw
 
 
-def phase_profile(path, trainer, kw, setup_s, epochs):
-    """Where a training epoch's time goes on the card on ``path``, on a
-    ready ``trainer`` (the one the path's CLI run built, whose window's
-    setup took ``setup_s``): one warm-up epoch, ``epochs`` epochs timed on
-    the host clock, then ``epochs`` more under ``torch.profiler`` for the
-    device time by kernel class.  The profiler records the device's
-    activity only: with the host's too, summing the events of the
-    launch-heavy paths (Enron, America-Air) took it over a minute a path.
-    The idle share is 1 - device busy time / the unprofiled epoch time.
-    Returns the device busy ms of an epoch."""
+def _device_epochs(trainer, kw, epochs):
+    """``epochs`` epochs of ``trainer`` under ``torch.profiler`` (device
+    activity only): ({kernel: (device ms, launches) an epoch}, the
+    profiled epoch's wall ms)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    trainer.learn_embedding(epoch=1, **kw)
-    # the epoch's wall time without the profiler's host overhead
-    epoch_ms = 1e3 * sum(
-        trainer.learn_embedding(epoch=epochs, **kw)["epoch_seconds"]) / epochs
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         trainer.learn_embedding(epoch=epochs, **kw)
@@ -2266,6 +2465,24 @@ def phase_profile(path, trainer, kw, setup_s, epochs):
                 and not getattr(ev, "is_user_annotation", False)
                 and "#" not in ev.key):
             per_kernel[ev.key] = (dev_us / 1e3 / epochs, ev.count // epochs)
+    return per_kernel, profiled_ms
+
+
+def phase_profile(path, trainer, kw, setup_s, epochs):
+    """Where a training epoch's time goes on the card on ``path``, on a
+    ready ``trainer`` (the one the path's CLI run built, whose window's
+    setup took ``setup_s``): one warm-up epoch, ``epochs`` epochs timed on
+    the host clock, then ``epochs`` more under ``torch.profiler`` for the
+    device time by kernel class.  The profiler records the device's
+    activity only: with the host's too, summing the events of the
+    launch-heavy paths (Enron, America-Air) took it over a minute a path.
+    The idle share is 1 - device busy time / the unprofiled epoch time.
+    Returns the device busy ms of an epoch."""
+    trainer.learn_embedding(epoch=1, **kw)
+    # the epoch's wall time without the profiler's host overhead
+    epoch_ms = 1e3 * sum(
+        trainer.learn_embedding(epoch=epochs, **kw)["epoch_seconds"]) / epochs
+    per_kernel, profiled_ms = _device_epochs(trainer, kw, epochs)
     busy = sum(ms for ms, _ in per_kernel.values())
     classes = {}
     for name, (ms, n) in per_kernel.items():
@@ -3192,6 +3409,9 @@ def main():
         variant("as_bf16", "as", "CTGCN-C", matmul_precision="bf16", epoch=1,
                 embed_folder="2.embedding/CTGCN-C-bf16",
                 model_file="ctgcn-c-bf16")
+        variant("as_trace", "as", "CTGCN-C", epoch=TRACE_EPOCHS,
+                profile_dir=str(work / "as_trace"), export=False,
+                model_file="")
         variant("enron_highest", "enron", "CTGCN-C",
                 matmul_precision="highest", epoch=1, export=False,
                 record_time=False, model_file="")
@@ -3328,6 +3548,10 @@ def main():
         with _nccl_group_of_one(dev):
             launches.update(phase_dist(dist_runs, dev))
             launches["pipeline"] = phase_pipeline(cfgs["as"][2], dev)
+        launches["as_trace"] = phase_trace("as_trace", cfgs["as_trace"],
+                                           dev)
+        launches["remat"] = phase_remat(cfgs["as"][2], dev)
+        launches["window_tail"] = phase_window_tail(cfgs["uci"][2], dev)
         for path in ("uci_vgrnn", "math_vgrnn"):
             phase_vgrnn_memory(path, cfgs[path][2], dev)
         for path in ("uci_pgnn", "aa_pgnn", "math_pgnn"):

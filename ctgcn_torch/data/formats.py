@@ -42,9 +42,12 @@ def read_node_list(node_path):
     return infer_names([t for t in tokens if t != ""])
 
 
-def read_edge_csv(file_path, node2idx, sep="\t"):
+def read_edge_csv(file_path, node2idx, sep="\t", parse_weight=float):
     """Read an edge list CSV (header skipped) into (src, dst, weight) arrays
-    of *directed* rows as given in the file, self-loops removed."""
+    of *directed* rows as given in the file, self-loops removed; each
+    weight token parsed by ``parse_weight`` (``evaluation.tables.
+    pandas_float`` reads 17-digit tokens as pandas does, an ulp off
+    ``float`` on some)."""
     with open(file_path) as fp:
         lines = fp.read().splitlines()[1:]
     rows = [line.split(sep) for line in lines if line != ""]
@@ -55,7 +58,7 @@ def read_edge_csv(file_path, node2idx, sep="\t"):
     dst = np.fromiter((node2idx[d] for d in dst_names), np.int64,
                       count=len(rows))
     if rows and len(rows[0]) >= 3:
-        w = np.array([float(r[2]) for r in rows], dtype=np.float64)
+        w = np.array([parse_weight(r[2]) for r in rows], dtype=np.float64)
     else:
         w = np.ones(len(rows), dtype=np.float64)
     keep = src != dst
@@ -78,11 +81,12 @@ def build_adj_from_edges(src, dst, weight, node_num):
         shape=(node_num, node_num))
 
 
-def get_sp_adj_mat(file_path, full_node_list, sep="\t"):
+def get_sp_adj_mat(file_path, full_node_list, sep="\t", parse_weight=float):
     """Edge CSV -> symmetric scipy COO over the full node list."""
     node_num = len(full_node_list)
     node2idx = dict(zip(full_node_list, range(node_num)))
-    src, dst, w = read_edge_csv(file_path, node2idx, sep=sep)
+    src, dst, w = read_edge_csv(file_path, node2idx, sep=sep,
+                                parse_weight=parse_weight)
     return build_adj_from_edges(src, dst, w, node_num)
 
 

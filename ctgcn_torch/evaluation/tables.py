@@ -105,7 +105,9 @@ def read_split(path, sep):
             for c in columns]
 
 
-def _cell(value):
+def format_cell(value):
+    """One value as ``DataFrame.to_csv`` writes it (floats by ``repr``,
+    NaN and None as an empty field)."""
     if isinstance(value, (float, np.floating)):
         return "" if math.isnan(value) else repr(float(value))
     if value is None:
@@ -118,7 +120,7 @@ def _cell(value):
 def write_table(path, header, columns, sep):
     """Columns (sequences of equal length) under ``header``."""
     lines = [sep.join(header)]
-    lines += [sep.join(_cell(v) for v in row) for row in zip(*columns)]
+    lines += [sep.join(format_cell(v) for v in row) for row in zip(*columns)]
     with open(path, "w") as fp:
         fp.write("\n".join(lines) + "\n")
 

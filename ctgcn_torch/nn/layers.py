@@ -89,7 +89,13 @@ class LayerNorm(nn.Module):
         self.eps = eps
 
     def forward(self, x):
-        mean = x.mean(dim=-1, keepdim=True)
-        var = (x - mean).square().mean(dim=-1, keepdim=True)
-        return (x - mean) * torch.rsqrt(var + self.eps) * self.scale \
-            + self.offset
+        return layer_norm(x, self.scale, self.offset, self.eps)
+
+
+def layer_norm(x, scale, offset, eps):
+    """LayerNorm over the last axis (eps inside the sqrt, biased
+    variance); ``scale`` and ``offset`` [H], or [T, 1, H] for T norms
+    stacked over x [T, N, H]."""
+    mean = x.mean(dim=-1, keepdim=True)
+    var = (x - mean).square().mean(dim=-1, keepdim=True)
+    return (x - mean) * torch.rsqrt(var + eps) * scale + offset

@@ -7,6 +7,12 @@ Parameter layout and gate math follow ``torch.nn.GRU`` / ``nn.LSTM``
 (w_ih [G*H, in], w_hh [G*H, H], b_ih, b_hh; GRU gates r, z, n; LSTM gates
 i, f, g, o).  A masked step passes the carry through unchanged and emits
 zeros, which equals removing the step when outputs are summed.
+
+The T-batched window tail (``nn.core_models``, ``batch_window_tail``)
+runs T snapshots' core axes as one: inputs [K, T, N, d], masks [K, T],
+and, for CTGCN's per-timestep layers, the T cells' parameters stacked on
+a leading axis (``CellStack``: w_ih [T, G*H, d], ...).  The cell math,
+``rnn_scan`` and ``core_rnn_sum`` broadcast over that axis.
 """
 from __future__ import annotations
 
@@ -17,8 +23,41 @@ from torch import nn
 from torch.nn import functional as F
 
 
-class _Cell(nn.Module):
+class _CellMath:
+    """GRU/LSTM math over ``w_ih``, ``w_hh``, ``b_ih``, ``b_hh``: 2-D
+    weights, or T cells' stacked on a leading axis (inputs [..., T, N, d]).
+    """
+
     GATES = 0
+
+    @property
+    def hidden_dim(self):
+        return self.w_hh.shape[-1]
+
+    @property
+    def is_lstm(self):
+        return self.GATES == 4
+
+    def input_proj(self, x):
+        """Input-to-hidden projection, hoistable out of the scan."""
+        return _proj(x, self.w_ih, self.b_ih)
+
+    def step_from_proj(self, carry, gi):
+        H = self.hidden_dim
+        if self.is_lstm:
+            h, c = carry
+            return _lstm_gates_step(gi + _proj(h, self.w_hh, self.b_hh), c,
+                                    H)
+        return _gru_step(gi, _proj(carry, self.w_hh, self.b_hh), carry, H)
+
+
+def _proj(x, w, b):
+    """``x @ w^T + b``; a stacked w [T, G, d] / b [T, G] meets x
+    [..., T, N, d]."""
+    return x @ w.mT + b.unsqueeze(-2)
+
+
+class _Cell(_CellMath, nn.Module):
 
     def __init__(self, input_dim, hidden_dim, bias=True, generator=None):
         super().__init__()
@@ -34,18 +73,6 @@ class _Cell(nn.Module):
         self.b_ih = uniform(G) if bias else nn.Parameter(torch.zeros(G))
         self.b_hh = uniform(G) if bias else nn.Parameter(torch.zeros(G))
 
-    @property
-    def hidden_dim(self):
-        return self.w_hh.shape[1]
-
-    @property
-    def is_lstm(self):
-        return self.GATES == 4
-
-    def input_proj(self, x):
-        """Input-to-hidden projection, hoistable out of the scan."""
-        return x @ self.w_ih.T + self.b_ih
-
     def forward(self, carry, x):
         return self.step_from_proj(carry, self.input_proj(x))
 
@@ -55,9 +82,6 @@ class GRUCell(_Cell):
 
     GATES = 3
 
-    def step_from_proj(self, h, gi):
-        return _gru_step(gi, h @ self.w_hh.T + self.b_hh, h, self.hidden_dim)
-
 
 class LSTMCell(_Cell):
     """LSTM parameters, torch layout (gate order: input, forget, cell,
@@ -65,28 +89,42 @@ class LSTMCell(_Cell):
 
     GATES = 4
 
-    def step_from_proj(self, carry, gi):
-        h, c = carry
-        return _lstm_gates_step(gi + h @ self.w_hh.T + self.b_hh, c,
-                                self.hidden_dim)
+
+class CellStack(_CellMath):
+    """The parameters of T cells of one type stacked on a leading [T] axis
+    (differentiable: gradients reach each cell), for the T-batched tail."""
+
+    def __init__(self, cells):
+        self.GATES = cells[0].GATES
+        for name in ("w_ih", "w_hh", "b_ih", "b_hh"):
+            setattr(self, name, torch.stack([getattr(c, name)
+                                             for c in cells]))
+
+    def __call__(self, carry, x):
+        return self.step_from_proj(carry, self.input_proj(x))
+
+
+def step_mask(m):
+    """A step's mask (a scalar, or [T] for the T-batched tail) shaped to
+    broadcast over its [..., N, H] rows."""
+    return m[..., None, None]
 
 
 def rnn_scan(cell, xs, mask=None):
-    """Run a GRU/LSTM over the leading axis of ``xs`` ([T, B, in]) from a
-    zero carry.
+    """Run a GRU/LSTM over the leading axis of ``xs`` ([T, B, in], or
+    [K, T, N, in] for the T-batched tail) from a zero carry.
 
-    mask: optional bool[T]; invalid steps pass the carry through and emit
-    zeros.  Returns (outs [T, B, H], final carry)."""
-    T, B = xs.shape[0], xs.shape[1]
+    mask: optional bool[T] ([K, T]); invalid steps pass the carry through
+    and emit zeros.  Returns (outs [T, B, H], final carry)."""
     H = cell.hidden_dim
-    h = xs.new_zeros(B, H)
-    carry = (h, xs.new_zeros(B, H)) if cell.is_lstm else h
+    h = xs.new_zeros(*xs.shape[1:-1], H)
+    carry = (h, torch.zeros_like(h)) if cell.is_lstm else h
     gi_all = cell.input_proj(xs)
     outs = []
-    for t in range(T):
+    for t in range(xs.shape[0]):
         new = cell.step_from_proj(carry, gi_all[t])
         if mask is not None:
-            v = mask[t].bool()
+            v = step_mask(mask[t].bool())
             if cell.is_lstm:
                 new = tuple(torch.where(v, nw, old)
                             for nw, old in zip(new, carry))
@@ -94,8 +132,7 @@ def rnn_scan(cell, xs, mask=None):
                 new = torch.where(v, new, carry)
         carry = new
         out = carry[0] if cell.is_lstm else carry
-        outs.append(out if mask is None
-                    else torch.where(mask[t].bool(), out, 0.0))
+        outs.append(out if mask is None else torch.where(v, out, 0.0))
     return torch.stack(outs), carry
 
 
@@ -104,9 +141,10 @@ CVJP_BATCH_BUDGET = 512 << 20
 
 
 def _batched(is_lstm, acc, H, batch_budget):
-    """The K-batched mode when the [K, N, G*H] f32 gate stacks fit the
-    budget; the lean per-step recompute above it."""
-    return 4 * acc.shape[0] * acc.shape[1] * (4 if is_lstm else 3) * H \
+    """The K-batched mode when the [K, N, G*H] f32 gate stacks ([K, T, N,
+    G*H] in the T-batched tail: the gate counts T) fit the budget; the
+    lean per-step recompute above it."""
+    return 4 * acc.shape[:-1].numel() * (4 if is_lstm else 3) * H \
         <= batch_budget
 
 
@@ -114,25 +152,25 @@ class _CoreRnnSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, acc, valid, w_ih, w_hh, b_ih, b_hh, is_lstm,
                 batch_budget):
-        K, n = acc.shape[0], acc.shape[1]
-        H = w_hh.shape[1]
+        K = acc.shape[0]
+        H = w_hh.shape[-1]
         batched = _batched(is_lstm, acc, H, batch_budget)
-        h = acc.new_zeros(n, H, dtype=torch.float32)
+        vmask = step_mask(valid)
+        h = acc.new_zeros(*acc.shape[1:-1], H, dtype=torch.float32)
         c = torch.zeros_like(h)
         s = torch.zeros_like(h)
-        saved_h = acc.new_empty(K, n, H)
-        saved_c = acc.new_empty(K, n, H) if is_lstm else None
+        saved_h = acc.new_empty(*acc.shape[:-1], H)
+        saved_c = acc.new_empty(*acc.shape[:-1], H) if is_lstm else None
         if batched:
             # one [K, N, d] GEMM hoisted out of the sequential loop
-            gi_all = (F.relu(acc.float()) * valid[:, None, None]) @ w_ih.T \
-                + b_ih
+            gi_all = _proj(F.relu(acc.float()) * vmask, w_ih, b_ih)
         for k in range(K):
-            v = valid[k]
+            v = vmask[k]
             vb = v > 0
             gi = (gi_all[k] if batched
-                  else (F.relu(acc[k].float()) * v) @ w_ih.T + b_ih)
+                  else _proj(F.relu(acc[k].float()) * v, w_ih, b_ih))
             saved_h[k] = h
-            gh = h @ w_hh.T + b_hh
+            gh = _proj(h, w_hh, b_hh)
             if is_lstm:
                 saved_c[k] = c
                 h_new, c_new = _lstm_gates_step(gi + gh, c, H)
@@ -183,26 +221,26 @@ def _bwd_batched(p, acc, valid, saved_h, saved_c, g_out):
     """K-batched backward: gates for all slots as batched GEMMs; the
     reverse loop's sequential chain is one d_gates @ w_hh GEMM per step."""
     w_ih, w_hh, b_ih, b_hh = p
-    K, n = acc.shape[0], acc.shape[1]
-    H = w_hh.shape[1]
-    vmask = valid[:, None, None]
+    K = acc.shape[0]
+    H = w_hh.shape[-1]
+    vmask = step_mask(valid)
     acc_f = acc.float()
     hx_all = F.relu(acc_f) * vmask
-    gi_all = hx_all @ w_ih.T + b_ih
+    gi_all = _proj(hx_all, w_ih, b_ih)
     h_prevs = saved_h.float()
-    dh = g_out.new_zeros(n, H)
+    dh = torch.zeros_like(g_out)
     if saved_c is not None:
         c_prevs = saved_c.float()
-        gates = gi_all + h_prevs @ w_hh.T + b_hh
+        gates = gi_all + _proj(h_prevs, w_hh, b_hh)
         i = torch.sigmoid(gates[..., :H])
         f = torch.sigmoid(gates[..., H:2 * H])
         g = torch.tanh(gates[..., 2 * H:3 * H])
         o = torch.sigmoid(gates[..., 3 * H:])
         tc = torch.tanh(f * c_prevs + i * g)
         dc = torch.zeros_like(dh)
-        d_gates = g_out.new_empty(K, n, 4 * H)
+        d_gates = g_out.new_empty(*acc.shape[:-1], 4 * H)
         for k in reversed(range(K)):
-            vb = valid[k] > 0
+            vb = vmask[k] > 0
             dh_in = dh + torch.where(vb, g_out, 0.0)
             do = dh_in * tc[k]
             dc_tot = dc + dh_in * o[k] * (1.0 - tc[k] * tc[k])
@@ -217,15 +255,15 @@ def _bwd_batched(p, acc, valid, saved_h, saved_c, g_out):
             d_gates[k] = dg_k
         d_gi = d_gh = d_gates
     else:
-        gh_all = h_prevs @ w_hh.T + b_hh
+        gh_all = _proj(h_prevs, w_hh, b_hh)
         r = torch.sigmoid(gi_all[..., :H] + gh_all[..., :H])
         z = torch.sigmoid(gi_all[..., H:2 * H] + gh_all[..., H:2 * H])
         hn = gh_all[..., 2 * H:]
         nn_ = torch.tanh(gi_all[..., 2 * H:] + r * hn)
-        d_gi = g_out.new_empty(K, n, 3 * H)
-        d_gh = g_out.new_empty(K, n, 3 * H)
+        d_gi = g_out.new_empty(*acc.shape[:-1], 3 * H)
+        d_gh = g_out.new_empty(*acc.shape[:-1], 3 * H)
         for k in reversed(range(K)):
-            vb = valid[k] > 0
+            vb = vmask[k] > 0
             dh_in = dh + torch.where(vb, g_out, 0.0)
             dn = dh_in * (1.0 - z[k])
             dz = dh_in * (h_prevs[k] - nn_[k])
@@ -240,33 +278,34 @@ def _bwd_batched(p, acc, valid, saved_h, saved_c, g_out):
             d_gh[k] = d_gh_k
     d_acc = (((d_gi @ w_ih) * vmask) * (acc_f > 0)).to(acc.dtype)
     return (d_acc,
-            torch.einsum("kng,knd->gd", d_gi, hx_all),
-            torch.einsum("kng,knh->gh", d_gh, h_prevs),
-            d_gi.sum(dim=(0, 1)), d_gh.sum(dim=(0, 1)))
+            torch.einsum("k...ng,k...nd->...gd", d_gi, hx_all),
+            torch.einsum("k...ng,k...nh->...gh", d_gh, h_prevs),
+            d_gi.sum(dim=(0, -2)), d_gh.sum(dim=(0, -2)))
 
 
 def _bwd_lean(p, acc, valid, saved_h, saved_c, g_out):
     """Lean backward: each reverse step recomputes its gates from the saved
     pre-step carry; nothing of size [K, N, G*H] is materialized."""
     w_ih, w_hh, b_ih, b_hh = p
-    K, n = acc.shape[0], acc.shape[1]
-    H = w_hh.shape[1]
-    dh = g_out.new_zeros(n, H)
+    K = acc.shape[0]
+    H = w_hh.shape[-1]
+    vmask = step_mask(valid)
+    dh = torch.zeros_like(g_out)
     dc = torch.zeros_like(dh)
     gw_ih, gw_hh = torch.zeros_like(w_ih), torch.zeros_like(w_hh)
     gb_ih, gb_hh = torch.zeros_like(b_ih), torch.zeros_like(b_hh)
     d_acc = torch.empty_like(acc)
     for k in reversed(range(K)):
-        v = valid[k]
+        v = vmask[k]
         vb = v > 0
         dh_in = dh + torch.where(vb, g_out, 0.0)
         acc_f = acc[k].float()
         hx = F.relu(acc_f) * v
-        gi = hx @ w_ih.T + b_ih
+        gi = _proj(hx, w_ih, b_ih)
         h_prev = saved_h[k].float()
         if saved_c is not None:
             c_prev = saved_c[k].float()
-            gates = gi + h_prev @ w_hh.T + b_hh
+            gates = gi + _proj(h_prev, w_hh, b_hh)
             i = torch.sigmoid(gates[..., :H])
             f = torch.sigmoid(gates[..., H:2 * H])
             g = torch.tanh(gates[..., 2 * H:3 * H])
@@ -281,7 +320,7 @@ def _bwd_lean(p, acc, valid, saved_h, saved_c, g_out):
             dc = torch.where(vb, dc_tot * f, dc)
             d_gi = d_gh = d_gates
         else:
-            gh = h_prev @ w_hh.T + b_hh
+            gh = _proj(h_prev, w_hh, b_hh)
             r = torch.sigmoid(gi[..., :H] + gh[..., :H])
             z = torch.sigmoid(gi[..., H:2 * H] + gh[..., H:2 * H])
             h_n = gh[..., 2 * H:]
@@ -296,10 +335,10 @@ def _bwd_lean(p, acc, valid, saved_h, saved_c, g_out):
                                0.0)
             dh = torch.where(vb, dh_in * z + d_gh @ w_hh, dh_in)
         d_acc[k] = ((d_gi @ w_ih) * v) * (acc_f > 0)
-        gw_ih += d_gi.T @ hx
-        gw_hh += d_gh.T @ h_prev
-        gb_ih += d_gi.sum(dim=0)
-        gb_hh += d_gh.sum(dim=0)
+        gw_ih += d_gi.mT @ hx
+        gw_hh += d_gh.mT @ h_prev
+        gb_ih += d_gi.sum(dim=-2)
+        gb_hh += d_gh.sum(dim=-2)
     return d_acc, gw_ih, gw_hh, gb_ih, gb_hh
 
 
@@ -310,13 +349,20 @@ def core_rnn_sum(cell, acc, valid, batch_budget=CVJP_BATCH_BUDGET):
     (stored in ``acc.dtype``) and runs one reverse pass.
 
     Args:
-      cell: GRUCell or LSTMCell.
-      acc: [K, N, d] prefix accumulation.
-      valid: float32[K] mask (1.0 = valid slot).
+      cell: GRUCell, LSTMCell, or (T-batched) a ``CellStack`` of T cells.
+      acc: [K, N, d] prefix accumulation; [K, T, N, d] for the T-batched
+        tail, whose one cell (CGCN's) or T stacked cells (CTGCN's) run
+        every snapshot at once.
+      valid: float32[K] mask (1.0 = valid slot); [K, T] T-batched.
       batch_budget: byte gate of the K-batched mode (gate stacks of
-        [K, N, G*H] f32 at most this size); above it the lean mode.
-    Returns float32 [N, H].
+        [K, N, G*H] f32, times T batched, at most this size); above it
+        the lean mode.
+    Returns float32 [N, H] ([T, N, H]).
     """
-    return _CoreRnnSum.apply(acc, valid.float(), cell.w_ih, cell.w_hh,
-                             cell.b_ih, cell.b_hh, cell.is_lstm,
+    p = (cell.w_ih, cell.w_hh, cell.b_ih, cell.b_hh)
+    if acc.dim() == 4 and cell.w_ih.dim() == 2:
+        # one cell shared by the T snapshots (CGCN): its gradient sums
+        # theirs
+        p = tuple(w.expand(acc.shape[1], *w.shape) for w in p)
+    return _CoreRnnSum.apply(acc, valid.float(), *p, cell.is_lstm,
                              int(batch_budget))

@@ -97,11 +97,15 @@ With one part the run is the single-device run.  A rank past the part
 count builds the window's draws (to keep its generators in step) and
 waits.
 
-The JAX driver's memory knobs, which it reads from ``CTGCN_TPU_*``
-environment variables, reach the model as constructor arguments here:
-``layer_remat`` from the config, as in the JAX driver, and the byte
-budgets at their module defaults (``ACT_BUDGET``, ``CVJP_BATCH_BUDGET``,
-``CORE_RNN_BUDGET``).
+The JAX package reads its memory knobs from ``CTGCN_TPU_*`` environment
+variables while it traces; here ``core_knobs`` reads the same variables
+once per ``gnn_embedding`` call and they reach the family's models as
+constructor arguments (the config's ``layer_remat`` and ``remat_policy``
+keys first, as the JAX driver sets them).  The driver never sets a
+variable.  ``profile_dir`` (else ``CTGCN_TPU_PROFILE_DIR``) traces each
+window's steady-state epochs (``training/profiling.py``);
+``CTGCN_TPU_PHASE_TIMES`` prints ``[phase]`` lines and
+``CTGCN_TPU_MEM_REPORT`` each window's peak device memory.
 """
 from __future__ import annotations
 
@@ -117,8 +121,9 @@ from ctgcn_torch.data.formats import read_node_list, write_time_csv
 from ctgcn_torch.data.loader import DataLoader
 from ctgcn_torch.losses import (classification_loss, negative_sampling_loss,
                                 reconstruction_loss, vae_loss)
-from ctgcn_torch.nn.core_models import (ACT_BUDGET, CGCN, CORE_RNN_BUDGET,
-                                        CTGCN)
+from ctgcn_torch.nn.core_models import (ACC_MATERIALIZE_BUDGET, ACT_BUDGET,
+                                        CGCN, CORE_RNN_BUDGET, CTGCN,
+                                        REMAT_POLICIES)
 from ctgcn_torch.nn.gat import GAT
 from ctgcn_torch.nn.egcn import EvolveGCN
 from ctgcn_torch.nn.gcn import GCN, GCRN
@@ -141,6 +146,7 @@ from ctgcn_torch.parallel.mesh import (Sharding, shard_time, time_chunk,
 from ctgcn_torch.parallel.pipeline import ctgcn_pipelined_forward
 from ctgcn_torch.training.engine import (SupervisedEmbedding,
                                          UnsupervisedEmbedding)
+from ctgcn_torch.training.profiling import PhaseClock, mem_report
 from ctgcn_torch.training.splits import (binary_auc, build_label_splits,
                                          build_link_splits, multiclass_auc)
 from ctgcn_torch.utils import resolve_device
@@ -188,18 +194,44 @@ def _check_scope(method, args):
     if lt == "U-own" and method not in U_OWN_METHODS:
         raise ValueError(f"U-own is defined for the S-variants and VGRNN, "
                          f"not {method}")
-    if args.get("profile_dir"):
-        raise NotImplementedError(
-            "profile_dir is not ported yet (ROADMAP.md queue 1 item 6: "
-            "training/profiling.py to torch.profiler)")
-    if args.get("remat_policy", "full") != "full":
-        raise NotImplementedError(
-            "remat_policy 'save_spmm' is not ported yet; only 'full' "
-            "(ROADMAP.md queue 1: CoreDiffusion's memory knobs)")
     prec = args.get("matmul_precision", "highest")
     if prec not in MATMUL_PRECISIONS:
         raise ValueError(f"matmul_precision {prec!r}, not one of "
                          f"{MATMUL_PRECISIONS}")
+
+
+def core_knobs(args, env=None):
+    """The family's memory knobs as ``CTGCN``/``CGCN`` take them: the
+    config's ``layer_remat`` and ``remat_policy`` (a false or absent key
+    leaves the variable's setting), else the JAX package's variables
+    (``CTGCN_TPU_LAYER_REMAT``, ``CTGCN_TPU_REMAT_POLICY``,
+    ``CTGCN_TPU_ACT_BUDGET``, ``CTGCN_TPU_CVJP_BATCH_BUDGET``,
+    ``CTGCN_TPU_CORE_RNN_BUDGET``, ``CTGCN_TPU_CORE_VJP``,
+    ``CTGCN_TPU_ACC_MATERIALIZE_BUDGET``, ``CTGCN_TPU_BATCH_WINDOW_TAIL``,
+    read from ``env``, by default ``os.environ``), else their defaults.
+    The zoo reads none of them."""
+    env = os.environ if env is None else env
+    policy = args.get("remat_policy") or env.get("CTGCN_TPU_REMAT_POLICY",
+                                                 "full")
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy {policy!r}, not one of "
+                         f"{REMAT_POLICIES}")
+
+    def num(name, default):
+        return int(env.get(name, default))
+
+    return dict(
+        act_budget=num("CTGCN_TPU_ACT_BUDGET", ACT_BUDGET),
+        remat_policy=policy,
+        layer_remat=(bool(args.get("layer_remat"))
+                     or env.get("CTGCN_TPU_LAYER_REMAT") == "1"),
+        cvjp_batch_budget=num("CTGCN_TPU_CVJP_BATCH_BUDGET",
+                              CVJP_BATCH_BUDGET),
+        core_rnn_budget=num("CTGCN_TPU_CORE_RNN_BUDGET", CORE_RNN_BUDGET),
+        core_vjp=env.get("CTGCN_TPU_CORE_VJP", "1") == "1",
+        acc_materialize_budget=num("CTGCN_TPU_ACC_MATERIALIZE_BUDGET",
+                                   ACC_MATERIALIZE_BUDGET),
+        batch_window_tail=env.get("CTGCN_TPU_BATCH_WINDOW_TAIL", "0") == "1")
 
 
 def get_data_loader(args):
@@ -448,9 +480,10 @@ def _adj_backend(data):
     return adjs[0].backend if isinstance(adjs, tuple) else adjs.backend
 
 
-def get_gnn_model(method, time_length, args, generator):
+def get_gnn_model(method, time_length, args, generator, knobs=None):
     """A fresh model of ``method`` for one window, parameters drawn from
-    ``generator``."""
+    ``generator``; the family's take ``knobs`` (``core_knobs``'s, read
+    from the environment when None)."""
     common = dict(bias=args.get("bias", True), generator=generator)
     dims = (args["input_dim"], args["hid_dim"], args["embed_dim"])
     if PORTED_METHODS[method] is GCN:
@@ -493,10 +526,7 @@ def get_gnn_model(method, time_length, args, generator):
               rnn_type=args.get("rnn_type", "GRU"),
               model_type=args["model_type"],
               trans_activate_type=args.get("trans_activate_type", "L"),
-              act_budget=ACT_BUDGET,
-              layer_remat=bool(args.get("layer_remat", False)),
-              cvjp_batch_budget=CVJP_BATCH_BUDGET,
-              core_rnn_budget=CORE_RNN_BUDGET, **common)
+              **(core_knobs(args) if knobs is None else knobs), **common)
     if PORTED_METHODS[method] is CTGCN:
         kw["duration"] = time_length
     return PORTED_METHODS[method](*dims, **kw)
@@ -799,7 +829,7 @@ def _supervised_parts(method, args, data_loader, idx, time_length, rng,
 
 
 def build_trainer(method, args, data_loader, idx, time_length, device,
-                  generator, rng=None, seed=0, layout=None):
+                  generator, rng=None, seed=0, layout=None, knobs=None):
     """The window's inputs on ``device``, a fresh model drawn from
     ``generator``, and the trainer of the config's learning type over
     them.  ``rng`` (numpy ``RandomState``, by default one seeded with
@@ -808,7 +838,8 @@ def build_trainer(method, args, data_loader, idx, time_length, device,
     the seconds its splits took to build as ``split_seconds``.
 
     ``layout`` (``make_layout``'s) splits the window over parts; a rank
-    without a part draws what the others draw and gets None."""
+    without a part draws what the others draw and gets None.  ``knobs``:
+    the family's memory knobs (``core_knobs``)."""
     base_path = args["base_path"]
     rng = rng if rng is not None else np.random.RandomState(seed)
     lt = args["learning_type"]
@@ -821,7 +852,7 @@ def build_trainer(method, args, data_loader, idx, time_length, device,
         if lt in SUPERVISED_TYPES:
             _supervised_parts(method, args, data_loader, idx, time_length,
                               rng, seed, layout)
-        get_gnn_model(method, time_length, args, generator)
+        get_gnn_model(method, time_length, args, generator, knobs)
         return None
     data = _data_to(data, device)
     s_variant = method in S_VARIANTS
@@ -830,7 +861,7 @@ def build_trainer(method, args, data_loader, idx, time_length, device,
     sharding = _sharding(layout, time_length)
 
     def new_model():
-        model = get_gnn_model(method, time_length, args, generator)
+        model = get_gnn_model(method, time_length, args, generator, knobs)
         if kind in ("time", "pipeline"):
             shard_time(model, parts, time_length)
         return model.to(device)
@@ -923,6 +954,9 @@ def _run_windows(method, args, dev):
     record_time = args.get("record_time", False)
     seed = args.get("seed", 0)
     supervised = args["learning_type"] in SUPERVISED_TYPES
+    knobs = core_knobs(args)
+    phase_times = bool(os.environ.get("CTGCN_TPU_PHASE_TIMES"))
+    report_memory = bool(os.environ.get("CTGCN_TPU_MEM_REPORT"))
 
     data_loader = get_data_loader(args)
     max_time_num = data_loader.max_time_num
@@ -949,15 +983,19 @@ def _run_windows(method, args, dev):
     # unseeded global np.random; here one stream from the config's seed
     rng = np.random.RandomState(seed)
     groups = {}
+    if report_memory and dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     for widx, idx in enumerate(range(start_idx, end_idx, step)):
         print(f"idx = {idx}, duration = {duration}")
         time_length = min(idx + duration, end_idx) - idx
         layout = make_layout(method, args, time_length, groups)
         t_setup = time.time()
+        clock = PhaseClock(phase_times, dev)
         trainer = build_trainer(method, args, data_loader, idx, time_length,
                                 dev, gen, rng=rng, seed=seed + widx,
-                                layout=layout)
+                                layout=layout, knobs=knobs)
         setup_seconds = time.time() - t_setup
+        clock.lap("setup")
         if trainer is None:
             results.append({"idx": idx, "time_length": time_length,
                             "parts": layout[1].count, "idle": True})
@@ -971,7 +1009,8 @@ def _run_windows(method, args, dev):
                       weight_decay=args.get("weight_decay", 0.0),
                       model_file=model_file if keep else None,
                       load_model=load_model, export=args.get("export", True),
-                      seed=seed + widx)
+                      seed=seed + widx, profile_dir=args.get("profile_dir"),
+                      phase_times=phase_times)
         if supervised:
             res = trainer.learn_embedding(
                 classifier_file=args.get("cls_file") if keep else None,
@@ -982,6 +1021,9 @@ def _run_windows(method, args, dev):
                 batch_size=args["batch_size"],
                 shuffle=args.get("shuffle", True), **common)
         time_list.append(res["cost_time"])
+        clock.lap(f"run_window (train {res['cost_time']:.2f}s incl)")
+        if report_memory:
+            mem_report(idx, dev)
         results.append({"idx": idx, "time_length": time_length,
                         "setup_seconds": setup_seconds,
                         "core_backend": _adj_backend(trainer.data),

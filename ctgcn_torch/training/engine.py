@@ -27,8 +27,9 @@ scale(-lr))``.  optax updates every leaf, so a parameter that no loss
 reached (PGNN's first position head) gets a zero gradient before each
 step and its weight decay still moves it; torch's Adam would skip it.
 Parameters are saved with ``torch.save(state_dict)``;
-``load_model_file`` reads them back and refuses a file that ``torch.save``
-did not write (the JAX package writes flax msgpack at the same path).
+``load_model_file`` reads them back, and also reads the flax msgpack the
+JAX package writes at the same path (the JAX package cannot read the
+port's file).
 
 Under several parts (``parallel.mesh.Sharding``, every learning type):
 every part draws the same batches, negatives and dropout from the same
@@ -51,7 +52,10 @@ import numpy as np
 import torch
 
 from ctgcn_torch.data.formats import write_embedding_csvs
+from ctgcn_torch.interop import params_from_numpy
 from ctgcn_torch.parallel.dist import is_primary, part0_flag
+from ctgcn_torch.training.model_file import read_flax_msgpack
+from ctgcn_torch.training.profiling import EpochTracer, PhaseClock
 from ctgcn_torch.utils import check_and_make_path
 
 
@@ -72,19 +76,28 @@ def batch_matrix(node_num, batch_size, rng=None, shuffle=True):
 
 
 def load_model_file(model, path, device, sharding=None):
-    """Load the ``state_dict`` that ``torch.save`` wrote at ``path`` into
-    ``model`` (into its slice, through ``sharding``, when it is split).
-    Raises ``ValueError`` naming ``path`` when the file is not
-    ``torch.save``'s zip archive: the JAX package saves flax msgpack at the
-    same ``<base>/<model_folder>/<model_file>``, which the port cannot
-    read, and it does not fall back to a fresh model."""
-    if not zipfile.is_zipfile(path):
-        raise ValueError(
-            f"{path} is not a model file that ctgcn_torch wrote (a "
-            "torch.save archive of a state_dict); the JAX package writes "
-            "flax msgpack at the same path: remove it, or set load_model to "
-            "false")
-    state = torch.load(path, map_location=device)
+    """Load the parameters saved at ``path`` into ``model`` (into its
+    slice, through ``sharding``, when it is split): a ``torch.save``
+    archive of a ``state_dict`` (what the port writes), or the flax
+    msgpack that the JAX package writes at the same
+    ``<base>/<model_folder>/<model_file>`` (decoded by
+    ``model_file.read_flax_msgpack``, mapped by
+    ``interop.params_from_numpy``).  Raises ``ValueError`` naming
+    ``path`` for a file that is neither; it does not fall back to a fresh
+    model."""
+    if zipfile.is_zipfile(path):
+        state = torch.load(path, map_location=device)
+    else:
+        with open(path, "rb") as fp:
+            buf = fp.read()
+        try:
+            tree = read_flax_msgpack(buf)
+        except ValueError as exc:
+            raise ValueError(
+                f"{path} is not a model file: neither a torch.save archive "
+                f"of a state_dict nor flax msgpack ({exc}); remove it, or "
+                "set load_model to false") from None
+        state = {k: v.to(device) for k, v in params_from_numpy(tree).items()}
     if sharding is None:
         model.load_state_dict(state)
     else:
@@ -133,6 +146,7 @@ class BaseEmbedding:
         self.file_sep = file_sep
         self.full_node_list = node_list
         self.node_num = len(node_list)
+        self.sharding = None
         self.timestamp_list = sorted(os.listdir(self.origin_base_path))
         check_and_make_path(self.embedding_base_path)
         check_and_make_path(self.model_base_path)
@@ -153,6 +167,16 @@ class BaseEmbedding:
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _save_model(self, model_path):
+        """Save the model's ``state_dict`` (the whole model's, gathered
+        through ``self.sharding`` when split) at ``model_path``; rank 0
+        writes."""
+        model, sharding = self.model, self.sharding
+        state = (model.state_dict() if sharding is None
+                 else sharding.state_dict(model))
+        if is_primary():
+            torch.save(state, model_path)
 
 
 class UnsupervisedEmbedding(BaseEmbedding):
@@ -189,8 +213,11 @@ class UnsupervisedEmbedding(BaseEmbedding):
     def learn_embedding(self, epoch=50, batch_size=1024, lr=1e-3,
                         start_idx=0, weight_decay=0.0, model_file="ctgcn",
                         load_model=False, shuffle=True, export=True, seed=0,
-                        verbose=True):
-        """Train, export, save (rank 0 writes).  Returns a dict:
+                        verbose=True, profile_dir=None, phase_times=False):
+        """Train, export, save (rank 0 writes).  ``profile_dir``: trace
+        the steady-state epochs there (``profiling.EpochTracer``);
+        ``phase_times``: print ``[phase]`` lines for the embedding
+        forward, its export and the model save.  Returns a dict:
         ``cost_time`` (seconds of training), per epoch ``losses`` and
         ``epoch_seconds``, and ``export_seconds`` (embedding export and
         model save)."""
@@ -208,37 +235,43 @@ class UnsupervisedEmbedding(BaseEmbedding):
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
         losses, epoch_seconds = [], []
+        tracer = EpochTracer(profile_dir, epoch, self.device)
         for e in range(epoch):
             t_e = time.time()
             batches, masks = batch_matrix(self.node_num, batch_size,
                                           rng=perm_rng, shuffle=shuffle)
-            optimizer.zero_grad(set_to_none=False)
-            total = torch.zeros((), device=self.device)
-            state = (None if self.state_init is None
-                     else self.state_init(model, self.data))
-            for b_idx, b_mask in zip(batches, masks):
-                args = (model, self.data,
-                        torch.from_numpy(b_idx).to(self.device),
-                        torch.from_numpy(b_mask).to(self.device), gen)
-                if self.state_init is None:
-                    loss = self.loss_fn(*args)
-                else:
-                    loss, state = self.loss_fn(*args, state)
-                    state = state.detach()
-                loss.backward()
-                total += loss.detach()
-            if sharding is not None:
-                sharding.reduce_grads(model)
-            optimizer.step()
-            loss_val = float(total)         # waits for the epoch to finish
-            self._sync()
+            tracer.before_epoch(e)
+            with tracer.annotate(e):
+                optimizer.zero_grad(set_to_none=False)
+                total = torch.zeros((), device=self.device)
+                state = (None if self.state_init is None
+                         else self.state_init(model, self.data))
+                for b_idx, b_mask in zip(batches, masks):
+                    args = (model, self.data,
+                            torch.from_numpy(b_idx).to(self.device),
+                            torch.from_numpy(b_mask).to(self.device), gen)
+                    if self.state_init is None:
+                        loss = self.loss_fn(*args)
+                    else:
+                        loss, state = self.loss_fn(*args, state)
+                        state = state.detach()
+                    loss.backward()
+                    total += loss.detach()
+                if sharding is not None:
+                    sharding.reduce_grads(model)
+                optimizer.step()
+                loss_val = float(total)     # waits for the epoch to finish
+                self._sync()
+            tracer.after_epoch(e)
             epoch_seconds.append(time.time() - t_e)
             losses.append(loss_val)
             if verbose and is_primary():
                 print(f"epoch {e + 1}, loss: {loss_val:.6f}, "
                       f"cost time: {time.time() - st:.3f}s", flush=True)
+        tracer.close()
         cost_time = time.time() - st
         t_export = time.time()
+        clock = PhaseClock(phase_times, self.device)
         if export:
             batch_num = -(-self.node_num // batch_size)
             with torch.no_grad():
@@ -249,13 +282,13 @@ class UnsupervisedEmbedding(BaseEmbedding):
                                                             state)
                 else:
                     output = self.embed_fn(model, self.data)
+            clock.lap("embed_fn")
             if is_primary():
                 self.save_embedding(output, start_idx)
+            clock.lap("save_embedding")
         if model_file:
-            state = (model.state_dict() if sharding is None
-                     else sharding.state_dict(model))
-            if is_primary():
-                torch.save(state, model_path)
+            self._save_model(model_path)
+            clock.lap("save_params")
         self.model = model
         return {"cost_time": cost_time, "losses": losses,
                 "epoch_seconds": epoch_seconds,
@@ -329,11 +362,14 @@ class SupervisedEmbedding(BaseEmbedding):
     def learn_embedding(self, epoch=50, lr=1e-3, start_idx=0,
                         weight_decay=0.0, model_file="ctgcn",
                         classifier_file="ctgcn_cls", load_model=False,
-                        export=True, seed=0, verbose=True):
+                        export=True, seed=0, verbose=True, profile_dir=None,
+                        phase_times=False):
         """Train, keep the best-on-validation parameters (the parameters
         before training when no validation epoch runs), save them, test
         them and export their embeddings.  The train step's forward draws
-        from a generator seeded ``seed``.  Returns a dict: ``cost_time``
+        from a generator seeded ``seed``.  ``profile_dir`` and
+        ``phase_times`` as ``UnsupervisedEmbedding.learn_embedding``'s.
+        Returns a dict: ``cost_time``
         (seconds of training and test), per epoch ``losses`` (train),
         ``epoch_seconds`` (the train step and, from the second epoch, the
         validation forward) and ``acc_val`` (from the second epoch),
@@ -358,16 +394,21 @@ class SupervisedEmbedding(BaseEmbedding):
         gen.manual_seed(seed)
         best_acc, best, best_state = -1.0, self._params(), None
         losses, acc_vals, epoch_seconds = [], [], []
+        tracer = EpochTracer(profile_dir, epoch, self.device)
         for e in range(epoch):
             t_e = time.time()
-            optimizer.zero_grad(set_to_none=False)
-            state = self.state_init(model, self.data) if stateful else None
-            loss, acc, _, *rest = self._run("train", gen, state)
-            loss.backward()
-            if sharding is not None:
-                sharding.reduce_grads(model, *self._modules()[1:])
-            optimizer.step()
-            losses.append(float(loss.detach()))
+            tracer.before_epoch(e)
+            with tracer.annotate(e):
+                optimizer.zero_grad(set_to_none=False)
+                state = (self.state_init(model, self.data) if stateful
+                         else None)
+                loss, acc, _, *rest = self._run("train", gen, state)
+                loss.backward()
+                if sharding is not None:
+                    sharding.reduce_grads(model, *self._modules()[1:])
+                optimizer.step()
+                losses.append(float(loss.detach()))
+            tracer.after_epoch(e)
             if e == 0:
                 self._sync()
                 epoch_seconds.append(time.time() - t_e)
@@ -396,15 +437,15 @@ class SupervisedEmbedding(BaseEmbedding):
                       flush=True)
             self._sync()
             epoch_seconds.append(time.time() - t_e)
+        tracer.close()
         for m, params in zip(self._modules(), best):
             m.load_state_dict(params)
+        clock = PhaseClock(phase_times, self.device)
         if model_file:
-            state = (model.state_dict() if sharding is None
-                     else sharding.state_dict(model))
-            if is_primary():
-                torch.save(state, model_path)
+            self._save_model(model_path)
         if classifier_file and cls is not None and is_primary():
             torch.save(cls.state_dict(), cls_path)
+        clock.lap("save_params")
         with torch.no_grad():
             if stateful and best_state is None:
                 best_state = self.state_init(model, self.data)
@@ -416,6 +457,7 @@ class SupervisedEmbedding(BaseEmbedding):
             print(f"Test set results: loss= {float(loss_te):.4f} "
                   f"accuracy= {float(acc_te):.4f} auc= {auc_te:.4f}",
                   flush=True)
+        clock.lap("test")
         cost_time = time.time() - st
         t_export = time.time()
         if export:
@@ -424,8 +466,10 @@ class SupervisedEmbedding(BaseEmbedding):
             else:
                 with torch.no_grad():
                     output = self.embed_fn(model, self.data)
+            clock.lap("embed_fn")
             if is_primary():
                 self.save_embedding(output, start_idx)
+            clock.lap("save_embedding")
         return {"cost_time": cost_time, "losses": losses,
                 "epoch_seconds": epoch_seconds, "acc_val": acc_vals,
                 "best_acc_val": best_acc, "acc_test": float(acc_te),

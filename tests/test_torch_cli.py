@@ -114,28 +114,52 @@ def test_default_device_without_gpu_raises(dataset):
 
 
 @pytest.mark.parametrize("change, error", [
-    ({"remat_policy": "save_spmm"}, NotImplementedError),
+    ({"remat_policy": "save_spmm"}, None),
     ({"n_devices": 2, "temporal_pipeline": True}, None),
     ({"matmul_precision": "fp8"}, ValueError),
-    ({"profile_dir": "prof"}, NotImplementedError),
+    ({"profile_dir": "prof"}, None),
+    ({"remat_policy": "none"}, ValueError),
 ])
-def test_unported_options_raise(dataset, tmp_path, change, error):
-    """Options not ported yet raise; ``temporal_pipeline`` with
-    ``n_devices: 2`` is ported and passes ``_check_scope``, which no
-    longer reads the world size (``tests/test_torch_pipeline.py`` runs it
-    on 2 ranks)."""
+def test_unported_options_raise(dataset, trained, tmp_path, change, error):
+    """Every option of the JAX driver is ported: ``remat_policy:
+    "save_spmm"`` reaches the trainer's model (and changes no loss under
+    the activation budget), ``profile_dir`` writes one trace a window of
+    epoch 0 (the config's one epoch); an unknown precision or policy
+    raises.  ``temporal_pipeline`` with ``n_devices: 2`` passes
+    ``_check_scope``, which no longer reads the world size
+    (``tests/test_torch_pipeline.py`` runs it on 2 ranks)."""
     _, cfg, _, _ = dataset
     config = json.loads(Path(cfg).read_text())
-    config["embedding"]["CTGCN-C"].update(change)
+    entry = config["embedding"]["CTGCN-C"]
+    entry.update(change, embed_folder="2.embedding/options",
+                 model_file="options", record_time=False)
     if "n_devices" in change:
         assert error is None
-        driver._check_scope("CTGCN-C", config["embedding"]["CTGCN-C"])
+        driver._check_scope("CTGCN-C", entry)
         return
+    if "profile_dir" in change:
+        entry["profile_dir"] = str(tmp_path / "prof")
     path = tmp_path / "cfg.json"
     path.write_text(json.dumps(config))
-    with pytest.raises(error, match="not ported|matmul_precision"):
-        cli.main([f"--config={path}", "--task=embedding",
-                  "--method=CTGCN-C", "--device=cpu"])
+    argv = [f"--config={path}", "--task=embedding", "--method=CTGCN-C",
+            "--device=cpu"]
+    if error is not None:
+        with pytest.raises(error, match="matmul_precision|remat_policy"):
+            cli.main(argv)
+        return
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        results = cli.main(argv)
+    assert [r["losses"] for r in results] == [r["losses"] for r in trained]
+    model = results[-1]["trainer"].model
+    assert model.remat_policy == change.get("remat_policy", "full")
+    if "profile_dir" in change:
+        traces = sorted((tmp_path / "prof").iterdir())
+        assert len(traces) == len(results) == 2
+        assert all(p.name.endswith(".pt.trace.json") for p in traces)
+        assert out.getvalue().count("profiler trace written to "
+                                    f"{tmp_path / 'prof'} (epochs 0..0)") \
+            == 2
 
 
 def test_n_devices_on_one_process_matches_single_device(dataset, trained,

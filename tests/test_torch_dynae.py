@@ -416,18 +416,21 @@ def test_dyngem_warm_start_loads_the_last_saved_parameters(
 
 
 def test_flax_model_file_raises_naming_the_path(dataset, tmp_path):
-    """A JAX-written model file (flax msgpack) at the warm-start path
-    raises, naming the path, and no fresh model is trained instead."""
+    """A model file that is neither a ``torch.save`` archive nor flax
+    msgpack (here a flax file cut short) at the warm-start path raises,
+    naming the path, and no fresh model is trained instead; a whole
+    JAX-written file loads (``tests/test_torch_model_file.py``)."""
     emb = _config(dataset, "DynGEM")
     path = dataset / emb["model_folder"] / emb["model_file"]
     path.parent.mkdir(parents=True, exist_ok=True)
     jmodel = _jax_model("DynGEM")
-    path.write_bytes(serialization.to_bytes(jmodel))
+    path.write_bytes(serialization.to_bytes(jmodel)[:-7])
     with pytest.raises(ValueError,
                        match=re.escape(str(path)) + ".*not a model file"):
         _run_cli(dataset, tmp_path, "DynGEM", load_model=True)
     assert not (dataset / emb["embed_folder"]).exists() or not any(
         (dataset / emb["embed_folder"]).iterdir())
+    path.unlink()
 
 
 @pytest.mark.parametrize("method", METHODS)

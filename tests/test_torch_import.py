@@ -12,8 +12,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "ctgcn_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ctgcn_tpu", "pandas",
-             "sklearn", "networkx")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "ctgcn_tpu",
+             "pandas", "sklearn", "networkx")
 
 
 def _port_files():

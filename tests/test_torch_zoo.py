@@ -378,22 +378,30 @@ def _cli_run(dataset, tmp_path, method, **change):
     ("PGNN", {"profile_dir": "prof"}),
     ("GCN", {"remat_policy": "save_spmm"}), ("GCN", {"profile_dir": "prof"})])
 def test_unported_zoo_raises(dataset, tmp_path, method, change):
-    """The options not ported yet raise under any zoo method, naming
-    ROADMAP.md: the ``remat_policy: "save_spmm"`` knob and the
-    ``profile_dir`` key (a trace directory, which the JAX trainer writes).
-    ``n_devices`` above 1 (the zoo's time sharding) is ported: it passes
+    """The JAX driver's options reach the zoo's trainers: ``remat_policy:
+    "save_spmm"`` is accepted and changes nothing for the zoo (the same
+    losses as without it, as in the JAX package, whose policy acts only
+    on the family), and ``profile_dir`` writes one trace a window.
+    ``n_devices`` above 1 (the zoo's time sharding) passes
     ``_check_scope``, which no longer reads the world size
     (``tests/test_torch_zoo_dist.py`` runs it on 2 ranks)."""
     _, _, emb = dataset
     if "n_devices" in change:
         TD._check_scope(method, dict(emb["GCN"], **change))
         return
-    path = tmp_path / "cfg.json"
-    path.write_text(json.dumps({"embedding": {
-        method: dict(emb["GCN"], **change)}}))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli.main([f"--config={path}", "--task=embedding",
-                  f"--method={method}", "--device=cpu"])
+    if "profile_dir" in change:
+        change = {"profile_dir": str(tmp_path / "prof")}
+    runs = []
+    for tag, keys in (("plain", {}), ("option", change)):
+        path = tmp_path / f"{tag}.json"
+        path.write_text(json.dumps({"embedding": {method: dict(
+            emb["GCN"], embed_folder=f"2.embedding/{method}-{tag}",
+            model_file=f"{method}-{tag}", **keys)}}))
+        runs.append(cli.main([f"--config={path}", "--task=embedding",
+                              f"--method={method}", "--device=cpu"]))
+    assert [r["losses"] for r in runs[1]] == [r["losses"] for r in runs[0]]
+    if "profile_dir" in change:
+        assert len(list((tmp_path / "prof").iterdir())) == len(runs[1])
 
 
 def test_dropout_keeps_half_and_doubles_them():
