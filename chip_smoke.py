@@ -80,10 +80,10 @@ kernel against its plain PyTorch version:
                 32768) on window 0 of the Enron copy, 3 epochs: every
                 snapshot's D^-1 (A + I) (longest rows 1,147-1,149) on the
                 block-parallel kernel, both directions;
-  * enron_egcn  ``configs/enron.json`` EvolveGCN as written (EGCNH, T = 10,
-                hid 128, embed 128, gaussian degree features of width
-                1,149: 4.0 GB on the card) on a preprocessed copy of Enron
-                snapshots 000-009, 1 epoch: D^-1/2 (A + I) D^-1/2 on the
+  * enron_egcn  ``configs/enron.json`` EvolveGCN as written (EGCNH, hid
+                128, embed 128, gaussian degree features) but for its
+                window, cut from T = 10 to the 5 snapshots of the Enron
+                copy (000-004), 1 epoch: D^-1/2 (A + I) D^-1/2 on the
                 block-parallel kernel, both directions;
   * math_egcn   ``configs/math.json`` EvolveGCN as written (N = 24,740,
                 T = 10, features of width 227) on a preprocessed copy of
@@ -235,7 +235,13 @@ Phases, one line each:
                 device activity only) on each path of ``PROFILED``, right
                 after its counted run, on the trainer of that run's last
                 window (so a window's setup is paid once: enron_egcn's
-                draws 1.0e9 gaussians);
+                draws 0.5e9 gaussians);
+     model_file the trained model of each path of ``MODEL_FILE_PATHS``
+                (UCI CTGCN-C, Enron bf16's) written as the flax msgpack the
+                JAX package reads and read back into a copy of the model,
+                bit-equal, every parameter float32; its bytes and the write
+                and read seconds beside ``torch.save``'s and
+                ``torch.load``'s of the same state;
      memory     what lives at a VGRNN epoch's peak on uci_vgrnn and
                 math_vgrnn (window, parameters, gradients and Adam, the
                 tensors saved for the backward, the loss's z z^T chunk)
@@ -246,16 +252,19 @@ Phases, one line each:
                 peaks); the same profile and memory (the dense window, a
                 batch's saved tensors, the peaks) on the non-GNN paths of
                 Math and AS;
-  5. quality    the UCI Had AUC gates, seeds 0 and 1 each, scored by the
-                port's ``link_pred`` over edge-split reps 0-2 (mean Had AUC
-                of the last 4 dates): CTGCN-C as configured but for 10
+  5. quality    the UCI Had AUC gates, seeds 0 and 1 each (the zoo's
+                runs seed 0), scored by the port's ``link_pred`` over
+                edge-split reps 0-2 (mean Had AUC of the last 4 dates):
+                CTGCN-C as configured but for 10
                 epochs (``RESULTS.md:66-68``) and the same at
                 ``matmul_precision: "bf16"`` (``RESULTS.md:69``), each
                 failing below ``HAD_AUC_GATE``; CTGCN-S as configured (20
                 epochs, ``RESULTS.md:38``), failing below ``S_AUC_GATE``;
                 VGRNN as configured (50 epochs, ``RESULTS.md:52``), failing
                 below ``VGRNN_AUC_GATE``; PGNN as configured (50 epochs),
-                failing below ``PGNN_AUC_GATE``; the uci_* non-GNN paths
+                failing below ``PGNN_AUC_GATE``; GCRN, EvolveGCN and TgGCN
+                as configured (50 epochs, seed 0), failing below
+                ``ZOO_AUC_GATES``; the uci_* non-GNN paths
                 (seed 0), failing below ``DYN_AUC_GATES`` and, TIMERS, more
                 than ``TIMERS_AUC_TOL`` from the JAX package's figure;
                 and aa_snode's mean test accuracy over seeds 0 and 1,
@@ -339,18 +348,37 @@ PGNN_AUC_JAX = (0.8536, 0.0112)
 PGNN_AUC_REFERENCES = {"RESULTS.md:55": (0.8681, 0.0022),
                        "ctgcn_tpu on the CPU, seeds 0-3": PGNN_AUC_JAX}
 PGNN_AUC_GATE = min(m - 4 * sd for m, sd in PGNN_AUC_REFERENCES.values())
+#: the zoo's recurrent (GCRN), evolving-weight (EvolveGCN) and
+#: per-snapshot (TgGCN) paths on UCI as configured (U-neg, 50 epochs;
+#: GCRN and EvolveGCN one window of duration 7, TgGCN seven of duration
+#: 1), seed 0: (mean, run-to-run standard deviation) of RESULTS.md (over
+#: reps, trained by the JAX package) and of the JAX package on the CPU
+#: (scripts/zoo_quality_reference.py --package jax --seeds 0 1, over seeds
+#: and reps); each gate is the lower of the two means less four of their
+#: deviations
+ZOO_JAX = "ctgcn_tpu on the CPU, seeds 0-1"
+ZOO_AUC_REFERENCES = {
+    "GCRN": {"RESULTS.md:51": (0.8958, 0.0074), ZOO_JAX: (0.8973, 0.0053)},
+    "EvolveGCN": {"RESULTS.md:56": (0.8354, 0.0021),
+                  ZOO_JAX: (0.8354, 0.0094)},
+    "TgGCN": {"RESULTS.md:50": (0.9010, 0.0047), ZOO_JAX: (0.9019, 0.0051)}}
+ZOO_AUC_GATES = {m: min(mean - 4 * sd for mean, sd in refs.values())
+                 for m, refs in ZOO_AUC_REFERENCES.items()}
+ZOO_QUALITY_SEEDS = (0,)
 #: the figures printed beside a quality run's gate
-QUALITY_REFERENCES = {"PGNN": PGNN_AUC_REFERENCES}
-#: (name, method, config change, epochs, gate) of each quality run; the
-#: bf16 run's gate is the f32 one, as RESULTS.md:69 found bf16
+QUALITY_REFERENCES = {"PGNN": PGNN_AUC_REFERENCES, **ZOO_AUC_REFERENCES}
+#: (name, method, config change, epochs, gate, seeds) of each quality run;
+#: the bf16 run's gate is the f32 one, as RESULTS.md:69 found bf16
 #: quality-neutral (0.9331 vs 0.9340 at 50 epochs)
 QUALITY_RUNS = (
-    ("CTGCN-C", "CTGCN-C", {}, QUALITY_EPOCHS, HAD_AUC_GATE),
+    ("CTGCN-C", "CTGCN-C", {}, QUALITY_EPOCHS, HAD_AUC_GATE, QUALITY_SEEDS),
     ("CTGCN-C-bf16", "CTGCN-C", {"matmul_precision": "bf16"},
-     QUALITY_EPOCHS, HAD_AUC_GATE),
-    ("CTGCN-S", "CTGCN-S", {}, 20, S_AUC_GATE),
-    ("VGRNN", "VGRNN", {}, 50, VGRNN_AUC_GATE),
-    ("PGNN", "PGNN", {}, 50, PGNN_AUC_GATE))
+     QUALITY_EPOCHS, HAD_AUC_GATE, QUALITY_SEEDS),
+    ("CTGCN-S", "CTGCN-S", {}, 20, S_AUC_GATE, QUALITY_SEEDS),
+    ("VGRNN", "VGRNN", {}, 50, VGRNN_AUC_GATE, QUALITY_SEEDS),
+    ("PGNN", "PGNN", {}, 50, PGNN_AUC_GATE, QUALITY_SEEDS),
+    *((m, m, {}, 50, ZOO_AUC_GATES[m], ZOO_QUALITY_SEEDS)
+      for m in ZOO_AUC_REFERENCES))
 #: America-Air training for node_cls / edge_cls
 AA_EPOCHS = 3
 #: aa_snode's quality gate: the JAX package's mean test accuracy on the
@@ -1096,9 +1124,11 @@ def _weight_gaps(emb_a, emb_b):
     way), and the largest gap among the rest."""
     import torch
 
+    from ctgcn_torch.training.engine import read_model_file
+
     def load(emb):
         folder = Path(emb["base_path"]) / emb["model_folder"]
-        return torch.load(folder / emb["model_file"], map_location="cpu")
+        return read_model_file(folder / emb["model_file"], "cpu")
 
     a, b = load(emb_a), load(emb_b)
     if list(a) != list(b):
@@ -2506,6 +2536,71 @@ def phase_profile(path, trainer, kw, setup_s, epochs):
     return busy
 
 
+#: the paths whose trained model ``phase_model_file`` writes and reads
+#: back: UCI CTGCN-C and the largest family model the script trains
+#: (Enron bf16: five [87,036, 500] input layers, 0.87 GB)
+MODEL_FILE_PATHS = ("uci_auto", "enron_bf16")
+
+
+def _synced_seconds(fn, dev):
+    import torch
+
+    torch.cuda.synchronize(dev)
+    t0 = time.time()
+    fn()
+    torch.cuda.synchronize(dev)
+    return time.time() - t0
+
+
+def phase_model_file(path, trainer, folder, dev):
+    """The path's trained model (its last window's) written as the flax
+    msgpack the JAX package reads (``save_model_file``), then read back
+    through ``load_model_file`` into a copy whose every tensor was set to
+    NaN: each must come back bit-equal, and every parameter must be
+    float32 (a bf16 run rounds the bank, not the parameters).  Beside it,
+    ``torch.save`` and ``torch.load`` of the same ``state_dict``: bytes and
+    seconds."""
+    import copy
+
+    import torch
+
+    from ctgcn_torch.training.engine import load_model_file, save_model_file
+
+    model = trainer.model
+    dtypes = sorted({str(p.dtype) for p in model.parameters()})
+    if dtypes != ["torch.float32"]:
+        raise AssertionError(f"[model_file] {path}: parameters {dtypes}")
+    folder.mkdir(parents=True, exist_ok=True)
+    new, old = folder / f"{path}.msgpack", folder / f"{path}.pt"
+    write_s = _synced_seconds(lambda: save_model_file(model, str(new)), dev)
+    fresh = copy.deepcopy(model)
+    with torch.no_grad():
+        for value in fresh.state_dict().values():
+            value.fill_(float("nan"))
+    read_s = _synced_seconds(lambda: load_model_file(fresh, str(new), dev),
+                             dev)
+    want, got = model.state_dict(), fresh.state_dict()
+    if list(got) != list(want):
+        raise AssertionError(f"[model_file] {path}: keys {list(got)}")
+    unequal = [k for k in want if not torch.equal(got[k], want[k])]
+    if unequal:
+        raise AssertionError(f"[model_file] {path}: {unequal} read back "
+                             "unequal")
+    save_s = _synced_seconds(lambda: torch.save(want, old), dev)
+    load_s = _synced_seconds(lambda: torch.load(old, map_location=dev), dev)
+    _phase("model_file", path=path, family=type(model).__name__,
+           tensors=len(want),
+           parameters=sum(v.numel() for v in want.values()),
+           parameter_dtypes=dtypes, bit_equal=True,
+           bytes=new.stat().st_size, write_seconds=write_s,
+           read_seconds=read_s, torch_save_bytes=old.stat().st_size,
+           torch_save_seconds=save_s, torch_load_seconds=load_s,
+           write_over_torch_save=write_s / save_s)
+    new.unlink()
+    old.unlink()
+    del fresh
+
+
 def phase_vgrnn_memory(path, cfg, dev):
     """What lives at the peak of a VGRNN epoch on ``path``: the window and
     the parameters (allocated when the trainer is ready), the parameters'
@@ -3080,13 +3175,14 @@ def _train(base, name, conf, device, method="CTGCN-C", **change):
 
 def phase_quality(base, device, dyn_methods=()):
     """The Had AUC gates on the preprocessed UCI copy ``base``: each run of
-    ``QUALITY_RUNS`` trained once per seed, then one ``link_pred`` as
-    ``configs/uci.json`` gives it (ratios 0.5/0.3/0.2, C in 0.01-10, four
-    measures) over reps 0-2 on all of them and on the folders of
-    ``dyn_methods`` (the uci_* paths' exports, seed 0, as configured);
-    each run's mean Had AUC of the last 4 dates, over seeds and reps, must
-    reach its gate (``DYN_AUC_GATES`` for the non-GNN methods; TIMERS' must
-    lie within ``TIMERS_AUC_TOL`` of the JAX package's).  The DynAE family
+    ``QUALITY_RUNS`` trained once per seed of its own, then one
+    ``link_pred`` as ``configs/uci.json`` gives it (ratios 0.5/0.3/0.2, C
+    in 0.01-10, four measures) over reps 0-2 on all of them and on the
+    folders of ``dyn_methods`` (the uci_* paths' exports, seed 0, as
+    configured); each run's mean Had AUC of the last 4 dates, over seeds
+    and reps, must reach its gate (``DYN_AUC_GATES`` for the non-GNN
+    methods; TIMERS' must lie within ``TIMERS_AUC_TOL`` of the JAX
+    package's).  The DynAE family
     exports snapshots 2-6 only, so link_pred scores 4 dates of it, 6 of
     the others.  Returns the method folders, the f32 CTGCN-C seed 0's
     first."""
@@ -3098,8 +3194,8 @@ def phase_quality(base, device, dyn_methods=()):
         conf = json.load(fp)
     runs, methods, train = {}, [], {}
     dates = {}
-    for label, method, change, epochs, gate in QUALITY_RUNS:
-        for seed in QUALITY_SEEDS:
+    for label, method, change, epochs, gate, seeds in QUALITY_RUNS:
+        for seed in seeds:
             name = f"{label}-s{seed}"
             seconds, results = _train(base, name, conf, device, method,
                                       epoch=epochs, seed=seed, **change)
@@ -3324,8 +3420,8 @@ def main():
                     for f in AS_SNAPSHOTS)
             and all((ROOT / "data" / "enron" / "1.format" / f).is_file()
                     for f in ENRON_SNAPSHOTS)
-            and all((ROOT / "data" / d / "1.format" / f).is_file()
-                    for d in ("enron", "math") for f in TEN_SNAPSHOTS)):
+            and all((ROOT / "data" / "math" / "1.format" / f).is_file()
+                    for f in TEN_SNAPSHOTS)):
         return _fail(f"{ROOT} is not a checkout of the repository")
     t_start = time.time()
     sys.path.insert(0, str(ROOT))
@@ -3356,8 +3452,8 @@ def main():
         # 2. preprocessing on temporary copies of data/uci, of the first
         # AS and Enron snapshots, of data/america_air (with its labels), of
         # Math snapshot 000 (its CTGCN-C entry writes the walk tables that
-        # its GIN entry reads) and of Enron and Math snapshots 000-009
-        # (EvolveGCN's window)
+        # its GIN entry reads) and of Math snapshots 000-009 (EvolveGCN's
+        # window)
         cfgs, confs = {}, {}
         for name, conf_name, files, extra, epochs in (
                 ("uci", "uci", None, (), EPOCHS),
@@ -3366,7 +3462,6 @@ def main():
                 ("america_air", "america-air", None,
                  ("nodes_label", "edges_label"), AA_EPOCHS),
                 ("math", "math", MATH_SNAPSHOTS, (), EPOCHS),
-                ("enron10", "enron", TEN_SNAPSHOTS, (), EPOCHS),
                 ("math10", "math", TEN_SNAPSHOTS, (), EPOCHS)):
             base = work / name
             src = ROOT / "data" / conf_name.replace("-", "_")
@@ -3444,9 +3539,9 @@ def main():
                                    ("as_tgsage", "as", "TgSAGE")):
             variant(name, data, method, end_idx=0, epoch=EPOCHS)
         # the recurrent GCNs: configs as written, window 0 (EvolveGCN's
-        # setup draws 1.0e9 gaussians at Enron, so one epoch there)
+        # setup draws 0.5e9 gaussians at Enron, so one epoch there)
         variant("enron_gcrn", "enron", "GCRN", epoch=EPOCHS)
-        variant("enron_egcn", "enron10", "EvolveGCN", epoch=1)
+        variant("enron_egcn", "enron", "EvolveGCN", epoch=1)
         variant("math_egcn", "math10", "EvolveGCN", epoch=EPOCHS)
         # VGRNN: configs as written, window 0 (Math's first five
         # snapshots: its duration)
@@ -3534,6 +3629,8 @@ def main():
                 phase_profile(path, trainer, _epoch_kw(cfgs[cfg][2]),
                               results[path][-1]["setup_seconds"],
                               PROFILED[path])
+            if path in MODEL_FILE_PATHS:
+                phase_model_file(path, trainer, work / "model_file", dev)
             del trainer
         first = {p: results[p][0]["losses"][0]
                  for p in ("enron_bf16", "enron_highest")}

@@ -15,16 +15,115 @@ data tree:
 
 Node names follow pandas' type inference: a column whose every entry
 parses as an integer holds ints, otherwise strings, so names written back
-into embedding CSVs read the same as the JAX package's.
+into embedding CSVs read the same as the JAX package's.  Numbers (edge
+weights, features) read as the doubles ``pandas.read_csv`` gives
+(``pandas_column``), so both packages build the same adjacency from any
+token.
 """
 from __future__ import annotations
 
 import concurrent.futures
+import math
 import multiprocessing
 import os
+import re
 
 import numpy as np
 import scipy.sparse as sp
+
+_INT = re.compile(r"[+-]?\d+")
+_NUMBER = re.compile(r"([+-]?)(\d*)(?:\.(\d*))?(?:[eE]([+-]?\d+))?")
+#: a column of tokens joined by newlines holds one that is not plain (a
+#: character besides digits, point and signs) or longer than 15 characters
+_NOT_SHORT = re.compile(r"[^0-9.+\-\n]|[^\n]{16}")
+#: pandas' default missing-value tokens
+_NA = {"", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan",
+       "1.#IND", "1.#QNAN", "<NA>", "N/A", "NA", "NULL", "NaN", "None",
+       "n/a", "nan", "null"}
+_INF = {"inf": math.inf, "+inf": math.inf, "-inf": -math.inf,
+        "infinity": math.inf, "+infinity": math.inf, "-infinity": -math.inf}
+_POW10 = [float(f"1e{i}") for i in range(309)]
+
+
+def pandas_float(token):
+    """The double ``pandas.read_csv`` reads from ``token`` by default: its
+    C parser's ``precise_xstrtod``, which keeps at most 17 digits (leading
+    zeros included), accumulates them in a double and scales by a power of
+    ten once.  It differs from ``float()`` by an ulp on many 17-digit
+    numbers, so a table read twice reads the same in both packages."""
+    if token in _NA:
+        return math.nan
+    if token.strip().lower() in _INF:
+        return _INF[token.strip().lower()]
+    m = _NUMBER.fullmatch(token.strip())
+    if not m or not (m.group(2) or m.group(3)):
+        raise ValueError(token)
+    sign, int_part, frac, exp = m.groups()
+    number, n_digits, exponent = 0.0, 0, 0
+    for ch in int_part:
+        if n_digits < 17:
+            number = number * 10.0 + (ord(ch) - 48)
+            n_digits += 1
+        else:
+            exponent += 1
+    for ch in (frac or "")[:max(0, 17 - n_digits)]:
+        number = number * 10.0 + (ord(ch) - 48)
+        exponent -= 1
+    if sign == "-":
+        number = -number
+    if exp:
+        exponent += int(exp)
+    if exponent > 308:
+        raise ValueError(token)
+    if exponent > 0:
+        return number * _POW10[exponent]
+    if exponent < -616:
+        return 0.0 * number
+    if exponent < -308:
+        return number / _POW10[-308 - exponent] / _POW10[308]
+    return number / _POW10[-exponent]
+
+
+def exact_float(token):
+    """``float(token)`` where it is the double :func:`pandas_float` gives,
+    else ``None``.  With at most 15 digits the parser's accumulated integer
+    is exact (below 2**53), and with a decimal exponent within +-22 so is
+    its power of ten, so its one multiply or divide is correctly rounded:
+    the double ``float`` gives."""
+    m = _NUMBER.fullmatch(token)
+    if m is None:
+        return None
+    _, int_part, frac, exp = m.groups()
+    frac = frac or ""
+    if not 0 < len(int_part) + len(frac) <= 15:
+        return None
+    if not -22 <= int(exp or 0) - len(frac) <= 22:
+        return None
+    return float(token)
+
+
+def pandas_column(tokens):
+    """A column of number tokens as float64, as ``pandas.read_csv`` reads
+    it and ``to_numpy(float64)`` converts it: a column of integers holds
+    ints (converted exactly rounded), any other each token as pandas'
+    parser reads it.  Tokens of at most 15 plain characters (digits,
+    point, sign) are parsed at once by numpy (:func:`exact_float`'s case);
+    otherwise each token goes through :func:`exact_float`, and
+    :func:`pandas_float` where that gives ``None``.  Raises
+    ``ValueError`` for a token that is not a number."""
+    tokens = list(tokens)
+    if not _NOT_SHORT.search("\n".join(tokens)):
+        try:
+            return np.array(tokens, dtype=np.float64)
+        except ValueError:
+            pass        # an empty or malformed token: the slow path
+    if all(_INT.fullmatch(t) for t in tokens):
+        return np.array([int(t) for t in tokens], dtype=np.float64)
+    out = np.empty(len(tokens), np.float64)
+    for i, t in enumerate(tokens):
+        v = exact_float(t)
+        out[i] = pandas_float(t) if v is None else v
+    return out
 
 
 def infer_names(tokens):
@@ -42,12 +141,10 @@ def read_node_list(node_path):
     return infer_names([t for t in tokens if t != ""])
 
 
-def read_edge_csv(file_path, node2idx, sep="\t", parse_weight=float):
+def read_edge_csv(file_path, node2idx, sep="\t"):
     """Read an edge list CSV (header skipped) into (src, dst, weight) arrays
-    of *directed* rows as given in the file, self-loops removed; each
-    weight token parsed by ``parse_weight`` (``evaluation.tables.
-    pandas_float`` reads 17-digit tokens as pandas does, an ulp off
-    ``float`` on some)."""
+    of *directed* rows as given in the file, self-loops removed; the
+    weights as pandas reads them (``pandas_column``)."""
     with open(file_path) as fp:
         lines = fp.read().splitlines()[1:]
     rows = [line.split(sep) for line in lines if line != ""]
@@ -58,7 +155,7 @@ def read_edge_csv(file_path, node2idx, sep="\t", parse_weight=float):
     dst = np.fromiter((node2idx[d] for d in dst_names), np.int64,
                       count=len(rows))
     if rows and len(rows[0]) >= 3:
-        w = np.array([parse_weight(r[2]) for r in rows], dtype=np.float64)
+        w = pandas_column([r[2] for r in rows])
     else:
         w = np.ones(len(rows), dtype=np.float64)
     keep = src != dst
@@ -81,12 +178,11 @@ def build_adj_from_edges(src, dst, weight, node_num):
         shape=(node_num, node_num))
 
 
-def get_sp_adj_mat(file_path, full_node_list, sep="\t", parse_weight=float):
+def get_sp_adj_mat(file_path, full_node_list, sep="\t"):
     """Edge CSV -> symmetric scipy COO over the full node list."""
     node_num = len(full_node_list)
     node2idx = dict(zip(full_node_list, range(node_num)))
-    src, dst, w = read_edge_csv(file_path, node2idx, sep=sep,
-                                parse_weight=parse_weight)
+    src, dst, w = read_edge_csv(file_path, node2idx, sep=sep)
     return build_adj_from_edges(src, dst, w, node_num)
 
 

@@ -20,7 +20,8 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from ctgcn_torch.data.formats import get_sp_adj_mat, infer_names, sorted_dir
+from ctgcn_torch.data.formats import (get_sp_adj_mat, infer_names,
+                                      pandas_column, sorted_dir)
 from ctgcn_torch.losses import WalkData
 from ctgcn_torch.ops.ell import build_ev_plans
 from ctgcn_torch.ops.pyramid import (attach_ell_plans, build_core_pyramid,
@@ -151,9 +152,12 @@ class DataLoader:
         for i in self._window(start_idx, duration):
             with open(os.path.join(feature_base_path, files[i])) as fp:
                 lines = fp.read().splitlines()[1:]
-            arrs.append(np.array([[float(v) for v in line.split(sep)]
-                                  for line in lines if line != ""],
-                                 np.float64))
+            rows = [line.split(sep) for line in lines if line != ""]
+            if len({len(r) for r in rows}) > 1:
+                raise ValueError(f"{files[i]}: rows of different widths")
+            # each column as pandas reads it (an int column exactly)
+            arrs.append(np.stack([pandas_column(col) for col in zip(*rows)],
+                                 axis=1))
         max_dim = max(a.shape[1] for a in arrs)
         xs = np.stack([np.pad(a, ((0, 0), (0, max_dim - a.shape[1])))
                        for a in arrs]).astype(np.float32)

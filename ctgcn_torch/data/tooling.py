@@ -29,8 +29,7 @@ import numpy as np
 from scipy.sparse.csgraph import connected_components
 
 from ctgcn_torch.data.formats import get_sp_adj_mat, read_node_list
-from ctgcn_torch.evaluation.tables import (format_cell, pandas_float,
-                                           parse_column)
+from ctgcn_torch.evaluation.tables import format_cell, parse_column
 from ctgcn_torch.utils import check_and_make_path
 
 
@@ -130,8 +129,7 @@ def get_graph_from_nodes(file_path, node_file, output_node_dir,
     check_and_make_path(output_node_dir)
     check_and_make_path(output_edge_dir)
     full_node_list = read_node_list(node_file)
-    adj = get_sp_adj_mat(file_path, full_node_list, sep=sep,
-                         parse_weight=pandas_float).tocsr()
+    adj = get_sp_adj_mat(file_path, full_node_list, sep=sep).tocsr()
     _, labels = connected_components(adj, directed=False)
     largest = np.argmax(np.bincount(labels))
     cc_nodes = np.nonzero(labels == largest)[0]

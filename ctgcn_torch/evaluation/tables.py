@@ -23,57 +23,10 @@ import re
 
 import numpy as np
 
-from ctgcn_torch.data.formats import read_embedding_csv, read_node_list
+from ctgcn_torch.data.formats import (pandas_float, read_embedding_csv,
+                                      read_node_list)
 
 _INT = re.compile(r"[+-]?\d+")
-_NUMBER = re.compile(r"([+-]?)(\d*)(?:\.(\d*))?(?:[eE]([+-]?\d+))?")
-#: pandas' default missing-value tokens
-_NA = {"", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan",
-       "1.#IND", "1.#QNAN", "<NA>", "N/A", "NA", "NULL", "NaN", "None",
-       "n/a", "nan", "null"}
-_INF = {"inf": math.inf, "+inf": math.inf, "-inf": -math.inf,
-        "infinity": math.inf, "+infinity": math.inf, "-infinity": -math.inf}
-_POW10 = [float(f"1e{i}") for i in range(309)]
-
-
-def pandas_float(token):
-    """The double ``pandas.read_csv`` reads from ``token`` by default: its
-    C parser's ``precise_xstrtod``, which keeps at most 17 digits (leading
-    zeros included), accumulates them in a double and scales by a power of
-    ten once.  It differs from ``float()`` by an ulp on many 17-digit
-    numbers, so a table read twice reads the same in both packages."""
-    if token in _NA:
-        return math.nan
-    if token.strip().lower() in _INF:
-        return _INF[token.strip().lower()]
-    m = _NUMBER.fullmatch(token.strip())
-    if not m or not (m.group(2) or m.group(3)):
-        raise ValueError(token)
-    sign, int_part, frac, exp = m.groups()
-    number, n_digits, exponent = 0.0, 0, 0
-    for ch in int_part:
-        if n_digits < 17:
-            number = number * 10.0 + (ord(ch) - 48)
-            n_digits += 1
-        else:
-            exponent += 1
-    for ch in (frac or "")[:max(0, 17 - n_digits)]:
-        number = number * 10.0 + (ord(ch) - 48)
-        exponent -= 1
-    if sign == "-":
-        number = -number
-    if exp:
-        exponent += int(exp)
-    if exponent > 308:
-        raise ValueError(token)
-    if exponent > 0:
-        return number * _POW10[exponent]
-    if exponent < -616:
-        return 0.0 * number
-    if exponent < -308:
-        return number / _POW10[-308 - exponent] / _POW10[308]
-    return number / _POW10[-exponent]
-
 
 def parse_column(tokens):
     """Cells of one column as pandas types them: a list of ints, of floats,

@@ -40,11 +40,34 @@ The non-GNN baselines' trees map as they are onto
 ``encoder.cells.<i>.{w_ih,w_hh,b_ih,b_hh}`` and ``decoder.cells.<i>.*``
 (DynRNN), ``ae_encoders.<t>.layers.<i>.*`` and
 ``rnn_encoder.cells.<i>.*`` (DynAERNN).
+
+``params_to_numpy(state_dict, family)`` is the inverse: the port's
+``state_dict`` of the model class named ``family`` as the tree
+``to_state_dict`` gives for the JAX model of that name, which
+``training.model_file.write_flax_msgpack`` writes as the JAX package's
+``save_params`` does.  It restacks the per-timestep modules onto the
+leading [T] axis and writes ``None`` (or an empty map, an empty tuple of
+layers) for each field the JAX model holds empty where the port has no
+module: a layer's ``bias`` without bias, PGNN's ``linear_pre`` without
+``feature_pre``, its ``conv_hidden`` below three layers and its
+``conv_out`` at one, GIN's inner ``norms`` at one MLP layer.
 """
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import torch
+
+
+#: the containers of one module a timestep in the port whose JAX leaves
+#: carry a leading [T] axis (the models' ``TimeRule.stacked``)
+_STACKED = {"CTGCN": ("mlps", "cdns"), "GCRN": ("gcns",)}
+#: family -> (path, value) of each field the JAX model holds as ``None`` or
+#: an empty tuple where the port's model has no module ("*": every key)
+_ABSENT = {"PGNN": (("linear_pre", None), ("conv_hidden", {}),
+                    ("conv_out", None)),
+           "GIN": (("mlps.*.norms", {}),)}
 
 
 def _flatten(tree, prefix=""):
@@ -74,3 +97,63 @@ def params_from_numpy(tree):
         else:
             state[name] = torch.tensor(arr, dtype=torch.float32)
     return state
+
+
+def _nest(tree, parts, value):
+    for key in parts[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[parts[-1]] = value
+
+
+def _absent(tree, parts, value):
+    """``value`` at every path that ``parts`` matches and lacks."""
+    if not isinstance(tree, dict):
+        return
+    head, rest = parts[0], parts[1:]
+    if not rest:
+        tree.setdefault(head, copy.deepcopy(value))
+    elif head == "*":
+        for sub in tree.values():
+            _absent(sub, rest, value)
+    elif head in tree:
+        _absent(tree[head], rest, value)
+
+
+def _no_bias(tree):
+    """A ``bias: None`` beside each ``weight`` leaf without one: every JAX
+    layer with a ``weight`` (``Linear``, ``GraphConvolution``,
+    ``GraphConv``) holds its bias as ``None`` when it has none."""
+    for val in tree.values():
+        if isinstance(val, dict):
+            _no_bias(val)
+    if isinstance(tree.get("weight"), np.ndarray):
+        tree.setdefault("bias", None)
+
+
+def _host(tensor):
+    return tensor.detach().to("cpu", torch.float32).numpy()
+
+
+def params_to_numpy(state_dict, family):
+    """The port's ``state_dict`` of the model class named ``family`` ->
+    the JAX model's ``to_state_dict`` tree: nested dicts of float32 numpy
+    arrays, ``None`` and empty maps.  Per-timestep tensors are stacked
+    where they lie (on the card, one copy to the host a leaf)."""
+    stacked = _STACKED.get(family, ())
+    tree, stacks = {}, {}
+    for name, val in state_dict.items():
+        parts = name.split(".")
+        if parts[0] in stacked:
+            stacks.setdefault((parts[0], *parts[2:]), {})[int(parts[1])] = val
+        else:
+            _nest(tree, parts, _host(val))
+    for parts, per_t in stacks.items():
+        if sorted(per_t) != list(range(len(per_t))):
+            raise ValueError(f"{'.'.join(parts)}: timesteps "
+                             f"{sorted(per_t)} are not 0..T-1")
+        _nest(tree, parts,
+              _host(torch.stack([per_t[t] for t in range(len(per_t))])))
+    _no_bias(tree)
+    for path, value in _ABSENT.get(family, ()):
+        _absent(tree, path.split("."), value)
+    return tree

@@ -44,7 +44,7 @@ from ctgcn_torch.data.loader import DataLoader
 from ctgcn_torch.nn.layers import Linear
 from ctgcn_torch.ops.rnn import LSTMCell, rnn_scan
 from ctgcn_torch.training.engine import (BaseEmbedding, load_model_file,
-                                         make_optimizer)
+                                         make_optimizer, save_model_file)
 from ctgcn_torch.utils import resolve_device
 
 DYN_METHODS = ("DynGEM", "DynAE", "DynRNN", "DynAERNN")
@@ -351,7 +351,7 @@ class DynamicEmbedding(BaseEmbedding):
             with torch.no_grad():
                 self.save_embedding(self.embed_fn(model, self.data), idx)
         if model_file:
-            torch.save(model.state_dict(), model_path)
+            save_model_file(model, model_path)
         return {"cost_time": cost_time, "losses": losses,
                 "epoch_seconds": epoch_seconds,
                 "export_seconds": time.time() - t_export,

@@ -26,20 +26,21 @@ the JAX package's ``optax.chain(add_decayed_weights, scale_by_adam,
 scale(-lr))``.  optax updates every leaf, so a parameter that no loss
 reached (PGNN's first position head) gets a zero gradient before each
 step and its weight decay still moves it; torch's Adam would skip it.
-Parameters are saved with ``torch.save(state_dict)``;
-``load_model_file`` reads them back, and also reads the flax msgpack the
-JAX package writes at the same path (the JAX package cannot read the
-port's file).
+Parameters are saved as the flax msgpack the JAX package's
+``save_params`` writes (``save_model_file``: ``interop.params_to_numpy``,
+``model_file.write_flax_msgpack``), so either package's ``load_model:
+true`` reads the other's files; ``load_model_file`` reads that format and
+the ``torch.save`` archives earlier versions of the port wrote.
 
 Under several parts (``parallel.mesh.Sharding``, every learning type):
 every part draws the same batches, negatives and dropout from the same
 seeded generators, the gradients are reduced by the sharding's rule before
 each optimizer step (a classifier's averaged: it is used after the
 gather), rank 0 alone writes the CSVs and the model files, and the model
-file is the whole model's ``state_dict`` (time-stacked slices gathered
-first), the keys of the single-device file, so ``load_model_file`` reads
-either.  The supervised trainer keeps the best-on-validation parameters
-when part 0 says so: every part makes that choice together.
+file is the whole model's (time-stacked slices gathered first): the
+single-device file's bytes, so ``load_model_file`` reads either.  The
+supervised trainer keeps the best-on-validation parameters when part 0
+says so: every part makes that choice together.
 """
 from __future__ import annotations
 
@@ -52,9 +53,10 @@ import numpy as np
 import torch
 
 from ctgcn_torch.data.formats import write_embedding_csvs
-from ctgcn_torch.interop import params_from_numpy
+from ctgcn_torch.interop import params_from_numpy, params_to_numpy
 from ctgcn_torch.parallel.dist import is_primary, part0_flag
-from ctgcn_torch.training.model_file import read_flax_msgpack
+from ctgcn_torch.training.model_file import (flax_msgpack_parts,
+                                             read_flax_msgpack)
 from ctgcn_torch.training.profiling import EpochTracer, PhaseClock
 from ctgcn_torch.utils import check_and_make_path
 
@@ -75,33 +77,51 @@ def batch_matrix(node_num, batch_size, rng=None, shuffle=True):
             mask.reshape(batch_num, batch_size))
 
 
-def load_model_file(model, path, device, sharding=None):
-    """Load the parameters saved at ``path`` into ``model`` (into its
-    slice, through ``sharding``, when it is split): a ``torch.save``
-    archive of a ``state_dict`` (what the port writes), or the flax
-    msgpack that the JAX package writes at the same
-    ``<base>/<model_folder>/<model_file>`` (decoded by
-    ``model_file.read_flax_msgpack``, mapped by
-    ``interop.params_from_numpy``).  Raises ``ValueError`` naming
-    ``path`` for a file that is neither; it does not fall back to a fresh
-    model."""
+def read_model_file(path, device="cpu"):
+    """The ``state_dict`` saved at ``path``, on ``device``: flax msgpack
+    (what either package writes at ``<base>/<model_folder>/<model_file>``;
+    decoded by ``model_file.read_flax_msgpack``, mapped by
+    ``interop.params_from_numpy``) or a ``torch.save`` archive of a
+    ``state_dict`` (what the port wrote before it wrote msgpack).  Raises
+    ``ValueError`` naming ``path`` for a file that is neither; it does not
+    fall back to a fresh model."""
     if zipfile.is_zipfile(path):
-        state = torch.load(path, map_location=device)
-    else:
-        with open(path, "rb") as fp:
-            buf = fp.read()
-        try:
-            tree = read_flax_msgpack(buf)
-        except ValueError as exc:
-            raise ValueError(
-                f"{path} is not a model file: neither a torch.save archive "
-                f"of a state_dict nor flax msgpack ({exc}); remove it, or "
-                "set load_model to false") from None
-        state = {k: v.to(device) for k, v in params_from_numpy(tree).items()}
+        return torch.load(path, map_location=device)
+    with open(path, "rb") as fp:
+        buf = fp.read()
+    try:
+        tree = read_flax_msgpack(buf)
+    except ValueError as exc:
+        raise ValueError(
+            f"{path} is not a model file: neither a torch.save archive "
+            f"of a state_dict nor flax msgpack ({exc}); remove it, or "
+            "set load_model to false") from None
+    return {k: v.to(device) for k, v in params_from_numpy(tree).items()}
+
+
+def load_model_file(model, path, device, sharding=None):
+    """Load the parameters saved at ``path`` (``read_model_file``) into
+    ``model``, into its slice through ``sharding`` when it is split."""
+    state = read_model_file(path, device)
     if sharding is None:
         model.load_state_dict(state)
     else:
         sharding.load_state_dict(model, state)
+
+
+def save_model_file(model, path, sharding=None):
+    """Write ``model``'s parameters at ``path`` as the JAX package's
+    ``save_params`` writes the JAX model of the same name: flax msgpack of
+    its ``to_state_dict`` tree, float32 leaves.  Split over parts, the
+    whole model's parameters are gathered through ``sharding`` (a
+    collective: every part calls it) and rank 0 writes."""
+    state = (model.state_dict() if sharding is None
+             else sharding.state_dict(model))
+    if not is_primary():
+        return
+    parts = flax_msgpack_parts(params_to_numpy(state, type(model).__name__))
+    with open(path, "wb") as fp:
+        fp.writelines(parts)
 
 
 class _Adam(torch.optim.Adam):
@@ -167,16 +187,6 @@ class BaseEmbedding:
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-
-    def _save_model(self, model_path):
-        """Save the model's ``state_dict`` (the whole model's, gathered
-        through ``self.sharding`` when split) at ``model_path``; rank 0
-        writes."""
-        model, sharding = self.model, self.sharding
-        state = (model.state_dict() if sharding is None
-                 else sharding.state_dict(model))
-        if is_primary():
-            torch.save(state, model_path)
 
 
 class UnsupervisedEmbedding(BaseEmbedding):
@@ -287,7 +297,7 @@ class UnsupervisedEmbedding(BaseEmbedding):
                 self.save_embedding(output, start_idx)
             clock.lap("save_embedding")
         if model_file:
-            self._save_model(model_path)
+            save_model_file(model, model_path, sharding)
             clock.lap("save_params")
         self.model = model
         return {"cost_time": cost_time, "losses": losses,
@@ -442,9 +452,9 @@ class SupervisedEmbedding(BaseEmbedding):
             m.load_state_dict(params)
         clock = PhaseClock(phase_times, self.device)
         if model_file:
-            self._save_model(model_path)
-        if classifier_file and cls is not None and is_primary():
-            torch.save(cls.state_dict(), cls_path)
+            save_model_file(model, model_path, sharding)
+        if classifier_file and cls is not None:
+            save_model_file(cls, cls_path)
         clock.lap("save_params")
         with torch.no_grad():
             if stateful and best_state is None:

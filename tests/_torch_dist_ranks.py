@@ -23,7 +23,7 @@ import torch.distributed as dist
 
 from ctgcn_torch import losses as TL
 from ctgcn_torch.nn.core_models import CGCN, CTGCN, CoreDiffusion
-from ctgcn_torch.nn.gcn import GCN
+from ctgcn_torch.nn.gcn import GCN, GCRN
 from ctgcn_torch.ops.pyramid import build_core_pyramid, stack_pyramids
 from ctgcn_torch.parallel.core_partition import (
     halo_core_forward, partition_pyramid_halo, partitioned_core_diffusion)
@@ -37,7 +37,7 @@ from ctgcn_torch.parallel.mesh import (Sharding, shard_time, time_chunk,
 from ctgcn_torch.parallel.pipeline import (ctgcn_pipelined_forward,
                                            pipelined_rnn_scan)
 from ctgcn_torch.ops.rnn import GRUCell, LSTMCell
-from ctgcn_torch.training.engine import make_optimizer
+from ctgcn_torch.training.engine import make_optimizer, save_model_file
 
 
 def _np(t):
@@ -417,8 +417,25 @@ def _supervised_step(rank, world, inp):
     return out
 
 
+def _save(rank, world, inp):
+    """Each case's model (``cls``: "CTGCN-C" or "GCRN", built from
+    ``args``, loaded with the whole ``state``) time-sharded over the
+    parts and saved at ``path`` through its sharding (rank 0 writes)."""
+    parts = make_parts(world)
+    for case in inp["cases"]:
+        T = case["args"][-1]
+        model = {"CTGCN-C": CTGCN, "GCRN": GCRN}[case["cls"]](*case["args"])
+        model.load_state_dict({k: torch.from_numpy(v)
+                               for k, v in case["state"].items()})
+        shard_time(model, parts, T)
+        save_model_file(model, case["path"], Sharding(parts, "time",
+                                                      time_length=T))
+    return {}
+
+
 JOBS = {"halo": _halo, "time": _time, "cli": _cli, "pipeline": _pipeline,
-        "zoo_step": _zoo_step, "supervised_step": _supervised_step}
+        "zoo_step": _zoo_step, "supervised_step": _supervised_step,
+        "save": _save}
 
 
 def main(rank, world, workdir, jobs):

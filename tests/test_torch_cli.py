@@ -21,6 +21,7 @@ import torch
 
 from ctgcn_torch import main as cli
 from ctgcn_torch.training import driver
+from ctgcn_torch.training.engine import read_model_file
 
 ROOT = Path(__file__).resolve().parent.parent
 N, SNAPS = 120, 4
@@ -100,7 +101,7 @@ def test_time_csv_and_model_file(dataset, trained):
     base, _, _, emb = dataset
     times = pd.read_csv(base / "CTGCN-C_time.csv")
     assert list(times.columns) == ["time"] and len(times) == 2
-    state = torch.load(base / emb["model_folder"] / emb["model_file"])
+    state = read_model_file(base / emb["model_folder"] / emb["model_file"])
     assert state["norm.scale"].shape == (emb["embed_dim"],)
 
 

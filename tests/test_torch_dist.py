@@ -42,6 +42,7 @@ from flax import serialization
 
 from ctgcn_torch import main as cli
 from ctgcn_torch.interop import params_from_numpy
+from ctgcn_torch.training.engine import read_model_file
 from ctgcn_tpu import losses as JL
 from ctgcn_tpu.nn.core_models import CGCN as JCGCN
 from ctgcn_tpu.nn.core_models import CTGCN as JCTGCN
@@ -478,8 +479,8 @@ def test_cli_on_two_ranks_equals_one_device(two_ranks, cli_data, tag,
         np.testing.assert_allclose(got[f], ref[f], rtol=1e-5, atol=1e-5,
                                    err_msg=f)
     model_dir = base / "CTGCN" / "model"
-    got = torch.load(model_dir / tag)
-    ref = torch.load(model_dir / "single")
+    got = read_model_file(model_dir / tag)
+    ref = read_model_file(model_dir / "single")
     assert list(got) == list(ref)
     for k in ref:
         np.testing.assert_allclose(got[k].numpy(), ref[k].numpy(),

@@ -38,7 +38,7 @@ from flax import serialization
 from ctgcn_torch import main as cli
 from ctgcn_torch.interop import params_from_numpy
 from ctgcn_torch.nn import dynae as TD
-from ctgcn_torch.training.engine import make_optimizer
+from ctgcn_torch.training.engine import make_optimizer, read_model_file
 from ctgcn_tpu.nn import dynae as JD
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -288,7 +288,7 @@ def test_one_batch_training_equals_jax(dataset, method):
     jcsv = dataset / "2.embedding" / "jax" / "2011-04.csv"
     tcsv = dataset / "2.embedding" / "torch" / "2011-04.csv"
     _close(_read_csv(tcsv), _read_csv(jcsv), TRAIN_TOL, f"{method} export")
-    saved = torch.load(dataset / "model-torch" / method.lower())
+    saved = read_model_file(dataset / "model-torch" / method.lower())
     assert set(saved) == set(tt.model.state_dict())
 
 
@@ -395,17 +395,17 @@ def test_dyngem_warm_start_loads_the_last_saved_parameters(
     parameters, and a second run's window 0 from the first run's last
     file (a stale file is read as it is, as in the JAX package)."""
     saved, loaded = [], []
-    real_save, real_load = torch.save, TD.load_model_file
+    real_save, real_load = TD.save_model_file, TD.load_model_file
 
-    def save(state, path):
-        saved.append({k: v.clone() for k, v in state.items()})
-        real_save(state, path)
+    def save(model, path):
+        saved.append({k: v.clone() for k, v in model.state_dict().items()})
+        real_save(model, path)
 
     def load(model, path, device):
         real_load(model, path, device)
         loaded.append({k: v.clone() for k, v in model.state_dict().items()})
 
-    monkeypatch.setattr(TD.torch, "save", save)
+    monkeypatch.setattr(TD, "save_model_file", save)
     monkeypatch.setattr(TD, "load_model_file", load)
     for _ in range(2):
         _run_cli(dataset, tmp_path, "DynGEM", end_idx=1, load_model=True)

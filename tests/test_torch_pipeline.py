@@ -29,6 +29,7 @@ import pytest
 import torch
 
 from ctgcn_torch.parallel.pipeline import pick_microbatch
+from ctgcn_torch.training.engine import read_model_file
 from ctgcn_tpu.nn.core_models import CTGCN as JCTGCN
 from ctgcn_tpu.ops.pyramid import build_core_pyramid, stack_pyramids
 from ctgcn_tpu.ops.rnn import GRUCell as JGRUCell
@@ -201,8 +202,8 @@ def test_cli_pipeline_on_two_ranks_equals_one_device(two_ranks, cli_data):
         np.testing.assert_allclose(got[f], ref[f], rtol=1e-5, atol=1e-5,
                                    err_msg=f)
     model_dir = base / "CTGCN" / "model"
-    got = torch.load(model_dir / "pipe2")
-    ref = torch.load(model_dir / "single")
+    got = read_model_file(model_dir / "pipe2")
+    ref = read_model_file(model_dir / "single")
     assert list(got) == list(ref)
     for k in ref:
         np.testing.assert_allclose(got[k].numpy(), ref[k].numpy(),

@@ -35,7 +35,8 @@ from ctgcn_torch.interop import params_from_numpy
 from ctgcn_torch.nn import heads as TH
 from ctgcn_torch.training import driver as tdriver
 from ctgcn_torch.training import splits as TS
-from ctgcn_torch.training.engine import SupervisedEmbedding
+from ctgcn_torch.training.engine import (SupervisedEmbedding,
+                                         read_model_file)
 from ctgcn_tpu import losses as JL
 from ctgcn_tpu.data.loader import DataLoader as JDataLoader
 from ctgcn_tpu.nn import heads as JH
@@ -388,8 +389,8 @@ def test_best_on_val_parameters_are_copies(tmp_path):
     last = (model.weight, cls.mlp.layers[0].weight)
     assert res["acc_val"] == [0.75, 0.5] and res["best_acc_val"] == 0.75
     assert not torch.equal(epoch2[1], seen[4][1])
-    saved_m = torch.load(tmp_path / "model" / "m")
-    saved_c = torch.load(tmp_path / "model" / "c")
+    saved_m = read_model_file(tmp_path / "model" / "m")
+    saved_c = read_model_file(tmp_path / "model" / "c")
     assert torch.equal(saved_m["weight"], epoch2[1])
     assert torch.equal(saved_c["mlp.layers.0.weight"], epoch2[2])
     assert torch.equal(seen[5][1], epoch2[1])       # the test forward

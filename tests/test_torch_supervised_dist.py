@@ -34,6 +34,7 @@ import pytest
 import torch
 
 from ctgcn_torch import main as cli
+from ctgcn_torch.training.engine import read_model_file
 from ctgcn_tpu.training.engine import make_optimizer as j_make_optimizer
 from tests.test_torch_dist import ROOT, _finish, _start
 from tests.test_torch_pgnn import _jax_window_anchor_sets
@@ -241,7 +242,8 @@ def test_cli_supervised_on_two_ranks_equals_one_device(two_ranks, dataset,
         if not (model_dir / want_f).is_file():
             assert CASES[name][1].startswith("S-link")
             continue
-        got, want = (torch.load(model_dir / f) for f in (got_f, want_f))
+        got, want = (read_model_file(model_dir / f)
+                     for f in (got_f, want_f))
         assert list(got) == list(want)
         for k in want:
             np.testing.assert_allclose(got[k].numpy(), want[k].numpy(),

@@ -42,6 +42,7 @@ import torch
 
 from ctgcn_torch import main as cli
 from ctgcn_torch.training import driver as TD
+from ctgcn_torch.training.engine import read_model_file
 from ctgcn_tpu import losses as JL
 from ctgcn_tpu.training import driver as JD
 from ctgcn_tpu.training.engine import make_optimizer as j_make_optimizer
@@ -276,8 +277,8 @@ def test_cli_on_two_ranks_equals_one_device(two_ranks, zoo_data, tag,
         np.testing.assert_allclose(got[f], ref[f], rtol=1e-5, atol=1e-5,
                                    err_msg=f)
     model_dir = base / emb[method]["model_folder"]
-    got = torch.load(model_dir / tag)
-    ref = torch.load(model_dir / (tag + "-one"))
+    got = read_model_file(model_dir / tag)
+    ref = read_model_file(model_dir / (tag + "-one"))
     assert list(got) == list(ref)
     for k in ref:
         np.testing.assert_allclose(got[k].numpy(), ref[k].numpy(),
