@@ -26,7 +26,7 @@ kernel against its plain PyTorch version:
   * enron_bf16  ``configs/enron.json`` CTGCN-C as written
                 (``matmul_precision: "bf16"``, batch 32768: 3 batches an
                 epoch) on a preprocessed copy of Enron snapshots 000-004
-                (N = 87,036, K = 22 slots), delta-ELL, 2 epochs; both plans
+                (N = 87,036, K = 22 slots), delta-ELL, 1 epoch; both plans
                 have hub rows, so only the block-parallel bf16 kernel runs;
                 then enron_highest, one epoch of it at ``"highest"`` from
                 the same seed (no export), for the first-epoch loss gap;
@@ -128,7 +128,8 @@ kernel against its plain PyTorch version:
 
 Phases, one line each:
 
-  1. build      the CUDA kernels from ``ctgcn_torch/csrc`` (nvcc, sm_90a);
+  1. build      the CUDA kernels from ``ctgcn_torch/csrc`` (nvcc, sm_90a),
+                failing if ptxas reports a register spill;
   2. preprocess k-core pyramids and walk tables through ``ctgcn_torch.main``
                 on the native host-graph kernels (UCI, the AS and the Enron
                 snapshots, America-Air, Math snapshot 000, Enron and Math
@@ -143,6 +144,15 @@ Phases, one line each:
                 one; the autograd gradients of ``block_spmm`` and
                 ``ell_spmm``; times of kernel, plain version and one library
                 call on every plan at both widths, and each kernel's bound;
+                in every kernel phase each kernel runs twice on each input
+                and the two outputs must be bit-equal, and each row carries
+                the plan's schedule (``schedule``: the chunk and chunks, the
+                rows across a chunk's edge, the empty rows and their runs,
+                the row walk's CTAs and its rows split over warps, the
+                shared memory a CTA takes) and the lane groups at its width
+                (``lane_groups``); the row walk's row also times the same
+                plan walked in row order (``ms_natural_row_order``, its
+                schedule rebuilt by ``bsr_spmm.with_row_order``);
      kernels_bf16  each bf16 instantiation (bf16 and f32 out) on the
                 Enron delta plans of snapshot 004 and the AS ones, at d = 504
                 and 128 (``ell_spmm`` pads to a multiple of 8 in bf16),
@@ -235,7 +245,8 @@ Phases, one line each:
                 device activity only) on each path of ``PROFILED``, right
                 after its counted run, on the trainer of that run's last
                 window (so a window's setup is paid once: enron_egcn's
-                draws 0.5e9 gaussians);
+                draws 0.5e9 gaussians), which that run left warm: one
+                epoch on the host clock, one under the profiler;
      model_file the trained model of each path of ``MODEL_FILE_PATHS``
                 (UCI CTGCN-C, Enron bf16's) written as the flax msgpack the
                 JAX package reads and read back into a copy of the model,
@@ -253,7 +264,10 @@ Phases, one line each:
                 batch's saved tensors, the peaks) on the non-GNN paths of
                 Math and AS;
   5. quality    the UCI Had AUC gates, seeds 0 and 1 each (the zoo's
-                runs seed 0), scored by the port's ``link_pred`` over
+                runs seed 0; the runs train side by side in
+                ``QUALITY_WORKERS`` spawned processes on the card, each
+                host-bound, America-Air's second seed first, their
+                launches counted), scored by the port's ``link_pred`` over
                 edge-split reps 0-2 (mean Had AUC of the last 4 dates):
                 CTGCN-C as configured but for 10
                 epochs (``RESULTS.md:66-68``) and the same at
@@ -281,6 +295,19 @@ Phases, one line each:
 
 Any failure exits non-zero.  Without a GPU, or outside a checkout of the
 repository, the script stops before any result.
+
+    python3 chip_smoke.py --compare <another checkout>
+
+runs the build, the preprocessing and the kernel phases only, each
+kernel row also holding the other checkout's kernel (its
+``ctgcn_torch/ops/bsr_spmm.py``, its ``csrc`` built into its own
+``_build``) against the plain version on the same matrix and input, and
+timing it in turns with this checkout's and with this checkout's on the
+plan's other way of gathering (``compare`` in each row: ``other_ms``,
+``ms_turns``, ``ratio``, ``toggled_ms``); the last ``[compare]`` line
+lists the dispatched rows more than 5 % slower than the other
+checkout's.  Unpack the other commit's ``ctgcn_torch``
+under ``tmp_run/`` (``git archive <commit> ctgcn_torch``).
 """
 import concurrent.futures
 import contextlib
@@ -301,9 +328,10 @@ EPOCHS = 3
 #: the AS snapshots of the ELL path (one window of configs/as.json)
 AS_SNAPSHOTS = tuple(f"{i:03d}.csv" for i in range(5))
 #: the Enron snapshots of the bf16 path (window 0 of configs/enron.json),
-#: its epochs, and the snapshot whose plans [kernels_bf16] times
+#: its epochs (the loss gap reads the first), and the snapshot whose plans
+#: [kernels_bf16] times
 ENRON_SNAPSHOTS = tuple(f"{i:03d}.csv" for i in range(5))
-ENRON_EPOCHS = 2
+ENRON_EPOCHS = 1
 ENRON_SNAPSHOT = 4
 #: the Math snapshot of the GIN path (window 0 of configs/math.json)
 MATH_SNAPSHOTS = ("000.csv",)
@@ -530,6 +558,174 @@ def _bound(plan, d, x_bytes=4, out_bytes=4):
     }
 
 
+def _check_rerun(name, got, again):
+    """A kernel's two outputs on the same input must be bit-equal: its sums
+    are taken in a fixed order and no atomics."""
+    import torch
+
+    if not torch.equal(got, again):
+        raise AssertionError(f"{name}: a rerun on the same input differs")
+
+
+def _schedule(plan, d, bf16=False):
+    """The kernels' schedule of ``plan`` at width d, for a kernel row: the
+    chunk and chunks, the crossing rows, the empty rows and their runs, the
+    row walk's CTAs and split rows, whether a kernel gathers into
+    registers (``walk_rows``, ``chunk_regs``), the shared memory a ring
+    CTA takes (``bsr_spmm.schedule_stats``), and the lane groups (g lanes,
+    G groups, NV pieces a lane, grid-y slices) of the ring kernels and,
+    where a kernel gathers into registers, of those (``lane_groups_by_row``)."""
+    from ctgcn_torch.ops import bsr_spmm as B
+
+    keys = ("g", "G", "NV", "slices")
+    out = {"schedule": B.schedule_stats(plan),
+           "lane_groups": dict(zip(keys, B.lane_groups(d, bf16)))}
+    if plan.walk_rows or (plan.chunk_regs and not bf16):
+        out["lane_groups_by_row"] = dict(zip(keys, B.lane_groups(d, bf16,
+                                                                 True)))
+    return out
+
+
+#: with ``--compare DIR``: the other checkout's kernels (``_OtherKernels``)
+#: and the rows compared so far; None on a plain run
+_OTHER = None
+_COMPARED = []
+
+
+class _OtherKernels:
+    """Another checkout's SpMM kernels, for ``--compare DIR``: its
+    ``ctgcn_torch/ops/cuda_build.py`` and ``bsr_spmm.py`` loaded under
+    other module names (its ``csrc`` built into its own ``_build``), and
+    each of this run's plans rebuilt by its own ``_csr_fields`` from the
+    nonzeros and row groups this checkout's plan was built from, which
+    this object records from then on.  The other checkout's ``bsr_spmm``
+    must have ``_csr_fields(r, c, val, n_rows, row_group)``, ``CsrPlan``
+    and the four kernel wrappers of this one's signatures."""
+
+    def __init__(self, root):
+        import importlib.util
+        import types
+
+        from ctgcn_torch.ops import bsr_spmm as B
+        from ctgcn_torch.ops import ell
+
+        ops = Path(root).resolve() / "ctgcn_torch" / "ops"
+        name = "_other_cuda_build"
+        spec = importlib.util.spec_from_file_location(name,
+                                                      ops / "cuda_build.py")
+        self.build = importlib.util.module_from_spec(spec)
+        sys.modules[name] = self.build
+        spec.loader.exec_module(self.build)
+        # its wrappers import its own cuda_build
+        src = (ops / "bsr_spmm.py").read_text().replace(
+            "ctgcn_torch.ops.cuda_build", name)
+        self.B = types.ModuleType("_other_bsr_spmm")
+        self.B.__file__ = str(ops / "bsr_spmm.py")
+        sys.modules[self.B.__name__] = self.B
+        exec(compile(src, self.B.__file__, "exec"), self.B.__dict__)
+        self.sources, self.plans = {}, {}
+        fields, to = B._csr_fields, B.CsrPlan.to
+
+        def capture(r, c, val, n_rows, row_group):
+            out = fields(r, c, val, n_rows, row_group)
+            self.sources[id(out["csr_col"])] = (r, c, val, n_rows, row_group)
+            return out
+
+        def moved(plan, *args, **kw):
+            out = to(plan, *args, **kw)
+            if id(plan.csr_col) in self.sources:
+                self.sources[id(out.csr_col)] = self.sources[id(plan.csr_col)]
+            return out
+
+        B._csr_fields = ell._csr_fields = capture
+        B.CsrPlan.to = moved
+
+    def toggled(self, plan, name):
+        """This checkout's ``plan`` with kernel ``name``'s other way of
+        gathering (a warp a row or the ring's ranges for the row walk, the
+        register or the ring pass for the f32 block-parallel kernel), the
+        walk order and groups kept; None for a plan not built through
+        ``_csr_fields`` or without nonzeros."""
+        from ctgcn_torch.ops import bsr_spmm as B
+
+        key = (id(plan.csr_col), "rowwalk" in name)
+        src = self.sources.get(key[0])
+        if src is None or plan.nnz == 0 or name == "bsr_spmm_blockpar_bf16":
+            # the bf16 block-parallel kernel has one way: the ring
+            return None
+        if key not in self.plans:
+            order = plan.row_order.cpu().numpy()
+            mode = ({"walk_rows": not plan.walk_rows} if key[1]
+                    else {"chunk_regs": not plan.chunk_regs})
+            self.plans[key] = (plan, B.with_row_order(plan, order, src[4],
+                                                      **mode))
+        return self.plans[key][1]
+
+    def plan(self, plan):
+        """The other checkout's plan of the same matrix on plan's device,
+        or None for a plan not built through ``_csr_fields``."""
+        key = id(plan.csr_col)
+        if key not in self.plans:
+            src = self.sources.get(key)
+            if src is None:
+                return None
+            other = self.B.CsrPlan(**self.B._csr_fields(*src), n_rows=src[3],
+                                   n_cols=plan.n_cols)
+            # the plan is kept, so that its id is not reused
+            self.plans[key] = (plan, other.to(plan.csr_col.device))
+        return self.plans[key][1]
+
+
+def _compare(label, name, plan, inp, *args):
+    """With ``--compare``: kernel ``name`` of the other checkout on the
+    same matrix and input, held against the plain version, and timed in
+    turns with this checkout's and with this checkout's on the plan's
+    other way of gathering (``_OtherKernels.toggled``): other, this,
+    toggled, toggled, this, other; {} on a plain run.  ``args``: the
+    wrapper's (vals for f32, out_dtype for bf16)."""
+    if _OTHER is None:
+        return {}
+    import torch
+
+    from ctgcn_torch.ops import bsr_spmm as B
+
+    other = _OTHER.plan(plan)
+    if other is None:
+        return {}
+    ours, theirs = getattr(B, name), getattr(_OTHER.B, name)
+    alt = _OTHER.toggled(plan, name)
+    what = f"{label} {name} d={inp.shape[1]}"
+    for tag, kern, p in (("other checkout", theirs, other),
+                         ("toggled", ours, alt)):
+        if p is None:
+            continue
+        got = kern(p, inp, *args)
+        if name.endswith("_bf16"):
+            _check_bf16(f"{what} {tag}", got, B.bsr_spmm_csr_plain_bf16(
+                plan, inp, torch.float32), args[0])
+        else:
+            _check_close(f"{what} {tag}", got,
+                         B.bsr_spmm_csr_plain(plan, inp, *args))
+        del got
+    t = [_time_ms(lambda: theirs(other, inp, *args)),
+         _time_ms(lambda: ours(plan, inp, *args))]
+    if alt is not None:
+        t += [_time_ms(lambda: ours(alt, inp, *args)) for _ in range(2)]
+    t += [_time_ms(lambda: ours(plan, inp, *args)),
+          _time_ms(lambda: theirs(other, inp, *args))]
+    row = {"other_ms": [t[0], t[-1]], "ms_turns": [t[1], t[-2]],
+           "ratio": (t[1] + t[-2]) / (t[0] + t[-1])}
+    if alt is not None:
+        row["toggled_ms"] = t[2:4]
+    _COMPARED.append({"plan": label, "kernel": name, "d": inp.shape[1],
+                      "walk_rows": plan.walk_rows,
+                      "chunk_regs": plan.chunk_regs,
+                      "dispatched": B.dispatch(
+                          plan, bf16=name.endswith("_bf16")) is ours,
+                      **row})
+    return {"compare": row}
+
+
 def _check_close(name, got, ref, rtol=RTOL, atol_rel=ATOL_REL, scale=None):
     """|got - ref| <= rtol * |ref| + atol_rel * scale, ``scale`` max|ref|
     unless given."""
@@ -570,6 +766,7 @@ def _kernel_rows(tag, plans, dev, widths, extra_check=None, vals=None,
     the same bound).  ``dispatch`` must give the plans the kernels of
     ``reached``.  Returns the row of each of those kernels on the plan
     ``dispatch`` gives it, at the first width."""
+    import numpy as np
     import torch
 
     from ctgcn_torch.ops import bsr_spmm as B
@@ -595,6 +792,8 @@ def _kernel_rows(tag, plans, dev, widths, extra_check=None, vals=None,
             for dd in widths:
                 inp = inputs[pk][:, :dd].contiguous()
                 got = kern(plan, inp, *v_of(pk))
+                _check_rerun(f"{tag} {name} {pk} d={dd}", got,
+                             kern(plan, inp, *v_of(pk)))
                 ref = B.bsr_spmm_csr_plain(plan, inp, *v_of(pk))
                 err = _check_close(f"{tag} {name} {pk} d={dd}", got, ref)
                 errs[name, pk, dd] = (err, err / float(ref.abs().max()))
@@ -622,18 +821,20 @@ def _kernel_rows(tag, plans, dev, widths, extra_check=None, vals=None,
                 kern = getattr(B, name)
                 ms = _time_ms(lambda: kern(plan, inp, *v))
                 row = {"plan": pk, "d": dd, "ms": ms, "plain_ms": plain_ms,
-                       "library_ms": library_ms,
+                       **_compare(f"{tag} {pk}", name, plan, inp, *v),
+                       "library_ms": library_ms, "library_dtype": "f32",
                        "bound_ms": bound["bound_ms"],
-                       "bound_by": bound["bound_by"]}
+                       "bound_by": bound["bound_by"],
+                       "dispatched": B.dispatch(plan) is kern,
+                       **_schedule(plan, dd)}
                 times[name].append(row)
                 if main_plan.get(name) != pk or dd != widths[0]:
                     continue
                 err, rel_err = errs[name, pk, dd]
                 if name == "bsr_spmm_rowwalk":
-                    # the walk order's worth: the same walk in row order
-                    natural = dataclasses.replace(
-                        plan, row_order=torch.arange(
-                            plan.n_rows, dtype=torch.int32, device=dev))
+                    # the walk order's worth: the same walk in row order,
+                    # its schedule rebuilt for that order
+                    natural = B.with_row_order(plan, np.arange(plan.n_rows))
                     extra = {"ms_natural_row_order": _time_ms(
                         lambda: kern(natural, inp, *v))}
                 else:
@@ -644,9 +845,10 @@ def _kernel_rows(tag, plans, dev, widths, extra_check=None, vals=None,
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bound["bound_ms"],
                     "bound_by": bound["bound_by"],
-                    "library_ms": library_ms,
+                    "library_ms": library_ms, "library_dtype": "f32",
                     "ms_cold_l2": _time_ms_cold(lambda: kern(plan, inp, *v),
-                                                dev), **extra}
+                                                dev),
+                    **_schedule(plan, dd), **extra}
                 _phase(tag, kernel=name, **results[name],
                        max_rel_err=rel_err,
                        tolerance=f"rtol {RTOL} + atol {ATOL_REL} * "
@@ -981,6 +1183,11 @@ def _halo_rows(tag, what, plan_host, ref_mat, n_nodes, widths, dev):
                               for q in range(len(parts))]).contiguous()
             local = B.dispatch(part.local_fwd)(part.local_fwd, xs[p])
             remote = B.dispatch(part.remote_fwd)(part.remote_fwd, recv)
+            for what_p, plan, inp, got in (
+                    ("local", part.local_fwd, xs[p], local),
+                    ("remote", part.remote_fwd, recv, remote)):
+                _check_rerun(f"{tag} {what} part {p} {what_p} d={dd}", got,
+                             B.dispatch(plan)(plan, inp))
             outs.append((local + remote).reshape(K, rpp, dd))
             for side, plan, inp in (("local", part.local_fwd, xs[p]),
                                     ("remote", part.remote_fwd, recv)):
@@ -996,8 +1203,11 @@ def _halo_rows(tag, what, plan_host, ref_mat, n_nodes, widths, dev):
                            iters=5, warmup=1),
                        "library_ms": _time_ms(
                            lambda: torch.sparse.mm(csr, inp)),
+                       "library_dtype": "f32",
                        "bound_ms": bound["bound_ms"],
-                       "bound_by": bound["bound_by"]}
+                       "bound_by": bound["bound_by"], **_schedule(plan, dd),
+                       **_compare(f"{tag} {what} part {p} {side}",
+                                  kern.__name__, plan, inp)}
                 rows.setdefault(kern.__name__, []).append(row)
                 _phase(tag, kernel=kern.__name__, **row,
                        library="torch.sparse.mm (CSR)")
@@ -1714,8 +1924,11 @@ def phase_kernels_bf16(cfg, as_plans, dev):
                 inp = inputs[pk][:, :dd].contiguous()
                 ref = B.bsr_spmm_csr_plain_bf16(plan, inp, torch.float32)
                 for od in (torch.bfloat16, torch.float32):
+                    got = kern(plan, inp, od)
+                    _check_rerun(f"kernels_bf16 {name} {pk} d={dd} {od}", got,
+                                 kern(plan, inp, od))
                     err = _check_bf16(f"kernels_bf16 {name} {pk} d={dd} {od}",
-                                      kern(plan, inp, od), ref, od)
+                                      got, ref, od)
                     errs[name, pk, dd, od] = (
                         err, err / float(ref.abs().max()))
     torch.cuda.synchronize()
@@ -1743,7 +1956,9 @@ def phase_kernels_bf16(cfg, as_plans, dev):
                        "library_dtype": library_dtype,
                        "bound_ms": bound["bound_ms"],
                        "bound_by": bound["bound_by"],
-                       "dispatched": B.dispatch(plan, bf16=True) is kern}
+                       "dispatched": B.dispatch(plan, bf16=True) is kern,
+                       **_schedule(plan, dd, bf16=True),
+                       **_compare(f"kernels_bf16 {pk}", name, plan, inp, od)}
                 times[name].append(row)
                 if main[name] == pk and dd == widths[0]:
                     err, rel = errs[name, pk, dd, od]
@@ -1752,7 +1967,8 @@ def phase_kernels_bf16(cfg, as_plans, dev):
                         "nnz": plan.nnz, "max_row_nnz": plan.max_row_nnz,
                         "max_abs_err": err, **{k: row[k] for k in (
                             "ms", "plain_ms", "bound_ms", "bound_by",
-                            "library_ms", "f32_kernel_ms")}}
+                            "library_ms", "library_dtype", "f32_kernel_ms",
+                            "schedule", "lane_groups")}}
                     _phase("kernels_bf16", kernel=name, **results[name],
                            out=row["out"], max_rel_err=rel,
                            library=f"torch.sparse.mm (CSR, {library_dtype})",
@@ -2498,17 +2714,19 @@ def _device_epochs(trainer, kw, epochs):
     return per_kernel, profiled_ms
 
 
-def phase_profile(path, trainer, kw, setup_s, epochs):
+def phase_profile(path, trainer, kw, setup_s, epochs, warm=False):
     """Where a training epoch's time goes on the card on ``path``, on a
     ready ``trainer`` (the one the path's CLI run built, whose window's
-    setup took ``setup_s``): one warm-up epoch, ``epochs`` epochs timed on
-    the host clock, then ``epochs`` more under ``torch.profiler`` for the
-    device time by kernel class.  The profiler records the device's
+    setup took ``setup_s``): one warm-up epoch unless the trainer is
+    ``warm`` (it has just trained), ``epochs`` epochs timed on the host
+    clock, then ``epochs`` more under ``torch.profiler`` for the device
+    time by kernel class.  The profiler records the device's
     activity only: with the host's too, summing the events of the
     launch-heavy paths (Enron, America-Air) took it over a minute a path.
     The idle share is 1 - device busy time / the unprofiled epoch time.
     Returns the device busy ms of an epoch."""
-    trainer.learn_embedding(epoch=1, **kw)
+    if not warm:
+        trainer.learn_embedding(epoch=1, **kw)
     # the epoch's wall time without the profiler's host overhead
     epoch_ms = 1e3 * sum(
         trainer.learn_embedding(epoch=epochs, **kw)["epoch_seconds"]) / epochs
@@ -2953,12 +3171,14 @@ DYN_PROFILED = ("math_dyngem", "math_dynae", "math_dynaernn", "as_dynrnn")
 #: right after it, with their epochs under the profiler (aa_snode's
 #: 52,000 launches an epoch take the profiler minutes to sum; aa_sedge
 #: runs the same model); the PGNN paths are profiled by ``phase_pgnn``
-PROFILED = {"uci_auto": 2, "uci_pallas": 2, "as_auto": 2, "as_ctgcn_s": 2,
-            "as_bf16": 2, "enron_bf16": 1, "uci_cgcn_c": 2, "uci_cgcn_s": 2,
-            "aa_snode": 1, "as_ctgcn_s_slink": 2, "uci_slink_dy": 2,
-            "enron_gcn": 2, "math_gin": 2, "enron_gat": 2, "enron_sage": 2,
-            "enron_gcrn": 2, "enron_egcn": 2, "uci_vgrnn": 2,
-            "math_vgrnn": 2}
+PROFILED = ("uci_auto", "uci_pallas", "as_auto", "as_ctgcn_s", "as_bf16",
+            "enron_bf16", "uci_cgcn_c", "uci_cgcn_s", "aa_snode",
+            "as_ctgcn_s_slink", "uci_slink_dy", "enron_gcn", "math_gin",
+            "enron_gat", "enron_sage", "enron_gcrn", "enron_egcn",
+            "uci_vgrnn", "math_vgrnn")
+#: epochs a profiled path is timed for on the host clock and then under
+#: the profiler, on the trainer its counted run left warm (no warm-up)
+PROFILED_EPOCHS = 1
 
 
 def _write_config(path, method, pre, emb):
@@ -3173,7 +3393,50 @@ def _train(base, name, conf, device, method="CTGCN-C", **change):
     return time.time() - t0, results
 
 
-def phase_quality(base, device, dyn_methods=()):
+#: worker processes that train the quality runs side by side on the card
+#: (each host-bound run leaves it mostly idle)
+QUALITY_WORKERS = 4
+#: the window results' keys the quality gates read
+_RESULT_KEYS = ("losses", "core_backend", "acc_test", "auc_test",
+                "best_acc_val")
+
+
+def _train_job(base, name, conf, method, change, device):
+    """``_train`` in a worker process (``quality_pool``), TF32 off as in
+    the main process: (seconds, each window's ``_RESULT_KEYS``, the
+    kernels' launches)."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from ctgcn_torch.ops import bsr_spmm as B
+
+    for k in KERNELS:
+        getattr(B, k).launches = 0
+    seconds, results = _train(base, name, conf, device, method, **change)
+    return (seconds, [{k: r[k] for k in _RESULT_KEYS if k in r}
+                      for r in results],
+            {k: getattr(B, k).launches for k in KERNELS})
+
+
+def quality_pool():
+    """The workers that train the quality runs (spawned: each takes the
+    card anew)."""
+    return concurrent.futures.ProcessPoolExecutor(
+        QUALITY_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+
+
+def _collect(future, launches):
+    """A ``_train_job``'s (seconds, results), its launches added to
+    ``launches``."""
+    seconds, results, counts = future.result()
+    for k, n in counts.items():
+        launches[k] = launches.get(k, 0) + n
+    return seconds, results
+
+
+def phase_quality(base, device, dyn_methods, pool, launches):
     """The Had AUC gates on the preprocessed UCI copy ``base``: each run of
     ``QUALITY_RUNS`` trained once per seed of its own, then one
     ``link_pred`` as ``configs/uci.json`` gives it (ratios 0.5/0.3/0.2, C
@@ -3184,8 +3447,9 @@ def phase_quality(base, device, dyn_methods=()):
     methods; TIMERS' must lie within ``TIMERS_AUC_TOL`` of the JAX
     package's).  The DynAE family
     exports snapshots 2-6 only, so link_pred scores 4 dates of it, 6 of
-    the others.  Returns the method folders, the f32 CTGCN-C seed 0's
-    first."""
+    the others.  The runs train side by side in ``pool``'s workers, whose
+    kernel launches are added to ``launches``.  Returns the method folders,
+    the f32 CTGCN-C seed 0's first."""
     import numpy as np
 
     from ctgcn_torch.evaluation.tables import read_table
@@ -3194,11 +3458,15 @@ def phase_quality(base, device, dyn_methods=()):
         conf = json.load(fp)
     runs, methods, train = {}, [], {}
     dates = {}
+    jobs = {f"{label}-s{seed}": pool.submit(
+                _train_job, base, f"{label}-s{seed}", conf, method,
+                dict(change, epoch=epochs, seed=seed), device)
+            for label, method, change, epochs, gate, seeds in QUALITY_RUNS
+            for seed in seeds}
     for label, method, change, epochs, gate, seeds in QUALITY_RUNS:
         for seed in seeds:
             name = f"{label}-s{seed}"
-            seconds, results = _train(base, name, conf, device, method,
-                                      epoch=epochs, seed=seed, **change)
+            seconds, results = _collect(jobs[name], launches)
             train[name] = {"seconds": seconds,
                            "core_backend": [r["core_backend"]
                                             for r in results],
@@ -3260,25 +3528,35 @@ def phase_quality(base, device, dyn_methods=()):
     return methods
 
 
-def phase_quality_snode(aa, device, path, path_results):
+def snode_jobs(aa, path, pool, device):
+    """The futures of ``path``'s ``SNODE_QUALITY`` runs but the config's
+    seed (the path's own run), trained on the preprocessed America-Air copy
+    ``aa`` with the path's config in ``pool``'s workers: seed -> future."""
+    method, change = SNODE_QUALITY[path][:2]
+    with open(ROOT / "configs" / "america-air.json") as fp:
+        conf = json.load(fp)
+    return {seed: pool.submit(_train_job, aa, f"{path}-s{seed}", conf, method,
+                              dict(change, learning_type="S-node",
+                                   seed=seed), device)
+            for seed in AA_SNODE_SEEDS
+            if seed != conf["embedding"][method].get("seed", 0)}
+
+
+def phase_quality_snode(path, path_results, jobs, launches):
     """A ``SNODE_QUALITY`` run on America-Air under S-node for each seed of
-    ``AA_SNODE_SEEDS``: seed 0 is the path's run (the config's seed), the
-    others are trained on the preprocessed America-Air copy ``aa`` with
-    the path's config; the mean test accuracy must reach the gate, which
-    lies under the JAX package's mean on the same config and seeds."""
+    ``AA_SNODE_SEEDS``: the config's seed is the path's run, the others
+    ``snode_jobs``' (their launches added to ``launches``); the mean test
+    accuracy must reach the gate, which lies under the JAX package's mean
+    on the same config and seeds."""
     import numpy as np
 
     method, change, jax_acc, gate, refs = SNODE_QUALITY[path]
-    with open(ROOT / "configs" / "america-air.json") as fp:
-        conf = json.load(fp)
     runs = {}
     for seed in AA_SNODE_SEEDS:
-        if seed == conf["embedding"][method].get("seed", 0):
-            seconds, results = None, path_results
+        if seed in jobs:
+            seconds, results = _collect(jobs[seed], launches)
         else:
-            seconds, results = _train(aa, f"{path}-s{seed}", conf, device,
-                                      method, learning_type="S-node",
-                                      seed=seed, **change)
+            seconds, results = None, path_results
         runs[seed] = {"seconds": seconds, "epochs": len(results[0]["losses"]),
                       "acc_test": results[0]["acc_test"],
                       "auc_test": results[0]["auc_test"],
@@ -3404,7 +3682,17 @@ def phase_device_vs_cpu(uci, method, dev):
             "seconds": seconds}
 
 
-def main():
+def main(argv=None):
+    global _OTHER
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one "
+                                 "NVIDIA GPU (see the module docstring).")
+    ap.add_argument("--compare", metavar="DIR",
+                    help="another checkout of the repository: run the "
+                    "kernel phases only, each kernel timed in turns "
+                    "against that checkout's on the same plans")
+    args = ap.parse_args(argv)
     try:
         import torch
     except ImportError as exc:
@@ -3441,9 +3729,21 @@ def main():
     t0 = time.time()
     _, nvcc_s, log = build_kernels()
     load_kernels()
+    spills = [line for line in log.splitlines()
+              if "spill" in line and " 0 bytes spill stores, 0 bytes spill"
+              not in line]
     _phase("build", seconds=time.time() - t0, nvcc_seconds=nvcc_s,
            ptxas=[line.split("info    : ")[-1] for line in log.splitlines()
-                  if "registers" in line])
+                  if "registers" in line], spills=spills)
+    if spills:
+        raise AssertionError(f"the kernels spill registers: {spills}")
+    if args.compare:
+        _OTHER = _OtherKernels(args.compare)
+        t0 = time.time()
+        _, nvcc_s, _ = _OTHER.build.build_kernels()
+        _OTHER.build.load_kernels()
+        _phase("compare", other=str(Path(args.compare).resolve()),
+               build_seconds=time.time() - t0, nvcc_seconds=nvcc_s)
 
     work = ROOT / "tmp_run" / f"chip_smoke_{os.getpid()}"
     try:
@@ -3608,6 +3908,14 @@ def main():
         kernels_vgrnn = phase_kernels_vgrnn(cfgs["math_vgrnn"][2], dev)
         kernels_halo = phase_kernels_halo(cfgs["enron"][2],
                                           cfgs["enron_gcn"][2], dev)
+        if _OTHER is not None:
+            slow = [r for r in _COMPARED
+                    if r["dispatched"] and r["ratio"] > 1.05]
+            _phase("compare", rows=len(_COMPARED),
+                   dispatched=sum(r["dispatched"] for r in _COMPARED),
+                   dispatched_over_5_percent=slow, device=smi)
+            print(smi)
+            return 0
         phase_parity(dev)
         phase_parity_zoo(dev)
         phase_parity_attn(dev)
@@ -3628,7 +3936,7 @@ def main():
             if path in PROFILED:
                 phase_profile(path, trainer, _epoch_kw(cfgs[cfg][2]),
                               results[path][-1]["setup_seconds"],
-                              PROFILED[path])
+                              PROFILED_EPOCHS, warm=True)
             if path in MODEL_FILE_PATHS:
                 phase_model_file(path, trainer, work / "model_file", dev)
             del trainer
@@ -3664,14 +3972,22 @@ def main():
         for name in KERNELS:
             getattr(B, name).launches = 0
         t0 = time.time()
-        methods = phase_quality(work / "uci", "cuda",
-                                tuple(DYN_QUALITY_PATHS.values()))
-        for path in SNODE_QUALITY:
-            phase_quality_snode(work / "america_air", "cuda", path,
-                                results[path])
+        worker_launches = {}
+        with quality_pool() as pool:
+            # America-Air's 50-epoch seeds first: the longest runs
+            snode = {path: snode_jobs(work / "america_air", path, pool,
+                                      "cuda")
+                     for path in SNODE_QUALITY}
+            methods = phase_quality(work / "uci", "cuda",
+                                    tuple(DYN_QUALITY_PATHS.values()), pool,
+                                    worker_launches)
+            for path in SNODE_QUALITY:
+                phase_quality_snode(path, results[path], snode[path],
+                                    worker_launches)
         phase_eval(work / "uci", methods[0], work / "america_air", "cuda")
-        launches["evaluation"] = {name: getattr(B, name).launches
-                                  for name in KERNELS}
+        launches["evaluation"] = {
+            name: getattr(B, name).launches + worker_launches.get(name, 0)
+            for name in KERNELS}
         _phase("eval", check="device against cpu",
                **phase_device_vs_cpu(work / "uci", methods[0], dev))
         _phase("eval", total_seconds=time.time() - t0,

@@ -14,6 +14,10 @@ The kernels take a ``CsrPlan`` (the CSR alone), so plans that never had
 blocks, such as the ELL backend's (``ops/ell.py``), run on them too; a
 ``BlockPlan`` is a ``CsrPlan`` with the blocks beside it.  ``csr_spmm`` is
 the differentiable product over two ``CsrPlan``s that both backends share.
+Every plan carries the kernels' schedule, built once on the host from its
+CSR (``_schedule``): the chunk of the block-parallel kernel and the rows
+across its edges, the runs of empty rows, and the row walk's stream and
+warp ranges.
 
 Wrappers: on a CPU tensor a kernel wrapper runs the plain version over the
 plan's CSR; on a CUDA tensor it launches the kernel (built from
@@ -34,6 +38,7 @@ version.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import scipy.sparse as sp
@@ -44,14 +49,50 @@ BLOCK = 128
 #: time, 4 f32 values (D_ALIGN) or 8 bf16 values (D_ALIGN_BF16)
 D_ALIGN = 4
 D_ALIGN_BF16 = 8
-#: nonzeros per chunk of bsr_spmm_blockpar's first pass
-CHUNK = 128
-#: longest row ``dispatch`` gives the row walk: one warp walks a row on one
-#: SM, so a plan with longer rows goes to bsr_spmm_blockpar, whose chunks
+#: SMs of the card the schedules are built for (the H100 SXM's 132)
+SMS = 132
+#: bounds of the chunk of bsr_spmm_blockpar's first pass (nonzeros a warp)
+CHUNK_MIN, CHUNK_MAX = 16, 128
+#: warps the first pass aims for: 16 on each SM, a quarter of the 64 a SM
+#: holds, each with 16 gathers in flight
+CHUNK_WARPS = 16 * SMS
+#: nonzeros from which the first pass gathers into registers, in chunks of
+#: CHUNK_MAX (``chunk_regs``, f32 x): chunks of CHUNK_MAX / 2 then give
+#: every SM its 16 warps, and the ring's shared memory, not the warps, caps
+#: the loads in flight (UCI's pyramid transpose, 195,703 nonzeros: 0.0652
+#: against the ring's 0.0793 ms at d = 512; Enron's GCN plans, 114,946:
+#: the ring's 0.1478 against 0.1544; ``chip_smoke.py --compare``, NVIDIA
+#: H100 80GB HBM3, 700 W)
+REGS_NNZ = CHUNK_MAX // 2 * CHUNK_WARPS
+#: warps of a CUDA block (CTA) in both kernels; the row walk's CTA takes
+#: about WALK_WARPS chunks of its walk stream
+WALK_WARPS = 8
+#: dynamic shared memory a CTA of either kernel takes: the rings of its
+#: warps, 16 cells of 16 bytes a lane (csrc/bsr_spmm.cu RING_BYTES)
+SMEM_PER_CTA = WALK_WARPS * 32 * 16 * 16
+#: x rows a lane of a warp-a-row walk gathers at once (csrc LOADS at
+#: NV = 1): a row of at most this many nonzeros is one round of gathers, so
+#: a plan of such rows too small to give every SM a CTA of the ring walk
+#: goes a warp a row (Enron's GCN remote halo parts, about 2,000 nonzeros:
+#: 0.0173-0.0175 against the ring's 0.0196-0.0197 ms at d = 500,
+#: 0.0060-0.0062 against 0.0091-0.0092 at d = 128; ``chip_smoke.py
+#: --compare``)
+ROW_LOADS = 8
+#: most rows of a run of empty rows that one warp of the zero fill writes
+FILL_RUN = 4
+#: nonzeros per distinct (walk group, column) from which the row walk takes
+#: a warp a row (``walk_rows``): the groups' rows then name mostly the same
+#: x rows, as a node's nested core slots do (UCI's pyramid: 9.8, 0.0431
+#: against the ring's 0.0819 ms at d = 512; every other plan the port
+#: builds: 1.0)
+SHARED_COLUMNS = 2.0
+#: longest row ``dispatch`` gives the row walk: a row stays in one CTA (one
+#: SM), so a plan with longer rows goes to bsr_spmm_blockpar, whose chunks
 #: spread a row over many SMs
 ROWWALK_MAX_ROW = 256
 
-_CSR_FIELDS = ("csr_ptr", "csr_col", "csr_row", "csr_val", "row_order")
+_CSR_FIELDS = ("csr_ptr", "csr_col", "csr_row", "csr_val", "row_order",
+               "empty_runs", "cross_rows", "walk_nz", "walk_warp")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,12 +105,38 @@ class CsrPlan:
                  bsr_spmm_blockpar's chunks of the nonzero stream find
                  their rows.
     csr_val:     f32[nnz] the values, zeros left out.
-    row_order:   int32[n_rows] the order in which bsr_spmm_rowwalk's warps
-                 take rows: rows of one group (rows that share columns,
-                 e.g. one node's slot rows in a pyramid) side by side,
-                 groups with the most nonzeros first.
+    row_order:   int32[n_rows] the order in which bsr_spmm_rowwalk takes
+                 rows: rows of one group (rows that share columns, e.g.
+                 one node's slot rows in a pyramid) side by side, groups
+                 with the most nonzeros first.
     max_row_nnz: the longest row's nonzero count.
     n_rows / n_cols: output / input sizes.
+
+    The kernels' schedule, built once on the host from the CSR
+    (``_schedule``):
+    empty_runs:  int32[n_runs, 2] the rows with no nonzero as runs (first
+                 row, rows) of at most FILL_RUN rows, which both kernels
+                 write as zeros by streaming stores, a warp a run.
+    chunk:       nonzeros per warp of bsr_spmm_blockpar's first pass
+                 (``blockpar_chunk`` of nnz).
+    chunk_regs:  whether that pass gathers into registers (nnz of at least
+                 REGS_NNZ), not through the shared-memory ring; for f32 x
+                 (bf16 x keeps the ring, at this chunk).
+    cross_rows:  int32[n_cross, 3] the rows whose nonzeros cross a chunk's
+                 edge, the only rows of its second pass: (row, the scratch
+                 row of its first piece, its last chunk).
+    walk_nz:     int32[nnz] the nonzeros in walk order: the rows of
+                 ``row_order`` that have nonzeros, each row's in column
+                 order (bsr_spmm_rowwalk's stream).
+    walk_rows:   whether the row walk takes a warp a row: the walk
+                 groups' rows share their columns (``_shares_columns``), or
+                 the rows are short (at most ROW_LOADS nonzeros) and the
+                 plan too small to give every SM a CTA of the ring walk.
+    walk_warp:   int32[WALK_WARPS * n_cta + 1] the row walk's warp ranges
+                 of that stream, WALK_WARPS to a CTA: with ``walk_rows`` a
+                 row each (``_row_warps``), else about WALK_WARPS chunks a
+                 CTA cut at the walk order's group edges, split evenly (a
+                 row never crosses a CTA's edge; ``_walk_warps``).
     """
 
     csr_ptr: torch.Tensor
@@ -80,6 +147,13 @@ class CsrPlan:
     max_row_nnz: int
     n_rows: int
     n_cols: int
+    empty_runs: torch.Tensor
+    chunk: int
+    cross_rows: torch.Tensor
+    walk_nz: torch.Tensor
+    walk_rows: bool
+    walk_warp: torch.Tensor
+    chunk_regs: bool
 
     @property
     def nnz(self) -> int:
@@ -130,19 +204,256 @@ def _walk_order(counts, group):
     return np.lexsort((np.arange(len(counts)), group, -totals))
 
 
+def blockpar_chunk(nnz: int, regs: bool | None = None) -> int:
+    """bsr_spmm_blockpar's chunk for a plan of ``nnz`` nonzeros: CHUNK_MAX
+    for the register pass (``regs``; by default from REGS_NNZ nonzeros on),
+    else the largest power of two in [CHUNK_MIN, CHUNK_MAX] that still
+    gives CHUNK_WARPS chunks.  A warp's chunk is a run of dependent rounds
+    of gathers, so a small plan (AS's transpose: 32,508 nonzeros) needs
+    small chunks to put gathers in flight on every SM; from REGS_NNZ the
+    card is full and the register pass takes chunks of CHUNK_MAX, which
+    leave fewer rows across their edges."""
+    if nnz >= REGS_NNZ if regs is None else regs:
+        return CHUNK_MAX
+    chunk = CHUNK_MIN
+    while chunk < CHUNK_MAX and 2 * chunk * CHUNK_WARPS <= nnz:
+        chunk *= 2
+    return chunk
+
+
+def _walk_warps(lens, group_end, chunk):
+    """The row walk's warp ranges of its stream, WALK_WARPS to a CTA, for
+    rows of ``lens`` nonzeros in walk order whose groups end at stream
+    positions ``group_end``.  A CTA takes about WALK_WARPS chunks: up to
+    the first group end at or past each multiple of that budget, so that
+    rows that share columns (a node's core slots) are gathered on one SM;
+    a range over twice the budget (one large group) is cut at row ends
+    too.  Its warps split it evenly, so short rows share a warp and a long
+    row spreads over the CTA."""
+    w = WALK_WARPS
+    ends = np.cumsum(lens)
+    nnz = int(ends[-1])
+    targets = np.arange(w * chunk, nnz, w * chunk)
+    hi = np.unique(np.concatenate(
+        [group_end[np.searchsorted(group_end, targets)], [nnz]]))
+    long = np.diff(np.concatenate([[0], hi])) > 2 * w * chunk
+    if long.any():
+        row_cuts = ends[np.searchsorted(ends, targets)]
+        span = np.searchsorted(hi, row_cuts)
+        hi = np.unique(np.concatenate(
+            [hi, row_cuts[long[span] & (row_cuts < hi[span])]]))
+    lo = np.concatenate([[0], hi[:-1]])
+    per = -(-(hi - lo) // w)
+    return np.append(np.minimum(hi[:, None], lo[:, None]
+                                + per[:, None] * np.arange(w)), nnz)
+
+
+def _row_warps(lens):
+    """The row walk's warp ranges with a warp a row (``walk_rows``): the
+    rows' stream ranges, WALK_WARPS to a CTA, the last CTA's spare warps
+    empty."""
+    bounds = np.concatenate([[0], np.cumsum(lens)])
+    n = WALK_WARPS * -(-len(lens) // WALK_WARPS) + 1
+    return np.concatenate([bounds, np.full(n - len(bounds), bounds[-1])])
+
+
+def _shares_columns(grp, lens, cols):
+    """Whether the walk groups' rows share their columns: nonzeros per
+    distinct (group, column) pair of at least SHARED_COLUMNS.  ``grp`` and
+    ``lens``: the group and length of each nonempty row in walk order;
+    ``cols``: the stream's columns."""
+    if len(cols) == 0 or np.all(grp[1:] != grp[:-1]):
+        return False
+    key = (np.repeat(grp.astype(np.int64), lens) * (int(cols.max()) + 1)
+           + cols)
+    return len(cols) >= SHARED_COLUMNS * np.unique(key).size
+
+
+def _empty_runs(nonempty, n_rows):
+    """int64[n_runs, 2]: the rows with no nonzero, the gaps between the
+    ``nonempty`` rows (ascending), as runs (first row, rows) of at most
+    FILL_RUN rows."""
+    first = np.concatenate([[0], nonempty + 1])
+    lens = np.concatenate([nonempty, [n_rows]]) - first
+    first, lens = first[lens > 0], lens[lens > 0]
+    n = -(-lens // FILL_RUN)
+    k = np.arange(n.sum()) - np.repeat(np.cumsum(n) - n, n)
+    start = np.repeat(first, n) + FILL_RUN * k
+    return np.stack([start, np.minimum(FILL_RUN, np.repeat(first + lens, n)
+                                       - start)], axis=1)
+
+
+def cross_rows(ptr, chunk, nonempty=None):
+    """int64[n_cross, 3]: each row whose nonzeros cross an edge of the
+    chunks of ``chunk`` nonzeros, the scratch row of its first piece (slot
+    0 of its first chunk k0 when the row starts that chunk, else slot 1)
+    and its last chunk.  ``nonempty``: the rows with nonzeros, if known."""
+    ptr = np.asarray(ptr, dtype=np.int64)
+    rows = (np.flatnonzero(ptr[1:] > ptr[:-1]) if nonempty is None
+            else nonempty)
+    p0 = ptr[rows]
+    k0, k1 = p0 // chunk, (ptr[rows + 1] - 1) // chunk
+    cross = k1 > k0
+    return np.stack([rows[cross], 2 * k0[cross] + (p0[cross]
+                                                   > k0[cross] * chunk),
+                     k1[cross]], axis=1)
+
+
+def _schedule(counts, ptr, order, group, col, walk_rows=None,
+              chunk_regs=None):
+    """The kernels' schedule fields of a CSR (``CsrPlan``'s docstring):
+    O(nnz + n_rows) numpy work, once per plan (and a sort of the stream's
+    (group, column) pairs when groups hold several rows); ``group``: each
+    row's group in the walk order.  ``walk_rows`` / ``chunk_regs``: each
+    kernel's way of gathering, derived from the plan unless given."""
+    nnz = int(ptr[-1])
+    chunk_regs = nnz >= REGS_NNZ if chunk_regs is None else chunk_regs
+    chunk = blockpar_chunk(nnz, chunk_regs)
+    nonempty = np.flatnonzero(counts)
+    rows = order[counts[order] > 0]
+    lens = counts[rows]
+    ends = np.cumsum(lens)
+    walk_nz = np.repeat(ptr[rows] - (ends - lens), lens) + np.arange(nnz)
+    grp = group[rows]
+    group_end = ends[np.append(grp[1:] != grp[:-1], True)] if nnz else ends
+    # the ring walk's CTAs take about WALK_WARPS of the ring pass's chunks
+    walk_warp = (_walk_warps(lens, group_end, blockpar_chunk(nnz, False))
+                 if nnz else np.zeros(1))
+    if walk_rows is None:
+        # rows that share columns, or short rows of a plan too small to
+        # give every SM a CTA of the ring walk
+        walk_rows = _shares_columns(grp, lens, np.asarray(col)[walk_nz]) or (
+            0 < nnz and lens.max() <= ROW_LOADS
+            and len(walk_warp) - 1 < WALK_WARPS * SMS)
+    if walk_rows and nnz:
+        walk_warp = _row_warps(lens)
+    return dict(
+        empty_runs=torch.from_numpy(
+            _empty_runs(nonempty, len(counts)).astype(np.int32)),
+        chunk=chunk, chunk_regs=bool(chunk_regs),
+        cross_rows=torch.from_numpy(
+            cross_rows(ptr, chunk, nonempty).astype(np.int32)),
+        walk_nz=torch.from_numpy(walk_nz.astype(np.int32)),
+        walk_rows=bool(walk_rows and nnz),
+        walk_warp=torch.from_numpy(walk_warp.astype(np.int32)))
+
+
 def _csr_fields(r, c, val, n_rows, row_group):
     """CsrPlan fields from nonzeros sorted by (row, col), zeros left out."""
     counts = np.bincount(r, minlength=n_rows)
+    ptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+    group = (np.arange(n_rows) if row_group is None
+             else np.asarray(row_group))
+    order = _walk_order(counts, group)
     return dict(
-        csr_ptr=torch.from_numpy(
-            np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)),
+        csr_ptr=torch.from_numpy(ptr.astype(np.int32)),
         csr_col=torch.from_numpy(c.astype(np.int32)),
         csr_row=torch.from_numpy(r.astype(np.int32)),
         csr_val=torch.from_numpy(val.astype(np.float32)),
-        row_order=torch.from_numpy(_walk_order(
-            counts, np.arange(n_rows) if row_group is None
-            else np.asarray(row_group)).astype(np.int32)),
-        max_row_nnz=int(counts.max(initial=0)))
+        row_order=torch.from_numpy(order.astype(np.int32)),
+        max_row_nnz=int(counts.max(initial=0)),
+        **_schedule(counts, ptr, order, group, c))
+
+
+def with_row_order(plan: CsrPlan, order, group=None, walk_rows=None,
+                   chunk_regs=None) -> CsrPlan:
+    """``plan`` walked in ``order`` (int[n_rows], a permutation of rows
+    grouped by ``group``; default: each row its own group): ``row_order``
+    and the schedule rebuilt from the plan's CSR, on the plan's device.
+    ``walk_rows`` / ``chunk_regs`` force a kernel's way of gathering (to
+    time the one the plan's rule did not pick)."""
+    ptr = plan.csr_ptr.cpu().numpy().astype(np.int64)
+    order = np.asarray(order, dtype=np.int64)
+    group = np.arange(len(order)) if group is None else np.asarray(group)
+    fields = _schedule(np.diff(ptr), ptr, order, group,
+                       plan.csr_col.cpu().numpy(), walk_rows, chunk_regs)
+    dev = plan.csr_ptr.device
+    return dataclasses.replace(
+        plan, row_order=torch.from_numpy(order.astype(np.int32)).to(dev),
+        **{k: v.to(dev) if isinstance(v, torch.Tensor) else v
+           for k, v in fields.items()})
+
+
+def lane_groups(d: int, bf16: bool = False, by_row: bool = False):
+    """(g, G, NV, slices) of the kernels at width d (csrc/bsr_spmm.cu
+    ``geometry`` and ``row_geometry``): G groups of g lanes a warp, each
+    lane NV 16-byte pieces of an x row, grid-y slices.  The ring kernels:
+    at d <= 16 pieces (64 f32, 128 bf16 values) the narrowest group that
+    covers d; else one group of 32 lanes over up to 4 (f32) or 2 (bf16)
+    pieces a lane, slices of 512 columns.  ``by_row``: the register
+    gathers (``walk_rows``, ``chunk_regs``), one group of 32 lanes over up
+    to 2 pieces a lane.  ``_library`` holds these against the kernels'
+    own."""
+    vec, max_nv = (8, 2) if bf16 else (4, 4)
+    per = -(-d // (32 * vec))
+    if by_row:
+        return 32, 1, (1 if per <= 1 else 2), (1 if per <= 2 else -(-per // 2))
+    if d <= 16 * vec:
+        g = 1
+        while g * vec < d:
+            g *= 2
+        return g, 32 // g, 1, 1
+    if per <= max_nv:
+        return 32, 1, (1 if per <= 1 else 2 if per <= 2 else 4), 1
+    return 32, 1, max_nv, -(-per // max_nv)
+
+
+def _library():
+    """The kernel library, built and loaded on first use, its launch
+    geometry and constants held against this module's copy of them
+    (``_check_geometry``)."""
+    from ctgcn_torch.ops.cuda_build import load_kernels
+
+    lib = load_kernels()
+    _check_geometry(lib)
+    return lib
+
+
+@functools.cache
+def _check_geometry(lib):
+    """Raise unless the kernels' own launch geometry (``bsr_spmm_geometry``)
+    is ``lane_groups``' at every width, and their WARPS, RING_BYTES and
+    LOADS are WALK_WARPS, SMEM_PER_CTA and ROW_LOADS, with which the host
+    builds the schedules."""
+    got = np.zeros(6, np.int32)
+    for bf16, align in ((False, D_ALIGN), (True, D_ALIGN_BF16)):
+        for by_row in (False, True):
+            for d in range(align, 2049, align):
+                lib.bsr_spmm_geometry(d, int(bf16), int(by_row),
+                                      got.ctypes.data)
+                g, _, nv, slices = lane_groups(d, bf16, by_row)
+                want = (g, nv, slices, WALK_WARPS, SMEM_PER_CTA, ROW_LOADS)
+                if tuple(got) != want:
+                    raise RuntimeError(
+                        f"the kernels' geometry at d={d} (bf16 {bf16}, "
+                        f"by_row {by_row}) is {tuple(got)}; bsr_spmm.py "
+                        f"builds for {want}")
+
+
+def schedule_stats(plan: CsrPlan) -> dict:
+    """The schedule's sizes: the chunk and its count, the rows across a
+    chunk's edge, the empty rows and their runs, whether each kernel
+    gathers into registers, the row walk's CTAs and its split rows (rows
+    that cross a warp's edge inside a CTA), and the shared memory a CTA of
+    each kernel takes."""
+    bounds = plan.walk_warp.cpu().numpy().astype(np.int64)
+    cta = bounds[:-1].reshape(-1, WALK_WARPS)
+    lo = cta[:, :1]
+    hi = np.append(cta[1:, 0], bounds[-1])[:, None]
+    edges = cta[:, 1:][(cta[:, 1:] > lo) & (cta[:, 1:] < hi)]
+    row = plan.csr_row.cpu().numpy()[plan.walk_nz.cpu().numpy()]
+    split = row[edges][row[edges - 1] == row[edges]]
+    runs = plan.empty_runs.cpu().numpy()
+    return {"chunk": plan.chunk, "chunks": -(-plan.nnz // plan.chunk),
+            "cross_rows": int(plan.cross_rows.shape[0]),
+            "empty_rows": int(runs[:, 1].sum()), "empty_runs": len(runs),
+            "chunk_regs": plan.chunk_regs,
+            "walk_rows": plan.walk_rows, "walk_ctas": len(cta),
+            "split_rows": int(np.unique(split).size),
+            "smem_per_cta": {
+                "rowwalk": 0 if plan.walk_rows else SMEM_PER_CTA,
+                "blockpar": 0 if plan.chunk_regs else SMEM_PER_CTA,
+                "blockpar_bf16": SMEM_PER_CTA}}
 
 
 def build_csr_plan(mat, row_group=None) -> CsrPlan:
@@ -361,31 +672,37 @@ def _raise_on(rc, name):
 
 def _launch(name, plan: CsrPlan, x, out_dtype, *extra, vals=None):
     """Launch C entry point ``name`` on ``plan`` and x (CUDA): the row
-    walk's arguments, or the block-parallel kernel's with its scratch;
+    walk's arguments (its stream and warp ranges, the empty rows' runs), or
+    the block-parallel kernel's (the crossing rows, the runs, the chunk)
+    with its scratch;
     ``extra`` goes before the stream (the bf16 entry points' out_f32).
     The kernel reads ``vals`` in place of ``plan.csr_val`` when given."""
-    from ctgcn_torch.ops.cuda_build import load_kernels
-
-    lib = load_kernels()
+    lib = _library()
     val_ptr = (plan.csr_val if vals is None else vals).data_ptr()
     d = x.shape[1]
     out = torch.empty(plan.n_rows, d, device=x.device, dtype=out_dtype)
     with torch.cuda.device(x.device):
         if name.startswith("bsr_spmm_rowwalk"):
             rc = getattr(lib, name)(
-                plan.csr_ptr.data_ptr(), plan.csr_col.data_ptr(),
-                val_ptr, plan.row_order.data_ptr(),
+                plan.csr_row.data_ptr(), plan.csr_col.data_ptr(), val_ptr,
+                plan.walk_nz.data_ptr(), plan.walk_warp.data_ptr(),
+                (plan.walk_warp.numel() - 1) // WALK_WARPS,
+                int(plan.walk_rows), plan.empty_runs.data_ptr(),
+                plan.empty_runs.shape[0],
                 x.data_ptr(), out.data_ptr(), plan.n_rows, d, *extra,
                 _stream(x))
         else:
             # f32 partial sums of rows across chunk edges, whatever x's type
-            scratch = torch.empty(2 * -(-plan.nnz // CHUNK), d,
+            scratch = torch.empty(2 * -(-plan.nnz // plan.chunk), d,
                                   device=x.device)
             rc = getattr(lib, name)(
                 plan.csr_ptr.data_ptr(), plan.csr_row.data_ptr(),
-                plan.csr_col.data_ptr(), val_ptr,
+                plan.csr_col.data_ptr(), val_ptr, plan.cross_rows.data_ptr(),
+                plan.cross_rows.shape[0],
+                plan.empty_runs.data_ptr(), plan.empty_runs.shape[0],
                 x.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-                plan.n_rows, plan.nnz, CHUNK, d, *extra, _stream(x))
+                plan.n_rows, plan.nnz, plan.chunk,
+                int(plan.chunk_regs), d, *extra, _stream(x))
     _raise_on(rc, name)
     return out
 
@@ -395,14 +712,15 @@ def bsr_spmm_rowwalk(plan: CsrPlan, x: torch.Tensor,
     """``A @ x`` by the row-walk kernel (counterpart of ``_spmm_kernel``,
     ``ctgcn_tpu/ops/pallas_spmm.py:97``).
 
-    A warp walks an output row's nonzeros in column order: (col, val) 32 at
-    a time, x rows gathered as float4, FP32 FFMA in registers, the row
-    stored once (zeros for an empty row): deterministic, no scratch.
-    Bound by bytes on the card, mostly the gathers of x rows from L2, so
-    warps take rows in ``plan.row_order``, which puts rows that share
-    columns (a node's core slots) in one CUDA block, where the repeats hit
-    L1.  A row stays on one SM, so plans with long rows are slow here
-    (``dispatch`` sends them to ``bsr_spmm_blockpar``).
+    One launch: the CTAs walk the plan's rows in ``plan.row_order``, each
+    about WALK_WARPS chunks of the walk stream cut at the order's group
+    edges, so rows that share columns (a node's core slots) are gathered
+    on one SM, and split evenly over its warps (``walk_warp``): short rows
+    share a warp and a long row is split over the CTA's warps, whose pieces
+    are added in shared memory in warp order.  x rows arrive through a
+    ring in shared memory by asynchronous copies, FP32 FFMA in registers,
+    each row stored once; more CTAs of the launch write the empty rows as
+    zeros over their runs: deterministic, no scratch, no atomics.
 
     x: contiguous f32 [n_cols, d], d a multiple of 4 -> f32 [n_rows, d];
     vals: optional contiguous f32 [nnz] in place of ``plan.csr_val``.
@@ -425,14 +743,15 @@ def bsr_spmm_blockpar(plan: CsrPlan, x: torch.Tensor,
 
     The TPU kernel's grid runs over blocks and carries each output tile
     across its row run; on Hopper nothing carries between CUDA blocks, and
-    the blocks are nearly empty.  So the grid runs over equal chunks of
-    ``CHUNK`` nonzeros, and long rows spread over many SMs.  Pass 1 writes
+    the blocks are nearly empty.  So a warp takes each chunk of
+    ``plan.chunk`` nonzeros (derived from nnz so that small plans still
+    fill the card), and long rows spread over many SMs.  Pass 1 writes
     every row that lies inside one chunk straight to out and leaves the
     pieces of rows that cross a chunk edge in scratch (two rows of d per
-    chunk); pass 2 adds each such row's pieces in chunk order and writes
-    empty rows as zeros (deterministic, no atomics).  Pass 2 is a
-    programmatic dependent launch that starts in pass 1's last wave.
-    Bound by bytes, like the row walk.
+    chunk); pass 2 runs only over those rows (``plan.cross_rows``) and
+    adds each one's pieces in chunk order; a zero fill writes the empty
+    rows (deterministic, no atomics).  Pass 2 is a programmatic dependent
+    launch, so its CTAs are resident when pass 1 ends.
 
     x: contiguous f32 [n_cols, d], d a multiple of 4 -> f32 [n_rows, d];
     vals: optional contiguous f32 [nnz] in place of ``plan.csr_val``.
@@ -496,15 +815,19 @@ def dispatch(plan: CsrPlan, bf16: bool = False):
     """The kernel wrapper that runs ``plan`` (the ``*_bf16`` one for x in
     bf16).  The TPU package chose by the size of x (10 MB, what stays
     resident in VMEM); on the H100 the longest row decides.  A row walk
-    keeps a row on one SM, which a hub row holds up (the pyramid's
-    transpose: up to 16x a node's degree); the block-parallel kernel's
-    equal chunks spread it over many SMs and pay a second pass for it.  At
-    UCI (snapshot 2004-05, d = 512, NVIDIA H100 80GB HBM3, 700 W) the row
-    walk is the faster on the forward plan (longest row 198) and the
-    block-parallel kernel on the transpose (longest row 1977); at Enron
-    both delta plans have a hub row (1130 and 1147 nonzeros) and the
-    block-parallel kernel takes both.  ``chip_smoke.py`` times both on
-    both."""
+    keeps a row in one CTA, which a hub row holds up (the transposes' rows
+    of 865-1,977 nonzeros: AS's at d = 500 0.0555 ms against the
+    block-parallel kernel's 0.0271); the block-parallel kernel spreads it
+    over many chunks and pays a second pass for it, which costs it on
+    plans of short rows (AS's forward at d = 500 0.0621 against the walk's
+    0.0583; UCI's pyramid forward, a warp a row, 0.0630 against 0.0431).
+    Re-derived on the rows of ``chip_smoke.py --compare``, which time both
+    kernels on 40 (plan, width) pairs (NVIDIA H100 80GB HBM3, 700 W): the
+    rule's sum is 3.1 % over the faster kernel's on each pair.  It loses
+    more than 5 % on Math at d = 128 (0.0118 against 0.0106 ms) and
+    Enron GAT's row sum at d = 4 (0.0095 against 0.0086); the best rule
+    tried that reads d (the block-parallel kernel at d = 128 on plans with
+    no empty row) comes to 2.9 %, so the rule reads the plan alone."""
     if plan.max_row_nnz <= ROWWALK_MAX_ROW:
         return bsr_spmm_rowwalk_bf16 if bf16 else bsr_spmm_rowwalk
     return bsr_spmm_blockpar_bf16 if bf16 else bsr_spmm_blockpar

@@ -30,15 +30,21 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: name -> argtypes (restype is int = cudaGetLastError())
 _SIGNATURES = {
-    # (csr_ptr, csr_col, csr_val, row_order, x, out, n_rows, d, stream)
-    "bsr_spmm_rowwalk": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
-    # (csr_ptr, csr_row, csr_col, csr_val, x, scratch, out, n_rows, nnz,
-    #  chunk, d, stream)
-    "bsr_spmm_blockpar": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # (csr_row, csr_col, csr_val, walk_nz, walk_warp, n_cta, walk_rows,
+    #  empty_runs, n_runs, x, out, n_rows, d, stream)
+    "bsr_spmm_rowwalk": (_P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _P, _I, _I,
+                         _P),
+    # (csr_ptr, csr_row, csr_col, csr_val, cross_rows, n_cross, empty_runs,
+    #  n_runs, x, scratch, out, n_rows, nnz, chunk, regs, d, stream)
+    "bsr_spmm_blockpar": (_P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _I,
+                          _I, _I, _I, _I, _P),
     # the same with x in bf16, then out_f32 (0: bf16 out) before the stream
-    "bsr_spmm_rowwalk_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "bsr_spmm_blockpar_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                               _I, _P),
+    "bsr_spmm_rowwalk_bf16": (_P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _P,
+                              _I, _I, _I, _P),
+    "bsr_spmm_blockpar_bf16": (_P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _I, _P),
+    # (d, bf16, by_row, int32[6] out): the kernels' launch geometry
+    "bsr_spmm_geometry": (_I, _I, _I, _P),
 }
 
 
@@ -63,11 +69,13 @@ def _lib_path():
 def build_kernels():
     """Compile the sources if their library is missing.
 
-    Returns (library path, build seconds, nvcc's output -- ptxas register
-    and shared-memory report, empty when the library was already there)."""
+    Returns (library path, build seconds, nvcc's output -- ptxas register,
+    spill and shared-memory report).  The report is kept beside the
+    library and read back when the library is already there."""
     path = _lib_path()
-    if path.exists():
-        return path, 0.0, ""
+    report = path.with_suffix(".log")
+    if path.exists() and report.exists():
+        return path, 0.0, report.read_text()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.time()
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
@@ -80,6 +88,7 @@ def build_kernels():
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                                f"{proc.stdout}\n{proc.stderr}")
+        report.write_text(proc.stdout + proc.stderr)
         os.replace(tmp, path)
     finally:
         if os.path.exists(tmp):

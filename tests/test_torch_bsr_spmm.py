@@ -157,9 +157,10 @@ def test_row_order_groups_rows_longest_first(case):
 def _two_pass(plan, x, chunk):
     """bsr_spmm_blockpar's schedule in numpy: pass 1 over chunks of the
     nonzero stream (rows inside a chunk to out, pieces of rows across an
-    edge to scratch slot 0 or 1 of the chunk), pass 2 over rows (pieces
-    added in chunk order, empty rows zero).  Returns out and how many
-    times each row was written."""
+    edge to scratch slot 0 or 1 of the chunk), pass 2 over the rows that
+    cross a chunk edge (``cross_rows``: pieces added in chunk order), the
+    plan's runs of empty rows zero.  Returns out and how many times each
+    row was written."""
     ptr, row = plan.csr_ptr.numpy(), plan.csr_row.numpy()
     col, val = plan.csr_col.numpy(), plan.csr_val.numpy()
     nnz = len(val)
@@ -179,28 +180,31 @@ def _two_pass(plan, x, chunk):
                 slot = 2 * c + int(ptr[r] > start)
                 assert np.isnan(scratch[slot]).all()   # one piece a slot
                 scratch[slot] = piece
-    for r in range(plan.n_rows):
-        p0, p1 = ptr[r], ptr[r + 1]
-        if p0 == p1:
-            out[r] = 0
-            writes[r] += 1
-        elif p0 // chunk != (p1 - 1) // chunk:
-            k0, k1 = p0 // chunk, (p1 - 1) // chunk
-            acc = scratch[2 * k0 + int(p0 > k0 * chunk)].copy()
-            for k in range(k0 + 1, k1 + 1):
-                acc += scratch[2 * k]
-            out[r] = acc
-            writes[r] += 1
+    for r, first, k1 in T.cross_rows(ptr, chunk):
+        acc = scratch[first].copy()
+        for k in range(first // 2 + 1, k1 + 1):
+            acc += scratch[2 * k]
+        out[r] = acc
+        writes[r] += 1
+    for r, n in plan.empty_runs.numpy():
+        out[r:r + n] = 0
+        writes[r:r + n] += 1
     return out, writes
 
 
-@pytest.mark.parametrize("chunk", [T.CHUNK, 7, 1])
+@pytest.mark.parametrize("chunk", ["plan", 7, 1])
 @pytest.mark.parametrize("case", ["pyramid", "pyramid_t", "padded"])
 def test_nonzero_partition_covers_each_nonzero_once(case, chunk):
-    """The block-parallel kernel's chunks of the nonzero stream cover every
-    nonzero once, in row order; its two passes write every output row
-    exactly once and give the plain CSR product."""
+    """The block-parallel kernel's chunks of the nonzero stream (the
+    plan's own chunk, derived from its nnz, and two others) cover every
+    nonzero once, in row order; its two passes and the zero fill write
+    every output row exactly once and give the plain CSR product."""
     plan = _plan_cases()[case][0]
+    if chunk == "plan":
+        chunk = plan.chunk
+        np.testing.assert_array_equal(plan.cross_rows.numpy(),
+                                      T.cross_rows(plan.csr_ptr.numpy(),
+                                                   chunk))
     row = plan.csr_row.numpy()
     starts = np.arange(0, plan.nnz, chunk)
     covered = np.concatenate([np.arange(s, min(plan.nnz, s + chunk))
