@@ -748,6 +748,19 @@ BF16_KERNELS = {f"{k}_bf16": v for k, v in F32_KERNELS.items()}
 KERNELS = {**F32_KERNELS, **BF16_KERNELS}
 
 
+def _zero_launches():
+    """Set the kernels' launch counters (``spmm.launches.<kernel>``) to 0."""
+    from ctgcn_torch.training import profiling
+    profiling.reset_counters("spmm.launches.")
+
+
+def _launches():
+    """{kernel: launches counted since ``_zero_launches``}."""
+    from ctgcn_torch.training import profiling
+    return {name: profiling.counter("spmm.launches." + name)
+            for name in KERNELS}
+
+
 def _spmm_widths(cfg, align):
     """The widths of the two CoreDiffusion layers' SpMMs (hid, then
     embed), each padded to a multiple of ``align`` as the path pads it."""
@@ -1517,7 +1530,6 @@ def phase_pipeline(cfg, dev):
     import torch
 
     from ctgcn_torch.losses import negative_sampling_loss
-    from ctgcn_torch.ops import bsr_spmm as B
     from ctgcn_torch.parallel import dist as pdist
     from ctgcn_torch.parallel.pipeline import (ctgcn_pipelined_forward,
                                                pick_microbatch)
@@ -1549,8 +1561,7 @@ def phase_pipeline(cfg, dev):
     for tag, forward in forwards.items():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
-        for name in KERNELS:
-            getattr(B, name).launches = 0
+        _zero_launches()
         steps, exchanges = [], []
         for _ in range(PIPELINE_STEPS):
             model.zero_grad(set_to_none=True)
@@ -1571,8 +1582,7 @@ def phase_pipeline(cfg, dev):
             "out": out.detach(), "loss": float(loss.detach()),
             "grads": {n: p.grad.detach().clone()
                       for n, p in model.named_parameters()},
-            "launches": {name: getattr(B, name).launches
-                         for name in KERNELS},
+            "launches": _launches(),
             "peak": torch.cuda.max_memory_allocated(dev), "step_ms": steps,
             "exchanges": exchanges}
     plain, pipe = runs["plain"], runs["pipeline"]
@@ -1642,10 +1652,10 @@ def phase_trace(path, cfg, dev):
         raise AssertionError(f"[trace]: {len(traces)} traces, want 1")
     with open(traces[0]) as fp:
         events = json.load(fp)["traceEvents"]
-    # the host's ranges (the device's projections of them are
-    # "gpu_user_annotation")
+    # the program's "epoch" spans, host ranges entered from C++ ("cpu_op";
+    # a Python record_function's would be "user_annotation")
     epochs = sum(1 for e in events if e.get("name") == "epoch"
-                 and e.get("cat") == "user_annotation")
+                 and e.get("cat") in ("user_annotation", "cpu_op"))
     kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
     found = {k: sum(k in name for name in kernels)
              for k in ("rowwalk", "blockpar")}
@@ -1721,8 +1731,7 @@ def phase_remat(cfg, dev):
         for policy in ("full", "save_spmm"):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(dev)
-            for name in KERNELS:
-                getattr(B, name).launches = 0
+            _zero_launches()
             for key in fwd_plan_calls:
                 fwd_plan_calls[key] = 0
             t0 = time.time()
@@ -1733,12 +1742,11 @@ def phase_remat(cfg, dev):
                 "loss": float(loss.detach()),
                 "peak": torch.cuda.max_memory_allocated(dev),
                 "forward_plan_launches": dict(fwd_plan_calls),
-                "launches": {name: getattr(B, name).launches
-                             for name in KERNELS},
+                "launches": _launches(),
                 "grads": {n: p.grad.detach().clone()
                           for n, p in model.named_parameters()}}
-            for name in KERNELS:
-                total[name] += getattr(B, name).launches
+            for name, n in runs[policy]["launches"].items():
+                total[name] += n
     finally:
         B.block_spmm_raw = raw
     full, save = runs["full"], runs["save_spmm"]
@@ -1779,7 +1787,6 @@ def phase_window_tail(cfg, dev):
     import numpy as np
     import torch
 
-    from ctgcn_torch.ops import bsr_spmm as B
 
     trainer, kw = _trainer("CTGCN-C", cfg, dev)
     model = trainer.model
@@ -1787,8 +1794,7 @@ def phase_window_tail(cfg, dev):
         raise AssertionError(f"[window_tail] backend "
                              f"{trainer.data['adjs'].backend}")
     init = copy.deepcopy(model.state_dict())
-    for name in KERNELS:
-        getattr(B, name).launches = 0
+    _zero_launches()
     runs = {}
     for tail in (False, True):
         model.batch_window_tail = tail
@@ -1810,7 +1816,7 @@ def phase_window_tail(cfg, dev):
             "device_idle_share": max(0.0, 1 - busy / steady),
             "kernel_launches": sum(n for _, n in per_kernel.values()),
             "peak": peak}
-    launches = {name: getattr(B, name).launches for name in KERNELS}
+    launches = _launches()
     off, on = runs["off"]["losses"], runs["on"]["losses"]
     gap = max(abs(a - b) / abs(b) for a, b in zip(on, off))
     _phase("window_tail", path="uci_window_tail", method="CTGCN-C",
@@ -3214,19 +3220,16 @@ def _run_cli_counted(cfg_path, method, dev):
     import torch
 
     from ctgcn_torch import main as cli
-    from ctgcn_torch.ops import bsr_spmm as B
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    for name in KERNELS:
-        getattr(B, name).launches = 0
+    _zero_launches()
     t0 = time.time()
     results = cli.main([f"--config={cfg_path}", "--task=embedding",
                         f"--method={method}"])
     torch.cuda.synchronize()
     wall = time.time() - t0
-    return (results, wall,
-            {name: getattr(B, name).launches for name in KERNELS},
+    return (results, wall, _launches(),
             torch.cuda.max_memory_allocated(dev),
             results[-1].pop("trainer", None))
 
@@ -3410,14 +3413,10 @@ def _train_job(base, name, conf, method, change, device):
     sys.path.insert(0, str(ROOT))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from ctgcn_torch.ops import bsr_spmm as B
-
-    for k in KERNELS:
-        getattr(B, k).launches = 0
+    _zero_launches()
     seconds, results = _train(base, name, conf, device, method, **change)
     return (seconds, [{k: r[k] for k in _RESULT_KEYS if k in r}
-                      for r in results],
-            {k: getattr(B, k).launches for k in KERNELS})
+                      for r in results], _launches())
 
 
 def quality_pool():
@@ -3967,10 +3966,7 @@ def main(argv=None):
         # 5. model quality and the other evaluation tasks, counters set to
         # 0 just before and read just after (UCI and America-Air train on
         # the blocks backend, and evaluation runs no kernel of ours)
-        from ctgcn_torch.ops import bsr_spmm as B
-
-        for name in KERNELS:
-            getattr(B, name).launches = 0
+        _zero_launches()
         t0 = time.time()
         worker_launches = {}
         with quality_pool() as pool:
@@ -3986,8 +3982,8 @@ def main(argv=None):
                                     worker_launches)
         phase_eval(work / "uci", methods[0], work / "america_air", "cuda")
         launches["evaluation"] = {
-            name: getattr(B, name).launches + worker_launches.get(name, 0)
-            for name in KERNELS}
+            name: n + worker_launches.get(name, 0)
+            for name, n in _launches().items()}
         _phase("eval", check="device against cpu",
                **phase_device_vs_cpu(work / "uci", methods[0], dev))
         _phase("eval", total_seconds=time.time() - t0,

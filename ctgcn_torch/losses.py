@@ -28,6 +28,7 @@ import torch
 from torch.nn import functional as F
 
 from ctgcn_torch.ops.spmm import sddmm
+from ctgcn_torch.training import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,9 +111,14 @@ def uneg_loss(embs, batch_idx, batch_mask, walk: WalkData, j, neg_idx,
 
 def negative_sampling_loss(embs, batch_idx, batch_mask, walk: WalkData,
                            generator, neg_num=20, Q=10.0):
-    """Sample with ``generator`` and compute the loss."""
-    j, neg_idx = sample_uneg(walk, batch_idx, neg_num, generator)
-    return uneg_loss(embs, batch_idx, batch_mask, walk, j, neg_idx, Q=Q)
+    """Sample with ``generator`` and compute the loss.  While tracing is
+    on, its forward and its backward are each a ``loss`` span."""
+    backward = profiling.backward_span("loss")
+    with profiling.span("loss"):
+        embs = backward.enter(embs)
+        j, neg_idx = sample_uneg(walk, batch_idx, neg_num, generator)
+        return backward.exit(uneg_loss(embs, batch_idx, batch_mask, walk, j,
+                                       neg_idx, Q=Q))
 
 
 def reconstruction_loss(embs, trans, batch_idx=None, batch_mask=None):

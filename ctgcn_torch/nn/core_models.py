@@ -322,14 +322,15 @@ class CoreDiffusion(nn.Module):
         SpMM."""
         contribs, xp = slot_products(x.float(), pyramid)
         delta = pyramid.backend == "ell" and pyramid.ell_delta
-        out = _maybe_checkpoint(self.tail, contribs, pyramid.valid, delta,
-                                xp if delta else None, enabled=save_spmm)
+        out = _maybe_checkpoint(
+            functools.partial(self.tail, kept=pyramid.kept), contribs,
+            pyramid.valid, delta, xp if delta else None, enabled=save_spmm)
         if pyramid.backend == "blocks":
             out = out[pyramid.inv_perm]
         return out
 
     def tail(self, contribs, valid, delta, xp, cell=None, norm=None,
-             budget=None):
+             budget=None, kept=None):
         """Prefix, ReLU, the core-axis RNN summed, LayerNorm (JAX
         ``_tail``): slot products [K, N, d] (``valid`` [K]) -> [N, H].
 
@@ -337,7 +338,8 @@ class CoreDiffusion(nn.Module):
         -> [T, N, H], with ``cell`` and ``norm`` the T timesteps' stacked
         ones (CTGCN; CGCN's layer runs its own) and ``budget`` the window's
         activation budget, which gates its footprint in place of
-        ``core_rnn_budget``."""
+        ``core_rnn_budget``.  ``kept``: the valid slots' host count (summed
+        over T), for the core-axis RNN's counters."""
         cell = self.rnn if cell is None else cell
         norm = self.norm if norm is None else norm
         budget = self.core_rnn_budget if budget is None else budget
@@ -355,7 +357,7 @@ class CoreDiffusion(nn.Module):
             if bf16 and over:
                 acc = acc.bfloat16()
             return norm(core_rnn_sum(cell, acc, valid.float(),
-                                     self.cvjp_batch_budget))
+                                     self.cvjp_batch_budget, kept=kept))
         if over and materialize:
             acc = _prefix_acc(contribs, delta, xp)
             outs = _core_rnn_scan_acc(cell, acc.bfloat16() if bf16 else acc,
@@ -465,7 +467,9 @@ def _window_tail(cdns, trans, pyramids: CorePyramid, act_budget):
                                     for lyr in layers])[:, None],
                 eps=layer.norm.eps)
         out = layer.tail(contribs, pyramids.valid.T, False, None, cell=cell,
-                         norm=norm, budget=act_budget if T > 1 else None)
+                         norm=norm, budget=act_budget if T > 1 else None,
+                         kept=None if pyramids.kept is None
+                         else sum(pyramids.kept))
         h = torch.take_along_dim(out, pyramids.inv_perm[:, :, None], dim=1)
     return h
 

@@ -21,9 +21,11 @@ warp ranges.
 
 Wrappers: on a CPU tensor a kernel wrapper runs the plain version over the
 plan's CSR; on a CUDA tensor it launches the kernel (built from
-``csrc/bsr_spmm.cu`` at first use) or raises.  Each wrapper counts its
-launches in ``.launches``.  ``bsr_spmm_plain`` multiplies the dense blocks
-and is a second, independent oracle.
+``csrc/bsr_spmm.cu`` at first use) or raises.  Each launch is counted in
+the host counter ``spmm.launches.<wrapper name>``
+(``training.profiling.counter``) and, while tracing is on, is an ``spmm``
+span with a record of its plan, d and kernel.  ``bsr_spmm_plain``
+multiplies the dense blocks and is a second, independent oracle.
 
 The f32 wrappers also take the values as an argument (``vals``, one f32
 per nonzero in plan order) in place of the plan's ``csr_val``: the edge
@@ -43,6 +45,8 @@ import functools
 import numpy as np
 import scipy.sparse as sp
 import torch
+
+from ctgcn_torch.training import profiling
 
 BLOCK = 128
 #: d must be a multiple of this: the kernels move x rows 16 bytes at a
@@ -137,6 +141,8 @@ class CsrPlan:
                  row each (``_row_warps``), else about WALK_WARPS chunks a
                  CTA cut at the walk order's group edges, split evenly (a
                  row never crosses a CTA's edge; ``_walk_warps``).
+    cols_read:   the columns that hold a nonzero, the x rows the kernels
+                 gather (recorded with each launch while tracing is on).
     """
 
     csr_ptr: torch.Tensor
@@ -154,6 +160,7 @@ class CsrPlan:
     walk_rows: bool
     walk_warp: torch.Tensor
     chunk_regs: bool
+    cols_read: int
 
     @property
     def nnz(self) -> int:
@@ -335,7 +342,8 @@ def _schedule(counts, ptr, order, group, col, walk_rows=None,
             cross_rows(ptr, chunk, nonempty).astype(np.int32)),
         walk_nz=torch.from_numpy(walk_nz.astype(np.int32)),
         walk_rows=bool(walk_rows and nnz),
-        walk_warp=torch.from_numpy(walk_warp.astype(np.int32)))
+        walk_warp=torch.from_numpy(walk_warp.astype(np.int32)),
+        cols_read=int(np.count_nonzero(np.bincount(np.asarray(col)))))
 
 
 def _csr_fields(r, c, val, n_rows, row_group):
@@ -676,12 +684,13 @@ def _launch(name, plan: CsrPlan, x, out_dtype, *extra, vals=None):
     the block-parallel kernel's (the crossing rows, the runs, the chunk)
     with its scratch;
     ``extra`` goes before the stream (the bf16 entry points' out_f32).
-    The kernel reads ``vals`` in place of ``plan.csr_val`` when given."""
+    The kernel reads ``vals`` in place of ``plan.csr_val`` when given.
+    Counts the launch in ``spmm.launches.<name>``; an ``spmm`` span."""
     lib = _library()
     val_ptr = (plan.csr_val if vals is None else vals).data_ptr()
     d = x.shape[1]
     out = torch.empty(plan.n_rows, d, device=x.device, dtype=out_dtype)
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(x.device), profiling.span("spmm"):
         if name.startswith("bsr_spmm_rowwalk"):
             rc = getattr(lib, name)(
                 plan.csr_row.data_ptr(), plan.csr_col.data_ptr(), val_ptr,
@@ -704,6 +713,10 @@ def _launch(name, plan: CsrPlan, x, out_dtype, *extra, vals=None):
                 plan.n_rows, plan.nnz, plan.chunk,
                 int(plan.chunk_regs), d, *extra, _stream(x))
     _raise_on(rc, name)
+    profiling.count("spmm.launches." + name)
+    trace = profiling.active()
+    if trace is not None:
+        trace.spmm.append((plan.nnz, plan.n_rows, plan.cols_read, d, name))
     return out
 
 
@@ -728,12 +741,7 @@ def bsr_spmm_rowwalk(plan: CsrPlan, x: torch.Tensor,
     _check(plan, x, vals=vals)
     if x.device.type == "cpu":
         return bsr_spmm_csr_plain(plan, x, vals)
-    out = _launch("bsr_spmm_rowwalk", plan, x, torch.float32, vals=vals)
-    bsr_spmm_rowwalk.launches += 1
-    return out
-
-
-bsr_spmm_rowwalk.launches = 0
+    return _launch("bsr_spmm_rowwalk", plan, x, torch.float32, vals=vals)
 
 
 def bsr_spmm_blockpar(plan: CsrPlan, x: torch.Tensor,
@@ -759,12 +767,7 @@ def bsr_spmm_blockpar(plan: CsrPlan, x: torch.Tensor,
     _check(plan, x, vals=vals)
     if x.device.type == "cpu":
         return bsr_spmm_csr_plain(plan, x, vals)
-    out = _launch("bsr_spmm_blockpar", plan, x, torch.float32, vals=vals)
-    bsr_spmm_blockpar.launches += 1
-    return out
-
-
-bsr_spmm_blockpar.launches = 0
+    return _launch("bsr_spmm_blockpar", plan, x, torch.float32, vals=vals)
 
 
 def bsr_spmm_rowwalk_bf16(plan: CsrPlan, x: torch.Tensor,
@@ -781,13 +784,8 @@ def bsr_spmm_rowwalk_bf16(plan: CsrPlan, x: torch.Tensor,
     _check_out_dtype(out_dtype)
     if x.device.type == "cpu":
         return bsr_spmm_csr_plain_bf16(plan, x, out_dtype)
-    out = _launch("bsr_spmm_rowwalk_bf16", plan, x, out_dtype,
-                  int(out_dtype == torch.float32))
-    bsr_spmm_rowwalk_bf16.launches += 1
-    return out
-
-
-bsr_spmm_rowwalk_bf16.launches = 0
+    return _launch("bsr_spmm_rowwalk_bf16", plan, x, out_dtype,
+                   int(out_dtype == torch.float32))
 
 
 def bsr_spmm_blockpar_bf16(plan: CsrPlan, x: torch.Tensor,
@@ -802,13 +800,8 @@ def bsr_spmm_blockpar_bf16(plan: CsrPlan, x: torch.Tensor,
     _check_out_dtype(out_dtype)
     if x.device.type == "cpu":
         return bsr_spmm_csr_plain_bf16(plan, x, out_dtype)
-    out = _launch("bsr_spmm_blockpar_bf16", plan, x, out_dtype,
-                  int(out_dtype == torch.float32))
-    bsr_spmm_blockpar_bf16.launches += 1
-    return out
-
-
-bsr_spmm_blockpar_bf16.launches = 0
+    return _launch("bsr_spmm_blockpar_bf16", plan, x, out_dtype,
+                   int(out_dtype == torch.float32))
 
 
 def dispatch(plan: CsrPlan, bf16: bool = False):

@@ -54,6 +54,9 @@ class CorePyramid:
     dense_prec:   "highest" or "high" (3xTF32 on the card) for the GEMMs
                   of an f32 dense bank or f32 blocks; a bf16 bank or bf16
                   blocks run bf16 operands with f32 results.
+    kept:         the valid slots' count from the host build (window: a
+                  tuple of T), which the core-axis RNN's counters read in
+                  place of ``valid`` on the device.
     """
 
     valid: torch.Tensor
@@ -72,6 +75,7 @@ class CorePyramid:
     ell_delta: bool = False
     ell_bf16: bool = False
     dense_prec: str = "highest"
+    kept: int | tuple | None = None
 
     @property
     def num_slots(self) -> int:
@@ -173,7 +177,7 @@ def build_core_pyramid(core_mats, n_nodes, num_slots, densify=False,
                        rows=rows_t, cols=cols_t, vals=vals_t, dense=dense,
                        blocks=blocks, perm=perm, inv_perm=inv_perm,
                        plan_fwd=plan_fwd, plan_t=plan_t,
-                       dense_prec=dense_prec)
+                       dense_prec=dense_prec, kept=len(kept))
 
 
 def _build_core_blocks(kept_raw, n_nodes, dtype=torch.float32, bucket=256):

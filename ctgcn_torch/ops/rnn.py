@@ -22,6 +22,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ctgcn_torch.training import profiling
+
 
 class _CellMath:
     """GRU/LSTM math over ``w_ih``, ``w_hh``, ``b_ih``, ``b_hh``: 2-D
@@ -149,9 +151,22 @@ def _batched(is_lstm, acc, H, batch_budget):
 
 
 class _CoreRnnSum(torch.autograd.Function):
+    """The core-axis RNN summed; its forward and its backward are each a
+    ``core_rnn`` span while tracing is on."""
+
     @staticmethod
-    def forward(ctx, acc, valid, w_ih, w_hh, b_ih, b_hh, is_lstm,
-                batch_budget):
+    def forward(ctx, *args):
+        with profiling.span("core_rnn"):
+            return _CoreRnnSum._forward(ctx, *args)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        with profiling.span("core_rnn"):
+            return _CoreRnnSum._backward(ctx, g_out)
+
+    @staticmethod
+    def _forward(ctx, acc, valid, w_ih, w_hh, b_ih, b_hh, is_lstm,
+                 batch_budget):
         K = acc.shape[0]
         H = w_hh.shape[-1]
         batched = _batched(is_lstm, acc, H, batch_budget)
@@ -186,7 +201,7 @@ class _CoreRnnSum(torch.autograd.Function):
         return s
 
     @staticmethod
-    def backward(ctx, g_out):
+    def _backward(ctx, g_out):
         acc, valid, w_ih, w_hh, b_ih, b_hh, saved_h, *rest = \
             ctx.saved_tensors
         p = (w_ih, w_hh, b_ih, b_hh)
@@ -342,7 +357,8 @@ def _bwd_lean(p, acc, valid, saved_h, saved_c, g_out):
     return d_acc, gw_ih, gw_hh, gb_ih, gb_hh
 
 
-def core_rnn_sum(cell, acc, valid, batch_budget=CVJP_BATCH_BUDGET):
+def core_rnn_sum(cell, acc, valid, batch_budget=CVJP_BATCH_BUDGET,
+                 kept=None):
     """Masked core-axis RNN returning the SUM of the per-step hidden states:
     ``rnn_scan(cell, relu(acc) * valid, mask=valid)[0].sum(0)`` as one op
     whose backward saves only ``acc`` and the [K, N, H] pre-step carries
@@ -357,8 +373,14 @@ def core_rnn_sum(cell, acc, valid, batch_budget=CVJP_BATCH_BUDGET):
       batch_budget: byte gate of the K-batched mode (gate stacks of
         [K, N, G*H] f32, times T batched, at most this size); above it
         the lean mode.
+      kept: the valid slots' count as the host built them (summed over
+        T), counted into ``core_rnn.valid_slot_steps`` beside the K (times
+        T) slots of ``core_rnn.slot_steps``; None counts the latter alone.
     Returns float32 [N, H] ([T, N, H]).
     """
+    profiling.count("core_rnn.slot_steps", acc.shape[:-2].numel())
+    if kept is not None:
+        profiling.count("core_rnn.valid_slot_steps", kept)
     p = (cell.w_ih, cell.w_hh, cell.b_ih, cell.b_hh)
     if acc.dim() == 4 and cell.w_ih.dim() == 2:
         # one cell shared by the T snapshots (CGCN): its gradient sums

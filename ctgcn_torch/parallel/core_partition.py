@@ -180,7 +180,7 @@ def partitioned_core_diffusion(layer, x_shard, part: HaloPart, parts: Parts):
     acc = ((lower @ lower) @ contribs.reshape(K, -1)).reshape(contribs.shape)
     acc = acc + x[None]
     return layer.norm(core_rnn_sum(layer.rnn, acc, valid,
-                                   layer.cvjp_batch_budget))
+                                   layer.cvjp_batch_budget, kept=part.kept))
 
 
 def halo_core_forward(model, xs, hparts, n_nodes, parts: Parts):

@@ -207,7 +207,8 @@ class HaloPart:
     """One part of a halo plan, what its rank holds: the LOCAL plan pair
     [R, rpp] and transpose, the REMOTE pair [R, P·H] and transpose, and the
     send table (int64 [P, H]); R is rpp, or K·rpp for a pyramid's
-    flattened slots (row k·rpp + r), whose ``valid`` it carries."""
+    flattened slots (row k·rpp + r), whose ``valid`` it carries, and
+    ``kept``, the count of its valid slots on the host."""
 
     local_fwd: CsrPlan
     local_t: CsrPlan
@@ -220,6 +221,7 @@ class HaloPart:
     halo_width: int
     n_nodes: int
     valid: torch.Tensor | None = None
+    kept: int = 0
 
     @property
     def num_slots(self) -> int:
@@ -256,7 +258,8 @@ def halo_part(plan, p, rpp, n_nodes, valid):
         send=torch.from_numpy(plan.halo_send[p].astype(np.int64)), index=p,
         count=plan.parts, rows_per_part=rpp, halo_width=plan.halo_width,
         n_nodes=n_nodes,
-        valid=None if valid is None else torch.from_numpy(valid.copy()))
+        valid=None if valid is None else torch.from_numpy(valid.copy()),
+        kept=0 if valid is None else int(valid.sum()))
 
 
 def halo_lists(rows, cols, n_parts, rpp):

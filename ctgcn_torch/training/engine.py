@@ -57,7 +57,8 @@ from ctgcn_torch.interop import params_from_numpy, params_to_numpy
 from ctgcn_torch.parallel.dist import is_primary, part0_flag
 from ctgcn_torch.training.model_file import (flax_msgpack_parts,
                                              read_flax_msgpack)
-from ctgcn_torch.training.profiling import EpochTracer, PhaseClock
+from ctgcn_torch.training.profiling import (EpochTracer, PhaseClock, count,
+                                            span, traced_if_profiled)
 from ctgcn_torch.utils import check_and_make_path
 
 
@@ -246,39 +247,21 @@ class UnsupervisedEmbedding(BaseEmbedding):
         gen.manual_seed(seed)
         losses, epoch_seconds = [], []
         tracer = EpochTracer(profile_dir, epoch, self.device)
-        for e in range(epoch):
-            t_e = time.time()
-            batches, masks = batch_matrix(self.node_num, batch_size,
-                                          rng=perm_rng, shuffle=shuffle)
-            tracer.before_epoch(e)
-            with tracer.annotate(e):
-                optimizer.zero_grad(set_to_none=False)
-                total = torch.zeros((), device=self.device)
-                state = (None if self.state_init is None
-                         else self.state_init(model, self.data))
-                for b_idx, b_mask in zip(batches, masks):
-                    args = (model, self.data,
-                            torch.from_numpy(b_idx).to(self.device),
-                            torch.from_numpy(b_mask).to(self.device), gen)
-                    if self.state_init is None:
-                        loss = self.loss_fn(*args)
-                    else:
-                        loss, state = self.loss_fn(*args, state)
-                        state = state.detach()
-                    loss.backward()
-                    total += loss.detach()
-                if sharding is not None:
-                    sharding.reduce_grads(model)
-                optimizer.step()
-                loss_val = float(total)     # waits for the epoch to finish
-                self._sync()
-            tracer.after_epoch(e)
-            epoch_seconds.append(time.time() - t_e)
-            losses.append(loss_val)
-            if verbose and is_primary():
-                print(f"epoch {e + 1}, loss: {loss_val:.6f}, "
-                      f"cost time: {time.time() - st:.3f}s", flush=True)
-        tracer.close()
+        with traced_if_profiled(self.device):
+            for e in range(epoch):
+                t_e = time.time()
+                tracer.before_epoch(e)
+                with span("epoch"):
+                    loss_val = self._epoch(model, optimizer, batch_size,
+                                           perm_rng, shuffle, gen)
+                count("engine.epochs")
+                tracer.after_epoch(e)
+                epoch_seconds.append(time.time() - t_e)
+                losses.append(loss_val)
+                if verbose and is_primary():
+                    print(f"epoch {e + 1}, loss: {loss_val:.6f}, "
+                          f"cost time: {time.time() - st:.3f}s", flush=True)
+            tracer.close()
         cost_time = time.time() - st
         t_export = time.time()
         clock = PhaseClock(phase_times, self.device)
@@ -303,6 +286,38 @@ class UnsupervisedEmbedding(BaseEmbedding):
         return {"cost_time": cost_time, "losses": losses,
                 "epoch_seconds": epoch_seconds,
                 "export_seconds": time.time() - t_export}
+
+    def _epoch(self, model, optimizer, batch_size, perm_rng, shuffle, gen):
+        """One epoch: every node batch's forward, loss and backward, one
+        optimizer step; returns the summed loss, read back."""
+        with span("batch_plan"):
+            batches, masks = batch_matrix(self.node_num, batch_size,
+                                          rng=perm_rng, shuffle=shuffle)
+        with span("optimizer"):
+            optimizer.zero_grad(set_to_none=False)
+        total = torch.zeros((), device=self.device)
+        state = (None if self.state_init is None
+                 else self.state_init(model, self.data))
+        for b_idx, b_mask in zip(batches, masks):
+            with span("batch_inputs"):
+                args = (model, self.data,
+                        torch.from_numpy(b_idx).to(self.device),
+                        torch.from_numpy(b_mask).to(self.device), gen)
+            if self.state_init is None:
+                loss = self.loss_fn(*args)
+            else:
+                loss, state = self.loss_fn(*args, state)
+                state = state.detach()
+            loss.backward()
+            total += loss.detach()
+        if self.sharding is not None:
+            self.sharding.reduce_grads(model)
+        with span("optimizer"):
+            optimizer.step()
+        with span("readback"):
+            loss_val = float(total)     # waits for the epoch to finish
+            self._sync()
+        return loss_val
 
 
 class SupervisedEmbedding(BaseEmbedding):
@@ -405,49 +420,51 @@ class SupervisedEmbedding(BaseEmbedding):
         best_acc, best, best_state = -1.0, self._params(), None
         losses, acc_vals, epoch_seconds = [], [], []
         tracer = EpochTracer(profile_dir, epoch, self.device)
-        for e in range(epoch):
-            t_e = time.time()
-            tracer.before_epoch(e)
-            with tracer.annotate(e):
-                optimizer.zero_grad(set_to_none=False)
-                state = (self.state_init(model, self.data) if stateful
-                         else None)
-                loss, acc, _, *rest = self._run("train", gen, state)
-                loss.backward()
+        with traced_if_profiled(self.device):
+            for e in range(epoch):
+                t_e = time.time()
+                tracer.before_epoch(e)
+                with span("epoch"):
+                    optimizer.zero_grad(set_to_none=False)
+                    state = (self.state_init(model, self.data) if stateful
+                             else None)
+                    loss, acc, _, *rest = self._run("train", gen, state)
+                    loss.backward()
+                    if sharding is not None:
+                        sharding.reduce_grads(model, *self._modules()[1:])
+                    optimizer.step()
+                    losses.append(float(loss.detach()))
+                count("engine.epochs")
+                tracer.after_epoch(e)
+                if e == 0:
+                    self._sync()
+                    epoch_seconds.append(time.time() - t_e)
+                    if verbose:
+                        print(f"Epoch: 1 loss_train: {losses[-1]:.4f}",
+                              flush=True)
+                    continue
+                with torch.no_grad():
+                    state = rest[0].detach() if stateful else None
+                    loss_v, acc_v, preds_v, *rest_v = self._run("val", None,
+                                                                state)
+                acc_vals.append(float(acc_v))
+                better = acc_vals[-1] > best_acc
                 if sharding is not None:
-                    sharding.reduce_grads(model, *self._modules()[1:])
-                optimizer.step()
-                losses.append(float(loss.detach()))
-            tracer.after_epoch(e)
-            if e == 0:
+                    better = part0_flag(better, sharding.parts, self.device)
+                if better:
+                    best_acc, best = acc_vals[-1], self._params()
+                    best_state = rest_v[0] if stateful else None
+                if verbose:
+                    _, labels_v, mask_v = self.splits["val"]
+                    print(f"Epoch: {e + 1} loss_train: {losses[-1]:.4f} "
+                          f"acc_train: {float(acc):.4f} "
+                          f"loss_val: {float(loss_v):.4f} "
+                          f"acc_val: {acc_vals[-1]:.4f} auc_val: "
+                          f"{self.auc_fn(preds_v, labels_v, mask_v):.4f}",
+                          flush=True)
                 self._sync()
                 epoch_seconds.append(time.time() - t_e)
-                if verbose:
-                    print(f"Epoch: 1 loss_train: {losses[-1]:.4f}",
-                          flush=True)
-                continue
-            with torch.no_grad():
-                state = rest[0].detach() if stateful else None
-                loss_v, acc_v, preds_v, *rest_v = self._run("val", None,
-                                                            state)
-            acc_vals.append(float(acc_v))
-            better = acc_vals[-1] > best_acc
-            if sharding is not None:
-                better = part0_flag(better, sharding.parts, self.device)
-            if better:
-                best_acc, best = acc_vals[-1], self._params()
-                best_state = rest_v[0] if stateful else None
-            if verbose:
-                _, labels_v, mask_v = self.splits["val"]
-                print(f"Epoch: {e + 1} loss_train: {losses[-1]:.4f} "
-                      f"acc_train: {float(acc):.4f} "
-                      f"loss_val: {float(loss_v):.4f} "
-                      f"acc_val: {acc_vals[-1]:.4f} auc_val: "
-                      f"{self.auc_fn(preds_v, labels_v, mask_v):.4f}",
-                      flush=True)
-            self._sync()
-            epoch_seconds.append(time.time() - t_e)
-        tracer.close()
+            tracer.close()
         for m, params in zip(self._modules(), best):
             m.load_state_dict(params)
         clock = PhaseClock(phase_times, self.device)

@@ -18,6 +18,7 @@ import scipy.sparse as sp
 import torch
 
 from ctgcn_torch.ops import bsr_spmm as T
+from ctgcn_torch.training import profiling
 from ctgcn_tpu.ops import pallas_spmm as J
 
 ATOL, GRAD_ATOL = 1e-5, 1e-4
@@ -324,12 +325,13 @@ def test_pyramid_spmm_equals_jax():
 def test_cpu_wrappers_count_no_launch():
     m = _rand_sparse(np.random.default_rng(6), 200, 200, 0.05)
     plan = T.build_block_plan(m)
-    before = (T.bsr_spmm_rowwalk.launches, T.bsr_spmm_blockpar.launches)
+    names = ("spmm.launches.bsr_spmm_rowwalk",
+             "spmm.launches.bsr_spmm_blockpar")
+    before = tuple(map(profiling.counter, names))
     x = torch.ones(plan.n_cols, 64)
     T.bsr_spmm_rowwalk(plan, x)
     T.bsr_spmm_blockpar(plan, x)
-    assert (T.bsr_spmm_rowwalk.launches,
-            T.bsr_spmm_blockpar.launches) == before
+    assert tuple(map(profiling.counter, names)) == before
 
 
 @pytest.mark.parametrize("bad", ["dtype", "width", "rows", "layout"])

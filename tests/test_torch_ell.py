@@ -19,6 +19,7 @@ import torch
 from ctgcn_torch.ops import bsr_spmm as B
 from ctgcn_torch.ops import ell as TE
 from ctgcn_torch.ops import pyramid as TP
+from ctgcn_torch.training import profiling
 from ctgcn_tpu.ops import ell as JE
 from ctgcn_tpu.ops import pyramid as JP
 
@@ -188,8 +189,9 @@ def test_cpu_ell_spmm_counts_no_launch(stacked):
     tpyr, _ = stacked
     fwd, tr = TE.build_pyramid_ell_plans(tpyr.rows, tpyr.cols, tpyr.vals,
                                          tpyr.valid, N, delta=True)
-    before = (B.bsr_spmm_rowwalk.launches, B.bsr_spmm_blockpar.launches)
+    names = ("spmm.launches.bsr_spmm_rowwalk",
+             "spmm.launches.bsr_spmm_blockpar")
+    before = tuple(map(profiling.counter, names))
     x = torch.randn(N, 8, requires_grad=True)
     TE.ell_spmm(fwd[0], tr[0], x).sum().backward()
-    assert (B.bsr_spmm_rowwalk.launches,
-            B.bsr_spmm_blockpar.launches) == before
+    assert tuple(map(profiling.counter, names)) == before

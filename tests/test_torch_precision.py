@@ -30,6 +30,7 @@ from ctgcn_torch.nn import core_models as TM
 from ctgcn_torch.ops import bsr_spmm as B
 from ctgcn_torch.ops import ell as TE
 from ctgcn_torch.ops import pyramid as TP
+from ctgcn_torch.training import profiling
 from ctgcn_tpu.nn import core_models as JM
 from ctgcn_tpu.ops import ell as JE
 from ctgcn_tpu.ops import pyramid as JP
@@ -155,14 +156,15 @@ def test_bf16_wrappers_on_cpu(kernel):
         B.bsr_spmm_rowwalk_bf16 if plan.max_row_nnz <= B.ROWWALK_MAX_ROW
         else B.bsr_spmm_blockpar_bf16)
     x = torch.randn(plan.n_cols, 16).bfloat16()
-    before = wrapper.launches
+    launches = f"spmm.launches.bsr_spmm_{kernel}_bf16"
+    before = profiling.counter(launches)
     for out_dtype in (torch.bfloat16, torch.float32):
         got = wrapper(plan, x, out_dtype)
         assert got.dtype == out_dtype
         torch.testing.assert_close(
             got, B.bsr_spmm_csr_plain_bf16(plan, x, out_dtype), rtol=0,
             atol=0)
-    assert wrapper.launches == before
+    assert profiling.counter(launches) == before
     for bad_x, out_dtype in ((x.float(), torch.bfloat16),
                              (x[:, :12].contiguous(), torch.bfloat16),
                              (x, torch.float16)):

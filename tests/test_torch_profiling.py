@@ -6,7 +6,7 @@
     the epochs where the JAX tracer calls ``jax.profiler.start_trace`` and
     ``stop_trace`` (monkeypatched to record the calls);
   * a 3-epoch CLI run with ``profile_dir`` writes one Chrome trace a
-    window covering epochs 1-2 (its "epoch" ranges), under U-neg and
+    window covering epochs 1-2 (its "epoch" spans), under U-neg and
     S-link-st, and a 1-epoch run writes one of epoch 0; a loop that ends
     early is closed by ``close``; ``CTGCN_TPU_PROFILE_DIR`` stands in for
     the key;
@@ -24,7 +24,7 @@ import numpy as np
 import pytest
 
 from ctgcn_torch import main as cli
-from ctgcn_torch.training.profiling import EpochTracer
+from ctgcn_torch.training.profiling import EpochTracer, span
 from ctgcn_tpu.training import profiling as jprofiling
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -41,7 +41,7 @@ def _window(tracer, n, stop_early=None):
         tracer.before_epoch(i)
         if tracer.active and not was:
             start = i
-        with tracer.annotate(i):
+        with span("epoch"):
             pass
         was = tracer.active
         tracer.after_epoch(i)
@@ -97,7 +97,7 @@ def _epoch_ranges(path):
     with open(path) as fp:
         events = json.load(fp)["traceEvents"]
     return sum(1 for e in events if e.get("name") == "epoch"
-               and e.get("cat") == "user_annotation")
+               and e.get("cat") in ("user_annotation", "cpu_op"))
 
 
 @pytest.fixture(scope="module")
