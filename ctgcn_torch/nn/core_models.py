@@ -7,9 +7,11 @@
     plans, BSR plans or COO; see ``ops/pyramid.py``), masked by ``valid``;
     their prefix sum over the core axis goes through ReLU and a masked
     GRU/LSTM whose outputs are summed (``ops.rnn.core_rnn_sum``), then
-    LayerNorm.  Delta-encoded ELL slots take a second prefix sum and the
-    +I back as "+ x"; the blocks backend runs in core-sorted node order
-    and un-permutes after the LayerNorm.
+    LayerNorm.  Given the host's count of kept slots (``CorePyramid.kept``),
+    the stages after the products run over those slots alone.
+    Delta-encoded ELL slots take a second prefix sum and the +I back as
+    "+ x"; the blocks backend runs in core-sorted node order and
+    un-permutes after the LayerNorm.
   * CGCN shares one MLP + CDN across the snapshots; CTGCN keeps
     per-timestep distinct MLP + CDN parameters, then runs one RNN over the
     time axis and a LayerNorm.  The 'S' variants also return the MLP
@@ -338,8 +340,14 @@ class CoreDiffusion(nn.Module):
         -> [T, N, H], with ``cell`` and ``norm`` the T timesteps' stacked
         ones (CTGCN; CGCN's layer runs its own) and ``budget`` the window's
         activation budget, which gates its footprint in place of
-        ``core_rnn_budget``.  ``kept``: the valid slots' host count (summed
-        over T), for the core-axis RNN's counters."""
+        ``core_rnn_budget``.  ``kept``: the valid slots' host count (a
+        tuple of T for the T-batched tail), or None.
+
+        The host packs the kept cores into the leading slots, so the empty
+        ones are a suffix: with ``kept`` the tail runs only the first
+        ``kept`` slots (T-batched: the most any snapshot keeps), whose
+        prefix does not read the others; the gates below read the bank's
+        K all the same."""
         cell = self.rnn if cell is None else cell
         norm = self.norm if norm is None else norm
         budget = self.core_rnn_budget if budget is None else budget
@@ -350,6 +358,11 @@ class CoreDiffusion(nn.Module):
         bf16 = contribs.dtype == torch.bfloat16
         materialize = (contribs.element_size() * contribs.numel()
                        <= self.acc_materialize_budget)
+        if kept is not None:
+            counts = (kept,) if isinstance(kept, int) else kept
+            steps = max(1, *counts)
+            contribs, valid = contribs[:steps], valid[:steps]
+            kept = sum(counts)
         if self.core_vjp and materialize:
             # the hand-written backward: saves acc (bf16 when the bf16
             # products' tail is over budget) and the pre-step carries
@@ -357,7 +370,8 @@ class CoreDiffusion(nn.Module):
             if bf16 and over:
                 acc = acc.bfloat16()
             return norm(core_rnn_sum(cell, acc, valid.float(),
-                                     self.cvjp_batch_budget, kept=kept))
+                                     self.cvjp_batch_budget, kept=kept,
+                                     slots=K))
         if over and materialize:
             acc = _prefix_acc(contribs, delta, xp)
             outs = _core_rnn_scan_acc(cell, acc.bfloat16() if bf16 else acc,
@@ -468,8 +482,7 @@ def _window_tail(cdns, trans, pyramids: CorePyramid, act_budget):
                 eps=layer.norm.eps)
         out = layer.tail(contribs, pyramids.valid.T, False, None, cell=cell,
                          norm=norm, budget=act_budget if T > 1 else None,
-                         kept=None if pyramids.kept is None
-                         else sum(pyramids.kept))
+                         kept=pyramids.kept)
         h = torch.take_along_dim(out, pyramids.inv_perm[:, :, None], dim=1)
     return h
 

@@ -142,12 +142,34 @@ def rnn_scan(cell, xs, mask=None):
 CVJP_BATCH_BUDGET = 512 << 20
 
 
-def _batched(is_lstm, acc, H, batch_budget):
+def _batched(is_lstm, acc, H, batch_budget, slots=None):
     """The K-batched mode when the [K, N, G*H] f32 gate stacks ([K, T, N,
     G*H] in the T-batched tail: the gate counts T) fit the budget; the
-    lean per-step recompute above it."""
-    return 4 * acc.shape[:-1].numel() * (4 if is_lstm else 3) * H \
+    lean per-step recompute above it.  ``slots``: the slot bank's K when
+    ``acc`` holds only its leading slots, so that the gate reads the bank
+    and trimming never switches the mode."""
+    K = acc.shape[0] if slots is None else slots
+    return 4 * K * acc.shape[1:-1].numel() * (4 if is_lstm else 3) * H \
         <= batch_budget
+
+
+def _keep(vb, new, old):
+    """``where(vb, new, old)``, or ``new`` itself when ``vb`` is None:
+    every step is valid, and the mask would give the same tensor."""
+    return new if vb is None else torch.where(vb, new, old)
+
+
+def _scale(x, v):
+    """``x * v``, or ``x`` itself when ``v`` is None (every step valid)."""
+    return x if v is None else x * v
+
+
+def _step_masks(vmask, k):
+    """Step k's (mask, mask > 0), or (None, None) when every step is
+    valid (``vmask`` None)."""
+    if vmask is None:
+        return None, None
+    return vmask[k], vmask[k] > 0
 
 
 class _CoreRnnSum(torch.autograd.Function):
@@ -166,11 +188,11 @@ class _CoreRnnSum(torch.autograd.Function):
 
     @staticmethod
     def _forward(ctx, acc, valid, w_ih, w_hh, b_ih, b_hh, is_lstm,
-                 batch_budget):
+                 batch_budget, slots=None, all_valid=False):
         K = acc.shape[0]
         H = w_hh.shape[-1]
-        batched = _batched(is_lstm, acc, H, batch_budget)
-        vmask = step_mask(valid)
+        batched = _batched(is_lstm, acc, H, batch_budget, slots)
+        vmask = None if all_valid else step_mask(valid)
         h = acc.new_zeros(*acc.shape[1:-1], H, dtype=torch.float32)
         c = torch.zeros_like(h)
         s = torch.zeros_like(h)
@@ -178,26 +200,26 @@ class _CoreRnnSum(torch.autograd.Function):
         saved_c = acc.new_empty(*acc.shape[:-1], H) if is_lstm else None
         if batched:
             # one [K, N, d] GEMM hoisted out of the sequential loop
-            gi_all = _proj(F.relu(acc.float()) * vmask, w_ih, b_ih)
+            gi_all = _proj(_scale(F.relu(acc.float()), vmask), w_ih, b_ih)
         for k in range(K):
-            v = vmask[k]
-            vb = v > 0
+            v, vb = _step_masks(vmask, k)
             gi = (gi_all[k] if batched
-                  else _proj(F.relu(acc[k].float()) * v, w_ih, b_ih))
+                  else _proj(_scale(F.relu(acc[k].float()), v), w_ih, b_ih))
             saved_h[k] = h
             gh = _proj(h, w_hh, b_hh)
             if is_lstm:
                 saved_c[k] = c
                 h_new, c_new = _lstm_gates_step(gi + gh, c, H)
-                c = torch.where(vb, c_new, c)
+                c = _keep(vb, c_new, c)
             else:
                 h_new = _gru_step(gi, gh, h, H)
-            h = torch.where(vb, h_new, h)
-            s = s + torch.where(vb, h, 0.0)
+            h = _keep(vb, h_new, h)
+            s = s + _keep(vb, h, 0.0)
         ctx.save_for_backward(acc, valid, w_ih, w_hh, b_ih, b_hh, saved_h,
                               *(() if saved_c is None else (saved_c,)))
         ctx.is_lstm = is_lstm
         ctx.batched = batched
+        ctx.all_valid = all_valid
         return s
 
     @staticmethod
@@ -206,14 +228,12 @@ class _CoreRnnSum(torch.autograd.Function):
             ctx.saved_tensors
         p = (w_ih, w_hh, b_ih, b_hh)
         g_out = g_out.float()
-        if ctx.batched:
-            grads = _bwd_batched(p, acc, valid, saved_h,
-                                 rest[0] if ctx.is_lstm else None, g_out)
-        else:
-            grads = _bwd_lean(p, acc, valid, saved_h,
-                              rest[0] if ctx.is_lstm else None, g_out)
-        d_acc, gw_ih, gw_hh, gb_ih, gb_hh = grads
-        return d_acc, None, gw_ih, gw_hh, gb_ih, gb_hh, None, None
+        vmask = None if ctx.all_valid else step_mask(valid)
+        bwd = _bwd_batched if ctx.batched else _bwd_lean
+        d_acc, gw_ih, gw_hh, gb_ih, gb_hh = bwd(
+            p, acc, vmask, saved_h, rest[0] if ctx.is_lstm else None, g_out)
+        return (d_acc, None, gw_ih, gw_hh, gb_ih, gb_hh, None, None, None,
+                None)
 
 
 def _gru_step(gi, gh, h, H):
@@ -232,15 +252,16 @@ def _lstm_gates_step(gates, c, H):
     return o * torch.tanh(c_new), c_new
 
 
-def _bwd_batched(p, acc, valid, saved_h, saved_c, g_out):
+def _bwd_batched(p, acc, vmask, saved_h, saved_c, g_out):
     """K-batched backward: gates for all slots as batched GEMMs; the
-    reverse loop's sequential chain is one d_gates @ w_hh GEMM per step."""
+    reverse loop's sequential chain is one d_gates @ w_hh GEMM per step.
+    ``vmask``: the steps' masks (``step_mask``), None when every step is
+    valid."""
     w_ih, w_hh, b_ih, b_hh = p
     K = acc.shape[0]
     H = w_hh.shape[-1]
-    vmask = step_mask(valid)
     acc_f = acc.float()
-    hx_all = F.relu(acc_f) * vmask
+    hx_all = _scale(F.relu(acc_f), vmask)
     gi_all = _proj(hx_all, w_ih, b_ih)
     h_prevs = saved_h.float()
     dh = torch.zeros_like(g_out)
@@ -255,8 +276,8 @@ def _bwd_batched(p, acc, valid, saved_h, saved_c, g_out):
         dc = torch.zeros_like(dh)
         d_gates = g_out.new_empty(*acc.shape[:-1], 4 * H)
         for k in reversed(range(K)):
-            vb = vmask[k] > 0
-            dh_in = dh + torch.where(vb, g_out, 0.0)
+            _, vb = _step_masks(vmask, k)
+            dh_in = dh + _keep(vb, g_out, 0.0)
             do = dh_in * tc[k]
             dc_tot = dc + dh_in * o[k] * (1.0 - tc[k] * tc[k])
             dg_k = torch.cat([
@@ -264,9 +285,9 @@ def _bwd_batched(p, acc, valid, saved_h, saved_c, g_out):
                 dc_tot * c_prevs[k] * f[k] * (1.0 - f[k]),
                 dc_tot * i[k] * (1.0 - g[k] * g[k]),
                 do * o[k] * (1.0 - o[k])], dim=-1)
-            dg_k = torch.where(vb, dg_k, 0.0)
-            dh = torch.where(vb, dg_k @ w_hh, dh_in)
-            dc = torch.where(vb, dc_tot * f[k], dc)
+            dg_k = _keep(vb, dg_k, 0.0)
+            dh = _keep(vb, dg_k @ w_hh, dh_in)
+            dc = _keep(vb, dc_tot * f[k], dc)
             d_gates[k] = dg_k
         d_gi = d_gh = d_gates
     else:
@@ -278,44 +299,43 @@ def _bwd_batched(p, acc, valid, saved_h, saved_c, g_out):
         d_gi = g_out.new_empty(*acc.shape[:-1], 3 * H)
         d_gh = g_out.new_empty(*acc.shape[:-1], 3 * H)
         for k in reversed(range(K)):
-            vb = vmask[k] > 0
-            dh_in = dh + torch.where(vb, g_out, 0.0)
+            _, vb = _step_masks(vmask, k)
+            dh_in = dh + _keep(vb, g_out, 0.0)
             dn = dh_in * (1.0 - z[k])
             dz = dh_in * (h_prevs[k] - nn_[k])
             da_n = dn * (1.0 - nn_[k] * nn_[k])
             da_r = da_n * hn[k] * r[k] * (1.0 - r[k])
             da_z = dz * z[k] * (1.0 - z[k])
-            d_gi_k = torch.where(vb, torch.cat([da_r, da_z, da_n], -1), 0.0)
-            d_gh_k = torch.where(
-                vb, torch.cat([da_r, da_z, da_n * r[k]], -1), 0.0)
-            dh = torch.where(vb, dh_in * z[k] + d_gh_k @ w_hh, dh_in)
+            d_gi_k = _keep(vb, torch.cat([da_r, da_z, da_n], -1), 0.0)
+            d_gh_k = _keep(vb, torch.cat([da_r, da_z, da_n * r[k]], -1),
+                           0.0)
+            dh = _keep(vb, dh_in * z[k] + d_gh_k @ w_hh, dh_in)
             d_gi[k] = d_gi_k
             d_gh[k] = d_gh_k
-    d_acc = (((d_gi @ w_ih) * vmask) * (acc_f > 0)).to(acc.dtype)
+    d_acc = (_scale(d_gi @ w_ih, vmask) * (acc_f > 0)).to(acc.dtype)
     return (d_acc,
             torch.einsum("k...ng,k...nd->...gd", d_gi, hx_all),
             torch.einsum("k...ng,k...nh->...gh", d_gh, h_prevs),
             d_gi.sum(dim=(0, -2)), d_gh.sum(dim=(0, -2)))
 
 
-def _bwd_lean(p, acc, valid, saved_h, saved_c, g_out):
+def _bwd_lean(p, acc, vmask, saved_h, saved_c, g_out):
     """Lean backward: each reverse step recomputes its gates from the saved
-    pre-step carry; nothing of size [K, N, G*H] is materialized."""
+    pre-step carry; nothing of size [K, N, G*H] is materialized.
+    ``vmask`` as ``_bwd_batched``'s."""
     w_ih, w_hh, b_ih, b_hh = p
     K = acc.shape[0]
     H = w_hh.shape[-1]
-    vmask = step_mask(valid)
     dh = torch.zeros_like(g_out)
     dc = torch.zeros_like(dh)
     gw_ih, gw_hh = torch.zeros_like(w_ih), torch.zeros_like(w_hh)
     gb_ih, gb_hh = torch.zeros_like(b_ih), torch.zeros_like(b_hh)
     d_acc = torch.empty_like(acc)
     for k in reversed(range(K)):
-        v = vmask[k]
-        vb = v > 0
-        dh_in = dh + torch.where(vb, g_out, 0.0)
+        v, vb = _step_masks(vmask, k)
+        dh_in = dh + _keep(vb, g_out, 0.0)
         acc_f = acc[k].float()
-        hx = F.relu(acc_f) * v
+        hx = _scale(F.relu(acc_f), v)
         gi = _proj(hx, w_ih, b_ih)
         h_prev = saved_h[k].float()
         if saved_c is not None:
@@ -328,11 +348,11 @@ def _bwd_lean(p, acc, valid, saved_h, saved_c, g_out):
             tc = torch.tanh(f * c_prev + i * g)
             do = dh_in * tc
             dc_tot = dc + dh_in * o * (1.0 - tc * tc)
-            d_gates = torch.where(vb, torch.cat([
+            d_gates = _keep(vb, torch.cat([
                 dc_tot * g * i * (1.0 - i), dc_tot * c_prev * f * (1.0 - f),
                 dc_tot * i * (1.0 - g * g), do * o * (1.0 - o)], -1), 0.0)
-            dh = torch.where(vb, d_gates @ w_hh, dh_in)
-            dc = torch.where(vb, dc_tot * f, dc)
+            dh = _keep(vb, d_gates @ w_hh, dh_in)
+            dc = _keep(vb, dc_tot * f, dc)
             d_gi = d_gh = d_gates
         else:
             gh = _proj(h_prev, w_hh, b_hh)
@@ -345,11 +365,10 @@ def _bwd_lean(p, acc, valid, saved_h, saved_c, g_out):
             da_n = dn * (1.0 - nn_ * nn_)
             da_r = da_n * h_n * r * (1.0 - r)
             da_z = dz * z * (1.0 - z)
-            d_gi = torch.where(vb, torch.cat([da_r, da_z, da_n], -1), 0.0)
-            d_gh = torch.where(vb, torch.cat([da_r, da_z, da_n * r], -1),
-                               0.0)
-            dh = torch.where(vb, dh_in * z + d_gh @ w_hh, dh_in)
-        d_acc[k] = ((d_gi @ w_ih) * v) * (acc_f > 0)
+            d_gi = _keep(vb, torch.cat([da_r, da_z, da_n], -1), 0.0)
+            d_gh = _keep(vb, torch.cat([da_r, da_z, da_n * r], -1), 0.0)
+            dh = _keep(vb, dh_in * z + d_gh @ w_hh, dh_in)
+        d_acc[k] = _scale(d_gi @ w_ih, v) * (acc_f > 0)
         gw_ih += d_gi.mT @ hx
         gw_hh += d_gh.mT @ h_prev
         gb_ih += d_gi.sum(dim=-2)
@@ -358,7 +377,7 @@ def _bwd_lean(p, acc, valid, saved_h, saved_c, g_out):
 
 
 def core_rnn_sum(cell, acc, valid, batch_budget=CVJP_BATCH_BUDGET,
-                 kept=None):
+                 kept=None, slots=None):
     """Masked core-axis RNN returning the SUM of the per-step hidden states:
     ``rnn_scan(cell, relu(acc) * valid, mask=valid)[0].sum(0)`` as one op
     whose backward saves only ``acc`` and the [K, N, H] pre-step carries
@@ -375,10 +394,15 @@ def core_rnn_sum(cell, acc, valid, batch_budget=CVJP_BATCH_BUDGET,
         the lean mode.
       kept: the valid slots' count as the host built them (summed over
         T), counted into ``core_rnn.valid_slot_steps`` beside the K (times
-        T) slots of ``core_rnn.slot_steps``; None counts the latter alone.
+        T) steps run of ``core_rnn.slot_steps``.  When it equals the steps
+        run, every step is valid and the loops run without masks; None
+        (no host count) keeps them.
+      slots: the slot bank's K when ``acc`` holds only its leading slots
+        (the caller trimmed the empty suffix); the K-batched gate reads it.
     Returns float32 [N, H] ([T, N, H]).
     """
-    profiling.count("core_rnn.slot_steps", acc.shape[:-2].numel())
+    steps = acc.shape[:-2].numel()
+    profiling.count("core_rnn.slot_steps", steps)
     if kept is not None:
         profiling.count("core_rnn.valid_slot_steps", kept)
     p = (cell.w_ih, cell.w_hh, cell.b_ih, cell.b_hh)
@@ -387,4 +411,4 @@ def core_rnn_sum(cell, acc, valid, batch_budget=CVJP_BATCH_BUDGET,
         # theirs
         p = tuple(w.expand(acc.shape[1], *w.shape) for w in p)
     return _CoreRnnSum.apply(acc, valid.float(), *p, cell.is_lstm,
-                             int(batch_budget))
+                             int(batch_budget), slots, kept == steps)

@@ -169,18 +169,23 @@ def partitioned_core_diffusion(layer, x_shard, part: HaloPart, parts: Parts):
     over the flattened [K·rpp] rows), masked by ``valid``; the prefix
     A_k x = Σ_{i<=k} Δ_i x as the exact (L·L) product over the slots (L the
     lower-triangular ones) and "+x" for slot 0's +I; then ReLU·valid, the
-    masked core-axis RNN summed (``core_rnn_sum``, as the single-device
-    layer runs it) and LayerNorm."""
+    core-axis RNN summed (``core_rnn_sum``, as the single-device layer runs
+    it) and LayerNorm.  As there, everything after the products runs over
+    the ``part.kept`` leading slots alone (the empty slots are a suffix)."""
     K, rpp = part.num_slots, part.rows_per_part
     x = x_shard.float()
     valid = part.valid.float()
     contribs = sharded_spmm_halo(part, x, parts).reshape(K, rpp, -1) \
         * valid[:, None, None]
-    lower = torch.tril(torch.ones(K, K, device=x.device))
-    acc = ((lower @ lower) @ contribs.reshape(K, -1)).reshape(contribs.shape)
+    steps = max(part.kept, 1)
+    contribs, valid = contribs[:steps], valid[:steps]
+    lower = torch.tril(torch.ones(steps, steps, device=x.device))
+    acc = ((lower @ lower) @ contribs.reshape(steps, -1)).reshape(
+        contribs.shape)
     acc = acc + x[None]
     return layer.norm(core_rnn_sum(layer.rnn, acc, valid,
-                                   layer.cvjp_batch_budget, kept=part.kept))
+                                   layer.cvjp_batch_budget, kept=part.kept,
+                                   slots=K))
 
 
 def halo_core_forward(model, xs, hparts, n_nodes, parts: Parts):

@@ -10,7 +10,16 @@ Tolerances: slot products rtol 1e-5 + 1e-5 * max|ref| (f32 sums in another
 order); the CTGCN-C forward 2e-5; gradients 5e-4, and 1e-3 / 1e-4
 (rtol / atol) for delta-encoded slots, whose prefixes are summed in
 another order than the full slots' products.
+
+On every backend, the port's CTGCN-C stepping only each snapshot's kept
+slots (the pyramid's ``kept``) against the masked run over all K
+(``kept=None``): the forward bit-equal; the gradients bit-equal in the
+lean mode of ``core_rnn_sum`` on full slots, else within rtol 1e-6 (sums
+over the slot axis in another order: the K-batched mode's, the delta
+prefix's "+ x").
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -174,3 +183,37 @@ def test_ctgcn_forward_and_grads_equal_jax(window, jax_ref, backend, remat):
     for name, p in tmodel.named_parameters():
         np.testing.assert_allclose(p.grad.numpy(), ref_grads[name].numpy(),
                                    rtol=g_rtol, atol=g_atol, err_msg=name)
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
+@pytest.mark.parametrize("cvjp", ["lean", "K-batched"])
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_ctgcn_trimmed_equals_masked(window, backend, cvjp, remat):
+    """CTGCN-C over the kept slots (3 of K = 4 in each snapshot) against
+    the same model over all K slots masked, forward and every parameter's
+    gradient; ``remat`` recomputes each timestep in the backward."""
+    tpyr = window[backend][0]
+    assert tpyr.kept == (3,) * T
+    model = TM.CTGCN(N, HID, EMB, trans_num=1, diffusion_num=2, duration=T,
+                     generator=torch.Generator().manual_seed(3),
+                     act_budget=0 if remat else TM.ACT_BUDGET,
+                     cvjp_batch_budget=0 if cvjp == "lean"
+                     else TM.CVJP_BATCH_BUDGET)
+
+    def run(pyramids):
+        model.zero_grad(set_to_none=True)
+        out = model(None, pyramids)
+        (torch.tanh(out) * torch.from_numpy(WEIGHT)).sum().backward()
+        return out.detach(), {k: p.grad for k, p in model.named_parameters()}
+
+    out0, g0 = run(dataclasses.replace(tpyr, kept=None))
+    out1, g1 = run(tpyr)
+    assert torch.equal(out1, out0)
+    exact = cvjp == "lean" and backend != "ell_delta"
+    for name, g in g0.items():
+        if exact:
+            assert torch.equal(g1[name], g), name
+        else:
+            torch.testing.assert_close(g1[name], g, rtol=1e-6,
+                                       atol=1e-6 * float(g.abs().max()),
+                                       msg=name)

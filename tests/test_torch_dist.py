@@ -21,7 +21,11 @@ rank), inputs made here from numpy seeds:
     (each part's slice, once); and the CLI, CTGCN-C U-neg with ``n_devices:
     2`` and with ``graph_partition: true``, against the port's
     single-device run: CSVs within 1e-5, the model file's keys in order and
-    its values within 1e-5.
+    its values within 1e-5;
+  * one process, one part: ``partitioned_core_diffusion`` over the part's
+    kept slots (3 of K = 5) against the same layer over all K slots
+    masked, forward and gradients within rtol 1e-6 (the (L·L) prefix
+    GEMM sums over fewer slots).
 """
 import json
 import pickle
@@ -272,6 +276,53 @@ def test_halo_core_forward_equals_jax(halo, name):
     assert set(got[name + "_grads"]) == set(ref[name + "_grads"])
     for k, v in ref[name + "_grads"].items():
         _close(got[name + "_grads"][k], v, name=f"{name} {k}")
+
+
+def _masked_core_diffusion(layer, x_shard, part, parts):
+    """``partitioned_core_diffusion`` over all K slots, the empty ones
+    masked (the run without the part's kept count)."""
+    from ctgcn_torch.ops.rnn import core_rnn_sum
+    from ctgcn_torch.parallel.graph_partition import sharded_spmm_halo
+    K, rpp = part.num_slots, part.rows_per_part
+    valid = part.valid.float()
+    contribs = sharded_spmm_halo(part, x_shard, parts).reshape(K, rpp, -1) \
+        * valid[:, None, None]
+    lower = torch.tril(torch.ones(K, K))
+    acc = ((lower @ lower) @ contribs.reshape(K, -1)).reshape(
+        contribs.shape) + x_shard[None]
+    return layer.norm(core_rnn_sum(layer.rnn, acc, valid,
+                                   layer.cvjp_batch_budget))
+
+
+@pytest.mark.parametrize("cvjp", ["lean", "K-batched"])
+@pytest.mark.parametrize("rnn_type", ["GRU", "LSTM"])
+def test_partitioned_core_diffusion_trimmed_equals_masked(rnn_type, cvjp):
+    from ctgcn_torch.nn.core_models import CoreDiffusion
+    from ctgcn_torch.ops.rnn import CVJP_BATCH_BUDGET
+    from ctgcn_torch.parallel.core_partition import (
+        partition_pyramid_halo, partitioned_core_diffusion)
+    from ctgcn_torch.parallel.dist import Parts
+    rng = np.random.default_rng(6)
+    mats = _core_mats(_graph(rng, HALO_N, density=0.2),
+                      levels=(13, 10, 10, 1))
+    part = partition_pyramid_halo(mats, HALO_N, 1, num_slots=5).part(0)
+    assert part.kept == 3 and part.num_slots == 5
+    layer = CoreDiffusion(8, 12, rnn_type=rnn_type,
+                          generator=torch.Generator().manual_seed(6),
+                          cvjp_batch_budget=0 if cvjp == "lean"
+                          else CVJP_BATCH_BUDGET)
+    x0 = torch.from_numpy(rng.standard_normal(
+        (part.rows_per_part, 8)).astype(np.float32))
+    got = []
+    for fn in (_masked_core_diffusion, partitioned_core_diffusion):
+        layer.zero_grad(set_to_none=True)
+        x = x0.clone().requires_grad_()
+        out = fn(layer, x, part, Parts(1, 0))
+        torch.tanh(out).sum().backward()
+        got.append([out.detach(), x.grad] + [p.grad
+                                             for p in layer.parameters()])
+    for mine, want in zip(got[1], got[0], strict=True):
+        _close(mine.numpy(), want.numpy(), rtol=1e-6)
 
 
 # ---------------------------------------------------------------------------

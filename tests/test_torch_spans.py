@@ -219,11 +219,35 @@ def test_traced_window(dataset, tmp_path):
     assert sum(s.name == "epoch" for s in spans) == EPOCHS
     assert counters["engine.epochs"] == EPOCHS
     assert trace.spmm == []                 # the CPU launches no kernel
-    assert counters["core_rnn.slot_steps"] == forwards * layers * valid.size
+    # the core RNN steps only the kept slots of each snapshot: every step
+    # it runs is valid
+    assert counters["core_rnn.slot_steps"] == (
+        forwards * layers * int(valid.sum()))
     assert counters["core_rnn.valid_slot_steps"] == (
         forwards * layers * int(valid.sum()))
     assert 0 < valid.sum() < valid.size
     assert profiling.last_trace() is trace and profiling.active() is None
+
+
+def test_traced_window_tail_counts_its_steps(dataset, tmp_path,
+                                             monkeypatch):
+    """The T-batched window tail runs the slots the fullest snapshot
+    keeps, for every snapshot: max(kept)·T steps a layer, of which the
+    kept ones are valid; the core RNN's spans still wrap its forwards and
+    backwards."""
+    monkeypatch.setenv("CTGCN_TPU_BATCH_WINDOW_TAIL", "1")
+    with profiling.tracing("cpu") as trace:
+        on = _train(dataset, tmp_path)
+    trainer = on["trainer"]
+    assert trainer.model.batch_window_tail
+    assert trainer.data["adjs"].backend == "blocks"
+    kept = trainer.data["adjs"].valid.cpu().numpy().sum(1)     # [T]
+    assert len(set(kept)) > 1
+    runs = EPOCHS * -(-N // 30) * len(trainer.model.cdns[0].layers)
+    counters = trace.counters
+    assert counters["core_rnn.slot_steps"] == runs * int(kept.max()) * SNAPS
+    assert counters["core_rnn.valid_slot_steps"] == runs * int(kept.sum())
+    assert sum(s.name == "core_rnn" for s in trace.spans) == 2 * runs
 
 
 def test_a_loop_profiled_from_outside_keeps_its_spans(dataset, tmp_path):

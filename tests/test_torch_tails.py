@@ -42,8 +42,10 @@ def test_batch_window_tail_equals_jax(windows, monkeypatch, kind, rnn_type,
                         lambda acc, *a: calls.append(acc.shape)
                         or real(acc, *a))
     assert_matches(model, tpyr, ref)
-    # one T-batched core_rnn_sum a layer: [K, T, N, d]
-    assert [s[:2] for s in calls] == [(4, 2)] * 2
+    # one T-batched core_rnn_sum a layer over the slots the fullest
+    # snapshot keeps (of K = 4): [max kept, T, N, d]
+    assert max(tpyr.kept) < 4
+    assert [s[:2] for s in calls] == [(max(tpyr.kept), 2)] * 2
 
 
 def test_k_batched_gate_counts_the_snapshots():
