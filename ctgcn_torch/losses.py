@@ -178,23 +178,39 @@ def _row_chunks(n):
 class _SoftplusGramSum(torch.autograd.Function):
     """sum_ij softplus((z z^T)_ij) for z [N, d], formed by row chunks and
     saving only z: the backward forms the chunks again, and since z z^T is
-    symmetric, d/dz = (G + G^T) z = 2 G z with G = sigmoid(z z^T)."""
+    symmetric, d/dz = (G + G^T) z = 2 G z with G = sigmoid(z z^T).  Its
+    forward and its backward are each a ``gram`` span while tracing is
+    on; each counts the pairs it formed (``vae.gram_pairs_fwd``,
+    ``vae.gram_pairs_bwd``) and its chunks (``vae.gram_chunks``)."""
 
     @staticmethod
     def forward(ctx, z):
         ctx.save_for_backward(z)
         total = z.new_zeros(())
-        for rows in _row_chunks(z.shape[0]):
-            total += F.softplus(z[rows] @ z.T).sum()
+        chunks = _row_chunks(z.shape[0])
+        with profiling.span("gram"):
+            for rows in chunks:
+                total += F.softplus(z[rows] @ z.T).sum()
+        _count_gram(z, len(chunks), "fwd")
         return total
 
     @staticmethod
     def backward(ctx, g):
         (z,) = ctx.saved_tensors
         dz = torch.empty_like(z)
-        for rows in _row_chunks(z.shape[0]):
-            dz[rows] = torch.sigmoid_(z[rows] @ z.T) @ z
-        return dz.mul_(2 * g)
+        chunks = _row_chunks(z.shape[0])
+        with profiling.span("gram"):
+            for rows in chunks:
+                dz[rows] = torch.sigmoid_(z[rows] @ z.T) @ z
+            dz.mul_(2 * g)
+        _count_gram(z, len(chunks), "bwd")
+        return dz
+
+
+def _count_gram(z, chunks, way):
+    n = z.shape[0]
+    profiling.count("vae.gram_pairs_" + way, n * n)
+    profiling.count("vae.gram_chunks", chunks)
 
 
 def softplus_gram_sum(z):
@@ -220,22 +236,30 @@ def vae_loss(enc_mean, enc_std, prior_mean, prior_std, z, targets,
     (the SDDMM of z with itself).
 
     Args: enc_mean, enc_std, prior_mean, prior_std, z: [T, N, d];
-    targets: T ``SparseGraph``s, the raw weighted adjacency."""
+    targets: T ``SparseGraph``s, the raw weighted adjacency.  While tracing
+    is on, its forward and its backward are each a ``loss`` span; it
+    counts the target nonzeros it scores (``vae.sddmm_nnz``)."""
     n = z.shape[1]
     tot = float(n) * n
-    loss = z.new_zeros(())
-    for t, target in enumerate(targets):
-        em, es, pm, ps = enc_mean[t], enc_std[t], prior_mean[t], prior_std[t]
-        kld_el = (2 * torch.log(ps + eps) - 2 * torch.log(es + eps)
-                  + ((es + eps).square() + (em - pm).square())
-                  / (ps + eps).square() - 1)
-        kld = (0.5 / n) * kld_el.sum(dim=1).mean()
-        y = target.vals.to(z.dtype)
-        s = y.sum()
-        posw = (tot - s) / s
-        norm = tot / ((tot - s) * 2.0)
-        x_e = sddmm(target, z[t], z[t])
-        bce_sum = softplus_gram_sum(z[t]) + (
-            y * ((posw - 1) * F.softplus(x_e) - posw * x_e)).sum()
-        loss = loss + kld + norm * bce_sum / tot
-    return loss
+    backward = profiling.backward_span("loss")
+    with profiling.span("loss"):
+        enc_mean, enc_std, prior_mean, prior_std, z = backward.enter(
+            enc_mean, enc_std, prior_mean, prior_std, z)
+        loss = z.new_zeros(())
+        for t, target in enumerate(targets):
+            em, es, pm, ps = (enc_mean[t], enc_std[t], prior_mean[t],
+                              prior_std[t])
+            kld_el = (2 * torch.log(ps + eps) - 2 * torch.log(es + eps)
+                      + ((es + eps).square() + (em - pm).square())
+                      / (ps + eps).square() - 1)
+            kld = (0.5 / n) * kld_el.sum(dim=1).mean()
+            y = target.vals.to(z.dtype)
+            s = y.sum()
+            posw = (tot - s) / s
+            norm = tot / ((tot - s) * 2.0)
+            x_e = sddmm(target, z[t], z[t])
+            profiling.count("vae.sddmm_nnz", y.numel())
+            bce_sum = softplus_gram_sum(z[t]) + (
+                y * ((posw - 1) * F.softplus(x_e) - posw * x_e)).sum()
+            loss = loss + kld + norm * bce_sum / tot
+        return backward.exit(loss)

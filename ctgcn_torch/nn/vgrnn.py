@@ -14,10 +14,11 @@ their plans that is the CUDA kernels, the backward on the transpose plan.
 The inner-product decoder ``z_t z_t^T`` is not formed here: the VAE loss
 (``losses.vae_loss``) takes z and never holds an [N, N] past its step.
 
-Noise: ``eps`` is drawn from the ``generator`` passed in (the engine's), or
-given as ``noise`` (T tensors [N, out]); without either, from a generator
-seeded 0 made for the call, so every call draws the same noise, as every
-call of the JAX model without a key draws from ``jax.random.key(0)``.
+Noise: ``eps`` is drawn from the ``generator`` passed in (the engine's), one
+``_noise`` call a snapshot, or given as ``noise`` (T tensors [N, out]);
+without either, from a generator seeded 0 made for the call, so every call
+draws the same noise, as every call of the JAX model without a key draws
+from ``jax.random.key(0)``.
 Init: a GCN convolution's weight is glorot, U(+-sqrt(6 / (in + out))), its
 bias zero; a SAGE or GIN convolution's weight and bias U(+-1/sqrt(in));
 ``Linear`` as in ``nn/layers.py``.
@@ -39,6 +40,13 @@ CONV_TYPES = ("GCN", "SAGE", "GIN")
 def _uniform(shape, bound, generator):
     return nn.Parameter((torch.rand(*shape, generator=generator) * 2 - 1)
                         * bound)
+
+
+def _noise(n, d, generator, like):
+    """The posterior's noise of one snapshot: a standard normal [n, d]
+    drawn from ``generator``, in ``like``'s dtype and on its device."""
+    return torch.randn(n, d, generator=generator, device=like.device,
+                       dtype=like.dtype)
 
 
 class GraphConv(nn.Module):
@@ -167,9 +175,8 @@ class VGRNN(nn.Module):
             generator = torch.Generator(device=w.device).manual_seed(0)
         h, outs = hx, []
         for t, adj in enumerate(adjs):
-            eps = (noise[t] if noise is not None else torch.randn(
-                n, self.enc_mean.weight.shape[1], generator=generator,
-                device=w.device, dtype=w.dtype))
+            eps = (noise[t] if noise is not None else _noise(
+                n, self.enc_mean.weight.shape[1], generator, w))
             h, out_t = self.step(None if xs is None else xs[t], adj, h, eps)
             outs.append(out_t)
         stacked = tuple(torch.stack(o) for o in zip(*outs))

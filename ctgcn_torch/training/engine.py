@@ -44,6 +44,7 @@ says so: every part makes that choice together.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import os
 import time
@@ -60,6 +61,8 @@ from ctgcn_torch.training.model_file import (flax_msgpack_parts,
 from ctgcn_torch.training.profiling import (EpochTracer, PhaseClock, count,
                                             span, traced_if_profiled)
 from ctgcn_torch.utils import check_and_make_path
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 def batch_matrix(node_num, batch_size, rng=None, shuffle=True):
@@ -372,7 +375,8 @@ class SupervisedEmbedding(BaseEmbedding):
 
     def _run(self, split, generator=None, state=None):
         """(loss, accuracy, logits) of one split's forward; with
-        ``state_init`` also (new state, embeddings)."""
+        ``state_init`` also (new state, embeddings).  The train split's
+        loss is a ``loss`` span."""
         items, labels, mask = self.splits[split]
         args = (self.model, self.classifier, self.data, items, generator)
         if self.state_init is None:
@@ -381,7 +385,8 @@ class SupervisedEmbedding(BaseEmbedding):
         else:
             preds, aux, state, embs = self.forward_fn(*args, state)
             extra = (state, embs)
-        loss, acc = self.loss_fn(preds, labels, mask, aux)
+        with span("loss") if split == "train" else _NO_SPAN:
+            loss, acc = self.loss_fn(preds, labels, mask, aux)
         return (loss, acc, preds) + extra
 
     def learn_embedding(self, epoch=50, lr=1e-3, start_idx=0,
@@ -425,15 +430,25 @@ class SupervisedEmbedding(BaseEmbedding):
                 t_e = time.time()
                 tracer.before_epoch(e)
                 with span("epoch"):
-                    optimizer.zero_grad(set_to_none=False)
+                    with span("optimizer"):
+                        optimizer.zero_grad(set_to_none=False)
                     state = (self.state_init(model, self.data) if stateful
                              else None)
                     loss, acc, _, *rest = self._run("train", gen, state)
                     loss.backward()
                     if sharding is not None:
                         sharding.reduce_grads(model, *self._modules()[1:])
-                    optimizer.step()
-                    losses.append(float(loss.detach()))
+                    with span("optimizer"):
+                        optimizer.step()
+                    with span("readback"):
+                        losses.append(float(loss.detach()))
+                    if e > 0:
+                        with span("validate"), torch.no_grad():
+                            state = rest[0].detach() if stateful else None
+                            loss_v, acc_v, preds_v, *rest_v = self._run(
+                                "val", None, state)
+                        with span("readback"):
+                            acc_vals.append(float(acc_v))
                 count("engine.epochs")
                 tracer.after_epoch(e)
                 if e == 0:
@@ -443,11 +458,6 @@ class SupervisedEmbedding(BaseEmbedding):
                         print(f"Epoch: 1 loss_train: {losses[-1]:.4f}",
                               flush=True)
                     continue
-                with torch.no_grad():
-                    state = rest[0].detach() if stateful else None
-                    loss_v, acc_v, preds_v, *rest_v = self._run("val", None,
-                                                                state)
-                acc_vals.append(float(acc_v))
                 better = acc_vals[-1] > best_acc
                 if sharding is not None:
                     better = part0_flag(better, sharding.parts, self.device)
@@ -465,21 +475,23 @@ class SupervisedEmbedding(BaseEmbedding):
                 self._sync()
                 epoch_seconds.append(time.time() - t_e)
             tracer.close()
-        for m, params in zip(self._modules(), best):
-            m.load_state_dict(params)
-        clock = PhaseClock(phase_times, self.device)
-        if model_file:
-            save_model_file(model, model_path, sharding)
-        if classifier_file and cls is not None:
-            save_model_file(cls, cls_path)
-        clock.lap("save_params")
-        with torch.no_grad():
-            if stateful and best_state is None:
-                best_state = self.state_init(model, self.data)
-            loss_te, acc_te, preds_te, *rest_te = self._run("test", None,
-                                                            best_state)
-        _, labels_te, mask_te = self.splits["test"]
-        auc_te = self.auc_fn(preds_te, labels_te, mask_te)
+            # the test forward's SpMM launches are spans too, so that a
+            # trace of the whole call names every launch it holds
+            for m, params in zip(self._modules(), best):
+                m.load_state_dict(params)
+            clock = PhaseClock(phase_times, self.device)
+            if model_file:
+                save_model_file(model, model_path, sharding)
+            if classifier_file and cls is not None:
+                save_model_file(cls, cls_path)
+            clock.lap("save_params")
+            with torch.no_grad():
+                if stateful and best_state is None:
+                    best_state = self.state_init(model, self.data)
+                loss_te, acc_te, preds_te, *rest_te = self._run(
+                    "test", None, best_state)
+            _, labels_te, mask_te = self.splits["test"]
+            auc_te = self.auc_fn(preds_te, labels_te, mask_te)
         if is_primary():
             print(f"Test set results: loss= {float(loss_te):.4f} "
                   f"accuracy= {float(acc_te):.4f} auc= {auc_te:.4f}",

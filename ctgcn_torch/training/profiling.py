@@ -37,14 +37,22 @@ Spans and counters, the program's own measure of its layers:
 The spans: ``epoch``, and inside it ``batch_plan`` (the batch matrix),
 ``batch_inputs`` (its host-to-device copies), ``optimizer`` (``zero_grad``
 and ``step``) and ``readback`` (the epoch's loss read back and the wait),
-from ``engine.UnsupervisedEmbedding.learn_embedding`` (the supervised
-loop: ``epoch`` alone); ``loss``, the negative-sampling loss's forward
-and its backward (``losses``); ``core_rnn``, the core-axis RNN's forward
-and backward (``ops.rnn``); ``spmm``, every launch of the CSR kernels
-(``ops.bsr_spmm._launch``).  The counters: ``engine.epochs``;
-``core_rnn.slot_steps`` and ``core_rnn.valid_slot_steps`` (core slots
-stepped, and those of them valid, counted from the pyramid's host
-build); ``spmm.launches.<kernel>``.
+from ``engine.UnsupervisedEmbedding.learn_embedding``; in the supervised
+loop (``engine.SupervisedEmbedding.learn_embedding``) ``epoch`` and in it
+``optimizer``, ``loss`` (the train step's loss forward), ``readback``
+(each read of a loss or an accuracy) and ``validate`` (the validation
+forward); ``loss``, the negative-sampling loss's and VGRNN's VAE loss's
+forward and their backward (``losses``), and in the VAE loss ``gram``,
+the dense softplus sum's forward and its backward; ``core_rnn``, the
+core-axis RNN's forward and backward (``ops.rnn``); ``spmm``, every launch
+of the CSR kernels (``ops.bsr_spmm._launch``).  The counters:
+``engine.epochs``; ``core_rnn.slot_steps`` and
+``core_rnn.valid_slot_steps`` (core slots stepped, and those of them
+valid, counted from the pyramid's host build); ``spmm.launches.<kernel>``;
+``vae.gram_pairs_fwd`` and ``vae.gram_pairs_bwd`` (the pairs of z z^T
+the dense sum formed, forward and backward), ``vae.gram_chunks`` (its row
+chunks, both ways) and ``vae.sddmm_nnz`` (the target nonzeros the VAE
+loss scored).
 """
 from __future__ import annotations
 
@@ -179,10 +187,14 @@ class _SpanBlock:
 
 def span(name):
     """A context that marks its block as the span ``name`` while tracing
-    is on; a shared no-op context while it is off."""
-    if _active is None:
+    is on; a shared no-op context while it is off, and inside a span of
+    the same name (the outer one holds the block: the supervised loop's
+    ``loss`` around VGRNN's)."""
+    trace = _active
+    if trace is None or (trace._stack and trace._records[
+            trace._stack[-1]][0] == name):
         return _NULL
-    return _SpanBlock(_active, name)
+    return _SpanBlock(trace, name)
 
 
 def active():
@@ -231,8 +243,9 @@ class _BackwardSpan:
         self.name = name
         self.idx = None
 
-    def enter(self, x):
-        return _BackwardClose.apply(x, self)
+    def enter(self, *xs):
+        out = _BackwardClose.apply(self, *xs)
+        return out[0] if len(xs) == 1 else out
 
     def exit(self, y):
         return _BackwardOpen.apply(y, self)
@@ -240,8 +253,8 @@ class _BackwardSpan:
 
 class _NoBackwardSpan:
     @staticmethod
-    def enter(x):
-        return x
+    def enter(*xs):
+        return xs[0] if len(xs) == 1 else xs
 
     @staticmethod
     def exit(y):
@@ -253,10 +266,11 @@ _NO_BACKWARD = _NoBackwardSpan()
 
 def backward_span(name):
     """The span ``name`` over the backward of a region: ``exit(y)`` on the
-    region's output (its backward node runs first) opens it, ``enter(x)``
-    on the region's input (its node runs last) closes it.  While tracing
-    is on both are identity autograd functions; while it is off a shared
-    object whose two methods return the tensor itself, adding no node."""
+    region's output (its backward node runs first) opens it, ``enter(*xs)``
+    on the region's inputs (one node, which runs once the gradients of all
+    of them are in: last) closes it.  While tracing is on both are
+    identity autograd functions; while it is off a shared object whose two
+    methods return the tensors themselves, adding no node."""
     return _NO_BACKWARD if _active is None else _BackwardSpan(name)
 
 
@@ -275,17 +289,17 @@ class _BackwardOpen(torch.autograd.Function):
 
 class _BackwardClose(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, bspan):
+    def forward(ctx, bspan, *xs):
         ctx.bspan = bspan
-        return x.view_as(x)
+        return tuple(x.view_as(x) for x in xs)
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, *gs):
         bspan = ctx.bspan
         if _active is not None and bspan.idx is not None:
             _active.close(bspan.idx)
             bspan.idx = None
-        return g, None
+        return (None,) + gs
 
 
 class EpochTracer:

@@ -13,7 +13,9 @@ on the CPU:
     bit-equal to the run with tracing off;
   * a training loop profiled from outside, U-neg or supervised, keeps
     its spans (``last_trace``), and ``EpochTracer`` still writes one
-    trace, in which the spans are named ranges;
+    trace, in which the spans are named ranges; the supervised loop's
+    engine spans nest under ``epoch``, and its trace holds the test
+    forward; a span inside one of its own name is the outer one;
   * a plan's ``cols_read``, which the SpMM spans' records carry.
 """
 import contextlib
@@ -274,8 +276,12 @@ def test_epoch_tracer_names_the_spans(dataset, tmp_path):
 
 
 def test_a_supervised_loop_profiled_from_outside_keeps_its_epochs(tmp_path):
-    """The supervised trainer's loop: one ``epoch`` span an epoch and
-    ``engine.epochs``, under a profiler opened by its caller."""
+    """The supervised trainer's loop, under a profiler opened by its
+    caller: one ``epoch`` span an epoch and ``engine.epochs``; inside each
+    epoch the engine's ``optimizer`` (``zero_grad``, ``step``), the train
+    step's ``loss``, a ``readback`` of the loss and, from the second epoch,
+    the ``validate`` forward and a ``readback`` of its accuracy, each
+    nested under its epoch, in that order."""
     from torch.profiler import ProfilerActivity, profile
     (tmp_path / "origin").mkdir()
     (tmp_path / "origin" / "2001.csv").write_text("")
@@ -302,7 +308,59 @@ def test_a_supervised_loop_profiled_from_outside_keeps_its_epochs(tmp_path):
                                 verbose=False)
     trace = profiling.last_trace()
     assert trace.counters["engine.epochs"] == 3
-    assert [s.name for s in trace.spans] == ["epoch"] * 3
+    spans = trace.spans
+    step = ["optimizer", "loss", "optimizer", "readback"]
+    assert [s.name for s in spans] == (
+        ["epoch"] + step + (["epoch"] + step + ["validate", "readback"]) * 2)
+    for s in spans:
+        assert (s.parent == -1) == (s.name == "epoch")
+        assert s.parent == -1 or spans[s.parent].name == "epoch"
+
+
+def test_a_supervised_trace_holds_the_test_forward(tmp_path):
+    """The supervised call's trace runs on through its test forward, so
+    that a span the model opens there (an SpMM launch's on the card) is in
+    it: one a train step, one a validation and the test's, at the top."""
+    (tmp_path / "origin").mkdir()
+    (tmp_path / "origin" / "2001.csv").write_text("")
+    model = torch.nn.Linear(4, 3)
+    split = (torch.tensor([[0, 1, 2]]), torch.tensor([[0, 1, 2]]),
+             torch.ones(1, 3, dtype=torch.bool))
+
+    def forward_fn(m, c, d, items, generator=None):
+        with profiling.span("fwd"):
+            return m(d["x"])[items[0]], None
+
+    trainer = SupervisedEmbedding(
+        base_path=str(tmp_path), origin_folder="origin",
+        embedding_folder="emb", node_list=list(range(5)), model=model,
+        classifier=None, forward_fn=forward_fn,
+        loss_fn=lambda preds, labels, mask, aux: (
+            torch.nn.functional.cross_entropy(preds, labels[0]),
+            torch.tensor(0.5)),
+        embed_fn=lambda m, d: m(d["x"]), auc_fn=lambda p, y, m: 0.5,
+        data={"x": torch.randn(5, 4)},
+        splits=dict.fromkeys(("train", "val", "test"), split), device="cpu")
+    with profiling.tracing("cpu") as trace:
+        trainer.learn_embedding(epoch=3, model_file=None,
+                                classifier_file=None, export=False,
+                                verbose=False)
+    fwd = [s for s in trace.spans if s.name == "fwd"]
+    assert len(fwd) == 3 + 2 + 1
+    assert fwd[-1].parent == -1
+    assert all(trace.spans[s.parent].name in ("epoch", "validate")
+               for s in fwd[:-1])
+
+
+def test_a_span_inside_one_of_its_name_is_the_outer_one():
+    """The supervised loop's ``loss`` around VGRNN's own: one span."""
+    with profiling.tracing("cpu") as trace:
+        with profiling.span("loss"):
+            with profiling.span("loss"):
+                with profiling.span("gram"):
+                    pass
+    assert [(s.name, s.parent) for s in trace.spans] == [("loss", -1),
+                                                          ("gram", 0)]
 
 
 @pytest.mark.parametrize("density", [0.0, 0.05, 0.5])

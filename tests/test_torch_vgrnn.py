@@ -29,6 +29,14 @@ numpy seeds, the JAX parameters carried over by ``params_from_numpy``.
     driver's, the traps (the factory's dropped ``rnn_layer_num``, the
     same noise at every export call), the U-own and U-neg losses against
     the JAX driver's, and the CLI under both.
+  * Against the benchmark's plain reference (``gpubench/reference/
+    vgrnn.py``, loaded by path), N = 200, T 3, hid 16, embed 8, 5 Gram
+    chunks a side, seeded weights and noise: enc_mean and z at each
+    snapshot, the loss of two batches that carry h, every leaf's gradient
+    over both and an Adam step, each within a tolerance whose reason is
+    given beside it; z rounded to bf16 before the Gram fails the loss and
+    the gradients.  ``_noise`` bit-equal to the inline draw it replaced;
+    the VAE loss's ``loss`` and ``gram`` spans and its ``vae.*`` counters.
 """
 import functools
 
@@ -566,3 +574,211 @@ def test_cli_runs_vgrnn(dataset, tmp_path, learning_type):
     export's replay run), one epoch on the CPU: finite losses, one CSV per
     snapshot, the model file."""
     _cli_run(dataset, tmp_path, "VGRNN", learning_type=learning_type, Q=Q)
+
+
+# ---- the benchmark's plain reference (``gpubench/reference/vgrnn.py``) ----
+
+REF_N, REF_T, REF_HID, REF_EMB = 200, 3, 16, 8
+#: rows of z z^T a chunk, on both sides: 5 chunks of N = 200 (the last 8)
+REF_ROWS = 48
+REF_LR, REF_WD = 1e-3, 5e-4
+#: forward (enc_mean, z) within 1e-5 of the value plus 1e-6 of the largest:
+#: float32 through the same GEMMs, the SpMMs' sums in another order (the
+#: segment sum against ``index_add``), 1-2 ulps a step over 3 steps
+REF_FWD = (1e-5, 1e-6)
+#: the loss within 2e-6 relative: its N^2 = 40,000 pairs summed as softplus
+#: sums and an SDDMM against the reference's dense BCE, each about 1e-7
+REF_LOSS = 2e-6
+#: each leaf's gradient within 1e-4 of the value plus 1e-5 of its largest
+#: entry: backward in float32 through three snapshots, the Gram's backward
+#: 2 sigmoid(z z^T) z against autograd's two products (G z and G^T z)
+REF_GRAD = (1e-4, 1e-5)
+#: the parameters after one Adam step within 1e-6 (an entry moves by about
+#: lr = 1e-3 whatever its gradient: 1e-3 of the step's size)
+REF_STEP = 1e-6
+
+
+def _reference_vgrnn():
+    """``gpubench/reference/vgrnn.py``, loaded by path (its imports are
+    ``gpubench/reference``'s own).  ``gpubench`` is on the path only while
+    it loads: left there, its ``tests`` package would shadow this one in
+    the processes that later tests spawn."""
+    import importlib.util
+    import sys
+    from pathlib import Path
+    bench = str(Path(__file__).resolve().parent.parent / "gpubench")
+    sys.path.insert(0, bench)
+    try:
+        spec = importlib.util.spec_from_file_location(
+            "reference.vgrnn", Path(bench) / "reference" / "vgrnn.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+    finally:
+        sys.path.remove(bench)
+    return mod
+
+
+def _ref_window(seed=11):
+    """T symmetric snapshots of weights 1-4 on N = 200 nodes."""
+    rng = np.random.default_rng(seed)
+    mats = []
+    for _ in range(REF_T):
+        a = np.triu((rng.random((REF_N, REF_N)) < 0.03)
+                    * rng.integers(1, 5, (REF_N, REF_N)), 1).astype(float)
+        mats.append(sp.csr_matrix(a + a.T))
+    loader = TDataLoader([f"u{i}" for i in range(REF_N)], REF_T)
+    return mats, (loader.graphs_from_scipy([TD._vgrnn_norm(m) for m in mats],
+                                           adj_backend="segment"),
+                  loader.graphs_from_scipy(mats, adj_backend="segment"))
+
+
+def _ref_compare(monkeypatch, round_z=None):
+    """The port against the reference on seeded weights and noise: at each
+    snapshot enc_mean and z, the VAE loss of two batches that carry h,
+    every leaf's gradient summed over both, and every leaf after one Adam
+    step.  ``round_z`` rounds z before the port's Gram (its gradient passed
+    straight through).  Returns the names of the comparisons that fail."""
+    ref = _reference_vgrnn()
+    monkeypatch.setattr(TL, "GRAM_CHUNK_ELEMS", REF_ROWS * REF_N)
+    monkeypatch.setattr(ref, "CHUNK_ELEMS", REF_ROWS * REF_N)
+    assert len(TL._row_chunks(REF_N)) == 5
+    if round_z is not None:
+        orig = TL.softplus_gram_sum
+        monkeypatch.setattr(TL, "softplus_gram_sum", lambda z: orig(
+            z + (z.to(round_z).float() - z).detach()))
+    from reference.nn import init_params
+    mats, (conv, targets) = _ref_window()
+    cfg = {"hid_dim": REF_HID, "embed_dim": REF_EMB, "conv_type": "GCN",
+           "bias": True, "eps": EPS}
+    params0 = init_params(ref.param_spec(cfg, REF_N), 5, "cpu")
+    prep = ref.prepare(mats, cfg, "cpu")
+    gen = torch.Generator().manual_seed(6)
+    noise = [[torch.randn(REF_N, REF_EMB, generator=gen)
+              for _ in range(REF_T)] for _ in range(2)]
+    model = TV.VGRNN(REF_N, REF_HID, REF_EMB)
+    model.load_state_dict(params0)
+    opt = TE.make_optimizer(list(model.parameters()), REF_LR, REF_WD)
+    data = {"xs": None, "vgrnn_adjs": conv, "adjs": targets}
+    loss_fn = TD._vae_loss_fn_stateful(
+        lambda m, d, g, hx: TD._vgrnn_forward(m, d, hx=hx, noise=next(it)),
+        EPS)
+    params = {k: v.clone().requires_grad_() for k, v in params0.items()}
+    ref_opt = torch.optim.Adam(list(params.values()), lr=REF_LR,
+                               weight_decay=REF_WD, eps=1e-8)
+    failed = []
+
+    def check(name, got, want, rtol, atol):
+        if not torch.allclose(got, want, rtol=rtol, atol=atol):
+            failed.append(name)
+
+    it = iter(noise)
+    h = TD._vgrnn_state_init(model, data)
+    ref_h = None
+    for b in range(2):
+        with torch.no_grad():
+            em, _, (_, _, _, _, z) = TD._vgrnn_forward(
+                model, data, hx=h, noise=noise[b])
+            outs, _ = ref.run(params, prep, cfg, noise[b], ref_h)
+        for t in range(REF_T):
+            scale = outs[t][0].abs().max()
+            check(f"enc_mean {b}.{t}", em[t], outs[t][0], REF_FWD[0],
+                  REF_FWD[1] * scale)
+            check(f"z {b}.{t}", z[t], outs[t][4], REF_FWD[0],
+                  REF_FWD[1] * outs[t][4].abs().max())
+        loss, h = loss_fn(model, data, None, None, None, h)
+        loss.backward()
+        h = h.detach()
+        outs, ref_h = ref.run(params, prep, cfg, noise[b], ref_h)
+        ref_loss = ref.vae_loss(outs, prep, cfg)
+        ref_loss.backward()
+        ref_h = ref_h.detach()
+        check(f"loss {b}", loss.detach(), ref_loss.detach(), REF_LOSS, 0)
+    named = dict(model.named_parameters())
+    assert sorted(named) == sorted(params)
+    for k, p in params.items():
+        check(f"grad {k}", named[k].grad, p.grad, REF_GRAD[0],
+              REF_GRAD[1] * p.grad.abs().max())
+    opt.step()
+    ref_opt.step()
+    for k, p in params.items():
+        check(f"step {k}", named[k].detach(), p.detach(), 0, REF_STEP)
+    return failed
+
+
+def test_port_equals_the_benchmark_reference(monkeypatch):
+    """VGRNN through ``TD._vae_loss_fn_stateful``, the U-own loss, against
+    the benchmark's plain reference, in 5 Gram chunks on both sides: every
+    comparison within its tolerance (the constants' comments)."""
+    assert _ref_compare(monkeypatch) == []
+
+
+def test_a_bf16_gram_fails_the_reference(monkeypatch):
+    """z rounded to bf16 before the Gram (the configuration states
+    float32) fails the comparison: the loss and the leaves' gradients move
+    by far more than their tolerances."""
+    failed = _ref_compare(monkeypatch, round_z=torch.bfloat16)
+    assert any(f.startswith("loss") for f in failed), failed
+    assert any(f.startswith("grad") for f in failed), failed
+
+
+def test_noise_draws_equal_the_inline_draw():
+    """``_noise`` draws what the forward drew inline before it had a
+    function of its own: ``torch.randn`` of [N, embed] from the generator,
+    in the weight's dtype and device, bit for bit; and the forward draws
+    one a snapshot, in order."""
+    like = torch.zeros(3, dtype=torch.float32)
+    g1, g2 = (torch.Generator().manual_seed(13) for _ in range(2))
+    for n, d in ((N, EMB), (7, 3)):
+        want = torch.randn(n, d, generator=g1, device=like.device,
+                           dtype=like.dtype)
+        assert torch.equal(TV._noise(n, d, g2, like), want)
+    tg, _, _, _ = _window()
+    model = TV.VGRNN(N, HID, EMB, generator=torch.Generator().manual_seed(2))
+    g = torch.Generator().manual_seed(14)
+    drawn = [torch.randn(N, EMB, generator=g) for _ in range(T)]
+    with torch.no_grad():
+        got = model(None, tg, generator=torch.Generator().manual_seed(14))
+        want = model(None, tg, noise=drawn)
+    assert all(torch.equal(a, b) for a, b in zip(got[2], want[2]))
+
+
+def test_vae_loss_spans_and_counters(monkeypatch):
+    """While tracing: the loss's forward and backward are ``loss`` spans,
+    each holding one ``gram`` span a snapshot; the counters read the
+    pairs, chunks and nonzeros of the calls; off, the loss is
+    bit-equal and keeps no span."""
+    from ctgcn_torch.training import profiling
+    monkeypatch.setattr(TL, "GRAM_CHUNK_ELEMS", 10 * N)
+    _, targets, _, _ = _window()
+    inputs = _loss_inputs(7)
+
+    def run():
+        tin = [torch.from_numpy(a).requires_grad_() for a in inputs]
+        loss = TL.vae_loss(*tin, targets, eps=EPS)
+        loss.backward()
+        return loss.detach(), [x.grad for x in tin]
+
+    last = profiling.last_trace()
+    before = {k: profiling.counter(k) for k in (
+        "vae.gram_pairs_fwd", "vae.gram_pairs_bwd", "vae.gram_chunks",
+        "vae.sddmm_nnz")}
+    off = run()
+    assert profiling.last_trace() is last
+    with profiling.tracing("cpu") as trace:
+        on = run()
+    assert torch.equal(on[0], off[0])
+    assert all(torch.equal(a, b) for a, b in zip(on[1], off[1]))
+    spans = trace.spans
+    assert [s.name for s in spans] == (["loss"] + ["gram"] * T) * 2
+    fwd, bwd = spans[0], spans[T + 1]
+    assert all(spans[s.parent] is fwd for s in spans[1:T + 1])
+    assert all(spans[s.parent] is bwd for s in spans[T + 2:])
+    assert bwd.start_ns >= fwd.end_ns and bwd.end_ns >= spans[-1].end_ns
+    nnz = sum(g.vals.numel() for g in targets)
+    chunks = -(-N // 10)
+    assert trace.counters == {
+        "vae.gram_pairs_fwd": T * N * N, "vae.gram_pairs_bwd": T * N * N,
+        "vae.gram_chunks": 2 * T * chunks, "vae.sddmm_nnz": nnz}
+    # off, the counters count too
+    assert profiling.counter("vae.gram_pairs_fwd") == (
+        before["vae.gram_pairs_fwd"] + 2 * T * N * N)
